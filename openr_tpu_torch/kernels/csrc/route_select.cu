@@ -1,0 +1,175 @@
+// Multi-area best-route selection for Hopper (sm_90a).
+//
+// Replaces the jitted XLA kernel of the JAX package
+//   openr_tpu/ops/route_select.py:267 multi_area_select_from_tables
+// (SpfSolver.cpp:161-312, 456-556; LsdbUtil.cpp:761-823), computed for
+// every prefix row p over its C candidate advertisements:
+//   1. reach: candidate ok and its node reached by SPF in its own area
+//   2. hard-drain filter with all-drained fallback
+//   3. keep-max of not-drained, path_pref, source_pref (ties kept)
+//   4. keep-min of distance, globally or within each area
+//   5. per area: min SPF metric over the winners' node names resolved in
+//      that area (only areas holding a winner advertisement), and the
+//      union of the min-cost winners' first-hop lanes
+// Outputs: use [P, C], shortest [P, A] f32, lanes [P, A, D], valid [P, A]
+// (bool tensors, one byte each).
+//
+// Design: one thread per row, looping over C, A and D; the row's
+// candidate sets are bitmasks in a register (C <= 64, the largest
+// candidate bucket).  What bounds it: bytes.  Each row reads its [C] and
+// [C, A] candidate columns once and writes its outputs once; the SPF
+// tables it gathers from are small and stay in L2.
+//
+// Traps reproduced exactly:
+//   * keep_max starts from INT32_MIN, keep_min from INT32_MAX, and both
+//     keep ties (key == best).
+//   * the lane union is the reference's einsum(mc, nh) > 0: a SUM over
+//     the min-cost winners, then > 0 — not a bitwise OR.  A winner whose
+//     lane row holds the int8 -128 fill (a root with no in-edges) cancels
+//     exactly as it does there, so the sum is kept in int32.
+//   * distances compare against BIG and +inf exactly: never built with
+//     --use_fast_math.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint64_t bit(int c) { return 1ull << c; }
+
+// keep the candidates of `mask` whose key equals the mask's max key
+__device__ __forceinline__ uint64_t keep_max(uint64_t mask, const int32_t* key,
+                                             int C) {
+  int32_t best = INT32_MIN;
+  for (int c = 0; c < C; ++c)
+    if ((mask & bit(c)) && key[c] > best) best = key[c];
+  uint64_t out = 0;
+  for (int c = 0; c < C; ++c)
+    if ((mask & bit(c)) && key[c] == best) out |= bit(c);
+  return out;
+}
+
+__global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
+    const float* __restrict__ dist, const int8_t* __restrict__ nh,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
+    const int32_t* __restrict__ cand_area, const int32_t* __restrict__ cand_node,
+    const uint8_t* __restrict__ cand_ok,
+    const int32_t* __restrict__ drain_metric,
+    const int32_t* __restrict__ path_pref,
+    const int32_t* __restrict__ source_pref,
+    const int32_t* __restrict__ distance,
+    const int32_t* __restrict__ cand_node_in_area, uint8_t* __restrict__ use_out,
+    float* __restrict__ shortest_out, uint8_t* __restrict__ lanes_out,
+    uint8_t* __restrict__ valid_out, int P, int C, int A, int V, int D,
+    int per_area, float big) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const size_t row = (size_t)p * C;
+  const int32_t* area = cand_area + row;
+
+  // 1-2. reachability, hard-drain filter with all-drained fallback, and
+  // the not-drained key (advertised drain metric or soft-drained node)
+  uint64_t reach = 0, nonhard = 0;
+  int32_t not_drained[64];
+  for (int c = 0; c < C; ++c) {
+    const size_t node = (size_t)area[c] * V + cand_node[row + c];
+    if (cand_ok[row + c] && dist[node] < big) {
+      reach |= bit(c);
+      if (!overloaded[node]) nonhard |= bit(c);
+    }
+    not_drained[c] = !(drain_metric[row + c] > 0 || soft[node] > 0);
+  }
+  uint64_t use = nonhard ? nonhard : reach;
+
+  // 3. metric chain
+  use = keep_max(use, not_drained, C);
+  use = keep_max(use, path_pref + row, C);
+  use = keep_max(use, source_pref + row, C);
+
+  // 4. SHORTEST_DISTANCE, globally or per area
+  const int32_t* dd = distance + row;
+  uint64_t kept = 0;
+  if (per_area) {
+    for (int c = 0; c < C; ++c) {
+      if (!(use & bit(c))) continue;
+      int32_t best = INT32_MAX;
+      for (int c2 = 0; c2 < C; ++c2)
+        if ((use & bit(c2)) && area[c2] == area[c] && dd[c2] < best) best = dd[c2];
+      if (dd[c] == best) kept |= bit(c);
+    }
+  } else {
+    int32_t best = INT32_MAX;
+    for (int c = 0; c < C; ++c)
+      if ((use & bit(c)) && dd[c] < best) best = dd[c];
+    for (int c = 0; c < C; ++c)
+      if ((use & bit(c)) && dd[c] == best) kept |= bit(c);
+  }
+  use = kept;
+  for (int c = 0; c < C; ++c) use_out[row + c] = (use >> c) & 1;
+
+  // 5. per-area min-cost winners and their lane union
+  for (int a = 0; a < A; ++a) {
+    bool has_winner = false;
+    for (int c = 0; c < C; ++c)
+      if ((use & bit(c)) && area[c] == a) has_winner = true;
+    float shortest = big;
+    uint64_t reached = 0;
+    if (has_winner) {
+      for (int c = 0; c < C; ++c) {
+        if (!(use & bit(c))) continue;
+        const int n = cand_node_in_area[(row + c) * A + a];
+        if (n < 0) continue;
+        const float m = dist[(size_t)a * V + n];
+        if (m < big) {
+          reached |= bit(c);
+          shortest = fminf(shortest, m);
+        }
+      }
+    }
+    uint64_t mc = 0;
+    for (int c = 0; c < C; ++c) {
+      if (!(reached & bit(c))) continue;
+      const int n = cand_node_in_area[(row + c) * A + a];
+      if (dist[(size_t)a * V + n] == shortest) mc |= bit(c);
+    }
+    const size_t out = (size_t)p * A + a;
+    int num_nh = 0;
+    for (int l = 0; l < D; ++l) {
+      int32_t hits = 0;
+      for (int c = 0; c < C; ++c) {
+        if (!(mc & bit(c))) continue;
+        const int n = cand_node_in_area[(row + c) * A + a];
+        hits += nh[((size_t)a * V + n) * D + l];
+      }
+      lanes_out[out * D + l] = hits > 0;
+      num_nh += hits > 0;
+    }
+    shortest_out[out] = shortest;
+    valid_out[out] = mc != 0 && num_nh > 0;
+  }
+}
+
+}  // namespace
+
+extern "C" int openr_multi_area_select(
+    const void* dist, const void* nh, const void* overloaded, const void* soft,
+    const void* cand_area, const void* cand_node, const void* cand_ok,
+    const void* drain_metric, const void* path_pref, const void* source_pref,
+    const void* distance, const void* cand_node_in_area, void* use,
+    void* shortest, void* lanes, void* valid, int P, int C, int A, int V,
+    int D, int per_area, float big, void* stream) {
+  if (C > 64) return (int)cudaErrorInvalidValue;
+  if (P == 0) return (int)cudaSuccess;
+  const int blocks = (P + kThreads - 1) / kThreads;
+  multi_area_select_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
+      (const int32_t*)soft, (const int32_t*)cand_area,
+      (const int32_t*)cand_node, (const uint8_t*)cand_ok,
+      (const int32_t*)drain_metric, (const int32_t*)path_pref,
+      (const int32_t*)source_pref, (const int32_t*)distance,
+      (const int32_t*)cand_node_in_area, (uint8_t*)use, (float*)shortest,
+      (uint8_t*)lanes, (uint8_t*)valid, P, C, A, V, D, per_area, big);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,366 @@
+"""Topology encoding: LinkState graphs → padded numpy arrays (cold path).
+
+The host↔device bridge of the route build.  Node names are interned to
+dense int ids, bidirectional links become two directed edges carrying the
+soft-drain MAX metric (LinkState.cpp:789 semantics), and everything is
+padded to shape buckets.  The SPF kernels read the **dense in-edge
+matrix**: slot ``(v, k)`` holds the k-th directed edge INTO v in
+dst-sorted edge order, so a relaxation round is a gather ``d[in_src] +
+in_w`` and a min over K — no scatter.
+
+This is the numpy encoder of ``openr_tpu.ops.csr`` (``encode_link_state``
+/ ``encode_multi_area``) and produces the same arrays bit for bit; the
+reference's incremental patch/slot encoders and its native fill are not
+part of this package.
+
+Layout (single topology; the multi-area encoding stacks a leading area
+axis):
+  * ``src[E], dst[E]`` int32 directed edge endpoints, dst-sorted, padding
+    edges at the tail with ``src = dst = V_pad - 1``
+  * ``w[E]`` float32 edge metric; ``INF`` for padding/down links
+  * ``edge_ok[E]`` bool validity (up, usable, not padding)
+  * ``link_index[E]`` int32 undirected link id (-1 pad)
+  * ``overloaded[V]`` bool node hard-drain bits, ``soft[V]`` int32 node
+    soft-drain increments
+  * ``in_src/in_w/in_ok/in_rank [V, K]`` the dense in-edge matrix and
+    ``in_has[V]`` (v appears in the padded ``dst`` at all)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from openr_tpu_torch.decision.link_state import Link, LinkState
+
+INF = np.float32(np.inf)
+
+#: in-degree buckets for the dense in-edge matrix (K axis).  Beyond the
+#: largest bucket the dense layout is declined (fields stay None).
+IN_DEGREE_BUCKETS = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def bucket_for(value: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if value <= b:
+            return b
+    raise ValueError(f"{value} exceeds largest bucket {buckets[-1]}")
+
+
+@dataclasses.dataclass
+class EncodedTopology:
+    """Device-ready arrays + host-side decode tables for ONE topology."""
+
+    src: np.ndarray  # [E] int32
+    dst: np.ndarray  # [E] int32
+    w: np.ndarray  # [E] float32
+    edge_ok: np.ndarray  # [E] bool
+    overloaded: np.ndarray  # [V] bool
+    soft: np.ndarray  # [V] int32
+    link_index: np.ndarray  # [E] int32 (undirected link id, -1 pad)
+
+    # host decode tables
+    node_ids: Dict[str, int]
+    id_to_node: List[str]
+    links: List[Link]  # undirected link objects by link id
+    num_nodes: int
+    num_edges: int  # valid directed edges
+
+    # dense in-edge matrix; all None when the max in-degree exceeds
+    # IN_DEGREE_BUCKETS.  ``in_rank`` is the src node's out-edge rank of
+    # the edge (rank among edges sharing the same src, in edge order) —
+    # the nexthop lane id whenever ``in_src == root``.  ``in_has`` marks
+    # vertices present in the padded dst[]: the reference's segment
+    # kernels leave int8-min (-128) in lane rows of absent dsts, and the
+    # dense kernels reproduce that exactly.
+    in_src: Optional[np.ndarray] = None  # [V, K] int32 (0 on padding)
+    in_w: Optional[np.ndarray] = None  # [V, K] float32 (INF pad/down)
+    in_ok: Optional[np.ndarray] = None  # [V, K] bool
+    in_rank: Optional[np.ndarray] = None  # [V, K] int32 (-1 = no lane)
+    in_has: Optional[np.ndarray] = None  # [V] bool
+
+    @property
+    def has_dense(self) -> bool:
+        return self.in_src is not None
+
+    @property
+    def padded_nodes(self) -> int:
+        return int(self.overloaded.shape[0])
+
+    def node_id(self, name: str) -> int:
+        return self.node_ids[name]
+
+    def root_out_edges(self, root: str) -> List[Tuple[Link, str]]:
+        """Lane r of the nexthop bitmask (for SPF rooted at `root`)
+        corresponds to the r-th directed edge with src == root, in edge
+        order.  Returns [(link, neighbor_node_name)] by lane; a root
+        absent from this area's graph has no lanes."""
+        rid = self.node_ids.get(root)
+        if rid is None:
+            return []
+        idx = np.nonzero((self.src == rid) & (self.link_index >= 0))[0]
+        return [
+            (self.links[self.link_index[e]], self.id_to_node[self.dst[e]])
+            for e in idx
+        ]
+
+    def max_out_degree(self) -> int:
+        valid = self.link_index >= 0
+        if not valid.any():
+            return 0
+        counts = np.bincount(self.src[valid], minlength=self.padded_nodes)
+        return int(counts.max())
+
+
+def build_in_edge_matrix(
+    src: np.ndarray,
+    dst: np.ndarray,
+    w: np.ndarray,
+    edge_ok: np.ndarray,
+    link_index: np.ndarray,
+    padded_v: int,
+    in_degree_bucket: Optional[int] = None,
+):
+    """Dense in-edge layout for dst-sorted edge arrays.
+
+    Returns ``(in_src, in_w, in_ok, in_rank, in_has)`` or None when the
+    max in-degree exceeds the largest bucket.  Every REAL edge
+    (``link_index >= 0``) owns a slot, down links included; padding slots
+    read ``in_ok=False, in_w=INF`` and gather node 0."""
+    valid = np.nonzero(link_index >= 0)[0]
+    n = len(valid)
+    max_in = int(np.bincount(dst[valid], minlength=padded_v).max()) if n else 0
+    try:
+        K = in_degree_bucket or bucket_for(max(max_in, 1), IN_DEGREE_BUCKETS)
+    except ValueError:
+        return None
+    if K < max_in:
+        return None
+    in_src = np.zeros((padded_v, K), np.int32)
+    in_w = np.full((padded_v, K), INF, np.float32)
+    in_ok = np.zeros((padded_v, K), bool)
+    in_rank = np.full((padded_v, K), -1, np.int32)
+    if n:
+        d = dst[valid]
+        # edges are dst-sorted, so each dst's run is contiguous: slot k
+        # = position within the run (first-occurrence searchsorted)
+        run_start = np.searchsorted(d, d, side="left")
+        flat = d.astype(np.int64) * K + (np.arange(n) - run_start)
+        s = src[valid]
+        # out-edge rank per edge: index among same-src edges in edge
+        # order (a stable sort by src preserves position order)
+        order = np.argsort(s, kind="stable")
+        s_sorted = s[order]
+        first = np.searchsorted(s_sorted, s_sorted, side="left")
+        rank = np.empty(n, np.int32)
+        rank[order] = (np.arange(n) - first).astype(np.int32)
+        in_src.flat[flat] = s
+        in_w.flat[flat] = w[valid]
+        in_ok.flat[flat] = edge_ok[valid]
+        in_rank.flat[flat] = rank
+    in_has = np.bincount(dst, minlength=padded_v) > 0
+    return in_src, in_w, in_ok, in_rank, in_has
+
+
+def encode_link_state(
+    link_state: LinkState,
+    node_bucket: Optional[int] = None,
+    edge_bucket: Optional[int] = None,
+    node_buckets: Sequence[int] = (16, 64, 256, 1024, 4096, 16384),
+    edge_multiplier: int = 8,
+    extra_nodes: Sequence[str] = (),
+    in_degree_bucket: Optional[int] = None,
+) -> EncodedTopology:
+    """Encode one LinkState area graph.
+
+    Only up/usable links are emitted as valid edges (interface hard-drain
+    excluded here, exactly as Link::isUp excludes them from SPF).  Node
+    hard/soft drain bits ride separately.  `extra_nodes` forces
+    symbol-table entries for nodes known to other modules (e.g. the SPF
+    root in an area where it has no adjacencies)."""
+    names = sorted(
+        set(link_state.get_adjacency_databases().keys()) | set(extra_nodes)
+    )
+    node_ids = {n: i for i, n in enumerate(names)}
+    V = len(names)
+    padded_v = node_bucket or bucket_for(max(V, 1), node_buckets)
+
+    links = link_state.all_links()
+    L = len(links)
+    col_a = np.fromiter((node_ids[l.n1] for l in links), np.int32, L)
+    col_b = np.fromiter((node_ids[l.n2] for l in links), np.int32, L)
+    col_m = np.fromiter((l.get_max_metric() for l in links), np.float32, L)
+    col_ok = np.fromiter((l.is_up() for l in links), bool, L)
+
+    E = 2 * L
+    padded_e = edge_bucket or bucket_for(
+        max(E, 1), [b * edge_multiplier for b in node_buckets]
+    )
+    if padded_v < V:
+        raise ValueError(f"node bucket {padded_v} < {V} nodes")
+    if padded_e < E:
+        raise ValueError(f"edge bucket {padded_e} < {E} directed edges")
+    # the DAG-equality nexthop propagation assumes strictly positive
+    # metrics (a 0-cost edge would union lanes across equidistant nodes
+    # where heap Dijkstra keeps them distinct)
+    if np.any(col_ok & (col_m <= 0)):
+        raise ValueError(
+            "non-positive metric on an up link; device SPF requires "
+            "metrics >= 1"
+        )
+
+    # padding endpoints use the highest padded node id so the dst-sort
+    # below leaves padding at the tail (lane-rank correctness for root 0)
+    pad_node = padded_v - 1
+    src = np.full(padded_e, pad_node, np.int32)
+    dst = np.full(padded_e, pad_node, np.int32)
+    w = np.full(padded_e, INF, np.float32)
+    edge_ok = np.zeros(padded_e, bool)
+    link_index = np.full(padded_e, -1, np.int32)
+    src[:E:2], dst[:E:2] = col_a, col_b
+    src[1:E:2], dst[1:E:2] = col_b, col_a
+    m_dir = np.where(col_ok, col_m, INF)
+    w[:E:2] = m_dir
+    w[1:E:2] = m_dir
+    edge_ok[:E:2] = col_ok
+    edge_ok[1:E:2] = col_ok
+    link_index[:E:2] = np.arange(L, dtype=np.int32)
+    link_index[1:E:2] = np.arange(L, dtype=np.int32)
+
+    overloaded = np.zeros(padded_v, bool)
+    soft = np.zeros(padded_v, np.int32)
+    for n, i in node_ids.items():
+        overloaded[i] = link_state.is_node_overloaded(n)
+        soft[i] = link_state.get_node_metric_increment(n)
+
+    # canonical layout: edges sorted by dst (stable, so each dst's run
+    # keeps edge order and padding stays at the tail)
+    order = np.argsort(dst, kind="stable")
+    src = src[order]
+    dst = dst[order]
+    w = w[order]
+    edge_ok = edge_ok[order]
+    link_index = link_index[order]
+
+    dense = build_in_edge_matrix(
+        src, dst, w, edge_ok, link_index, padded_v, in_degree_bucket
+    )
+    in_src = in_w = in_ok = in_rank = in_has = None
+    if dense is not None:
+        in_src, in_w, in_ok, in_rank, in_has = dense
+
+    return EncodedTopology(
+        src=src,
+        dst=dst,
+        w=w,
+        edge_ok=edge_ok,
+        overloaded=overloaded,
+        soft=soft,
+        link_index=link_index,
+        node_ids=node_ids,
+        id_to_node=names,
+        links=links,
+        num_nodes=V,
+        num_edges=E,
+        in_src=in_src,
+        in_w=in_w,
+        in_ok=in_ok,
+        in_rank=in_rank,
+        in_has=in_has,
+    )
+
+
+@dataclasses.dataclass
+class EncodedMultiArea:
+    """Per-area EncodedTopologies padded to COMMON buckets + stacked
+    arrays (leading axis = area, in `areas` order)."""
+
+    areas: List[str]
+    topos: List[EncodedTopology]
+    overloaded: np.ndarray  # [A, V]
+    soft: np.ndarray  # [A, V]
+    roots: np.ndarray  # [A] my node id per area
+    #: stacked dense in-edge planes (None when any area declined the
+    #: dense layout)
+    in_src: Optional[np.ndarray] = None  # [A, V, K]
+    in_w: Optional[np.ndarray] = None  # [A, V, K]
+    in_ok: Optional[np.ndarray] = None  # [A, V, K]
+    in_rank: Optional[np.ndarray] = None  # [A, V, K]
+    in_has: Optional[np.ndarray] = None  # [A, V]
+
+    @property
+    def has_dense(self) -> bool:
+        return self.in_src is not None
+
+    @property
+    def num_areas(self) -> int:
+        return len(self.areas)
+
+    def max_out_degree(self) -> int:
+        return max((t.max_out_degree() for t in self.topos), default=0)
+
+
+def encode_multi_area(
+    area_link_states,
+    me: str,
+    node_buckets: Sequence[int] = (16, 64, 256, 1024, 4096, 16384),
+    edge_multiplier: int = 8,
+) -> EncodedMultiArea:
+    """Encode all areas to common node/edge buckets so the kernels' area
+    axis is a clean batch dim.  `me` is interned into every area's symbol
+    table (even where it has no adjacencies) so per-area SPF roots always
+    resolve — an area where I'm isolated yields dist=[0 at me, BIG else],
+    exactly the scalar get_spf_result(me) semantics there."""
+    areas = sorted(area_link_states.keys())
+    sizes_v = []
+    sizes_e = []
+    for a in areas:
+        ls = area_link_states[a]
+        sizes_v.append(len(set(ls.get_adjacency_databases().keys()) | {me}))
+        sizes_e.append(2 * len(ls.all_links()))
+    edge_buckets = [b * edge_multiplier for b in node_buckets]
+    pv = bucket_for(max(max(sizes_v), 1), node_buckets)
+    pe = bucket_for(max(max(sizes_e), 1), edge_buckets)
+    topos = [
+        encode_link_state(
+            area_link_states[a],
+            node_bucket=pv,
+            edge_bucket=pe,
+            extra_nodes=(me,),
+        )
+        for a in areas
+    ]
+    return EncodedMultiArea(
+        areas=areas,
+        topos=topos,
+        overloaded=np.stack([t.overloaded for t in topos]),
+        soft=np.stack([t.soft for t in topos]),
+        roots=np.asarray([t.node_id(me) for t in topos], np.int32),
+        **_stack_dense(topos),
+    )
+
+
+def _stack_dense(topos: List[EncodedTopology]) -> dict:
+    """Stack per-area dense in-edge planes to a common K bucket; {} when
+    any area declined the dense layout."""
+    if not topos or not all(t.has_dense for t in topos):
+        return {}
+    K = max(t.in_src.shape[1] for t in topos)
+
+    def widen(a, fill):
+        pad = K - a.shape[1]
+        if not pad:
+            return a
+        return np.concatenate(
+            [a, np.full((a.shape[0], pad), fill, a.dtype)], axis=1
+        )
+
+    return dict(
+        in_src=np.stack([widen(t.in_src, 0) for t in topos]),
+        in_w=np.stack([widen(t.in_w, INF) for t in topos]),
+        in_ok=np.stack([widen(t.in_ok, False) for t in topos]),
+        in_rank=np.stack([widen(t.in_rank, -1) for t in topos]),
+        in_has=np.stack([t.in_has for t in topos]),
+    )

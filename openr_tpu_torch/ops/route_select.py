@@ -1,0 +1,212 @@
+"""Per-area SPF tables and multi-area best-route selection — the
+counterpart of ``openr_tpu/ops/route_select.py``'s
+``multi_area_spf_tables_dense`` and ``multi_area_select_from_tables``.
+
+Selection implements SpfSolver's per-prefix semantics
+(SpfSolver.cpp:161-312, 456-556; LsdbUtil.cpp:761-823) over [P] prefix
+rows × [C] candidate advertisements, given each area's SPF tables from
+me (dist [A, V], nexthop lanes [A, V, D]):
+
+  1. reachability filter (candidate node reached by SPF in its own area)
+  2. hard-drain filter with all-drained fallback (filterHardDrainedNodes)
+  3. metric chain: NOT drained (drain_metric or node soft-drained)
+     ▸ higher path_preference ▸ higher source_preference
+  4. SHORTEST_DISTANCE on metrics.distance, globally or per area
+  5. per area (only areas holding a winner advertisement): the min SPF
+     metric over the winners' node names, and the union of the min-cost
+     winners' first-hop lanes
+
+The host does skip-if-self, the min-nexthop gate and the cross-area
+min-metric merge during decode.  ``multi_area_select_from_tables``
+dispatches on the device of its inputs: the hand-written kernel
+(``kernels/csrc/route_select.cu``) for CUDA tensors, the plain version
+for CPU tensors, never a fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Tuple
+
+import torch
+
+from openr_tpu_torch.kernels import LAUNCHES
+from openr_tpu_torch.kernels.build import (
+    check_launch,
+    check_tensor,
+    function,
+    ptr,
+    stream,
+)
+from openr_tpu_torch.ops.consts import BIG
+from openr_tpu_torch.ops.spf import dense_spf_one
+
+I32_MIN = -(2**31)
+I32_MAX = 2**31 - 1
+
+#: the kernel holds a row's candidate sets as 64-bit masks
+MAX_KERNEL_CANDIDATES = 64
+
+
+def multi_area_spf_tables_dense(
+    in_src,  # [A, V, K] dense in-edge sources (ops/csr.py)
+    in_w,  # [A, V, K]
+    in_ok,  # [A, V, K]
+    in_rank,  # [A, V, K] out-edge rank of each in-edge (-1 = none)
+    in_has,  # [A, V]
+    overloaded,  # [A, V]
+    roots,  # [A]
+    max_degree: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-area SPF from me → (dist [A, V] f32, nh [A, V, D] int8)."""
+    return dense_spf_one(
+        in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max_degree
+    )
+
+
+def multi_area_select_from_tables_plain(
+    dist,  # [A, V] SPF distances from me, per area
+    nh,  # [A, V, D] first-hop lane sets from me, per area
+    overloaded,  # [A, V]
+    soft,  # [A, V]
+    cand_area,  # [P, C] int32 area index of each candidate advertisement
+    cand_node,  # [P, C] int32 node id in the candidate's OWN area
+    cand_ok,  # [P, C] bool
+    drain_metric,  # [P, C] int32
+    path_pref,  # [P, C] int32
+    source_pref,  # [P, C] int32
+    distance,  # [P, C] int32
+    cand_node_in_area,  # [P, C, A] int32 (-1 = absent from that area)
+    per_area_distance: bool,  # PER_AREA_SHORTEST_DISTANCE algorithm
+):
+    """Returns (use [P, C] bool, shortest [P, A] f32, lanes [P, A, D]
+    bool, valid [P, A] bool)."""
+    A = dist.shape[0]
+    dev = dist.device
+    big = torch.tensor(BIG, dtype=torch.float32, device=dev)
+    ca = cand_area.long()
+    cn = cand_node.long()
+
+    # global best-route selection chain (LsdbUtil.cpp:761-823)
+    cdist_own = dist[ca, cn]  # [P, C] metric in own area
+    reach = cand_ok & (cdist_own < big)
+    hard = overloaded[ca, cn]
+    nonhard = reach & ~hard
+    use = torch.where(nonhard.any(dim=1, keepdim=True), nonhard, reach)
+    drained = (drain_metric > 0) | (soft[ca, cn] > 0)
+    not_drained = (~drained).to(torch.int32)
+
+    def keep_max(mask, key):
+        fill = torch.tensor(I32_MIN, dtype=key.dtype, device=dev)
+        best = torch.where(mask, key, fill).amax(dim=1, keepdim=True)
+        return mask & (key == best)
+
+    use = keep_max(use, not_drained)
+    use = keep_max(use, path_pref)
+    use = keep_max(use, source_pref)
+    imax = torch.tensor(I32_MAX, dtype=distance.dtype, device=dev)
+    if per_area_distance:
+        # min distance within each area's surviving candidates
+        same = ca[:, :, None] == ca[:, None, :]  # [P, C, C]
+        key = torch.where(use[:, None, :] & same, distance[:, None, :], imax)
+        use = use & (distance == key.amin(dim=2))
+    else:
+        best = torch.where(use, distance, imax).amin(dim=1, keepdim=True)
+        use = use & (distance == best)
+
+    # per-area nexthop lane sets over the winner node names — only in
+    # areas that contain a winner ADVERTISEMENT (areas_with_best,
+    # SpfSolver.cpp:276-283)
+    area_ids = torch.arange(A, device=dev)
+    area_has_winner = (use[:, :, None] & (ca[:, :, None] == area_ids)).any(dim=1)
+    cnia_ok = cand_node_in_area >= 0  # [P, C, A]
+    cnia = cand_node_in_area.clamp(min=0).long()
+    ddist = dist[area_ids[None, None, :], cnia]  # [P, C, A]
+    dmask = use[:, :, None] & cnia_ok & (ddist < big) & area_has_winner[:, None, :]
+    shortest = torch.where(dmask, ddist, big).amin(dim=1)  # [P, A]
+    mc = dmask & (ddist == shortest[:, None, :])  # [P, C, A] min-cost dsts
+    # the reference's einsum(mc, nh) > 0: a SUM over min-cost winners (an
+    # int8 -128 fill row cancels), kept exact in int32
+    nh_g = nh[area_ids[None, None, :], cnia]  # [P, C, A, D]
+    hits = (mc[..., None].to(torch.int32) * nh_g.to(torch.int32)).sum(dim=1)
+    lanes = hits > 0  # [P, A, D]
+    valid = mc.any(dim=1) & (lanes.sum(dim=2) > 0)
+    return use, shortest, lanes, valid
+
+
+def multi_area_select_from_tables_launcher(
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+    path_pref, source_pref, distance, cand_node_in_area, per_area_distance: bool,
+) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """Check the inputs, allocate the outputs and bind the kernel once.
+
+    Returns ``(launch, (use, shortest, lanes, valid))``: each ``launch()``
+    enqueues the kernel on the current stream (no synchronize), writes the
+    four outputs and counts one launch."""
+    dev = dist.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called on {dev}")
+    A, V = dist.shape
+    D = nh.shape[2]
+    P, C = cand_area.shape
+    if C > MAX_KERNEL_CANDIDATES:
+        raise ValueError(f"{C} candidates exceed the kernel's {MAX_KERNEL_CANDIDATES}")
+    check_tensor("dist", dist, torch.float32, (A, V), dev)
+    check_tensor("nh", nh, torch.int8, (A, V, D), dev)
+    check_tensor("overloaded", overloaded, torch.bool, (A, V), dev)
+    check_tensor("soft", soft, torch.int32, (A, V), dev)
+    for name, t in (("cand_area", cand_area), ("cand_node", cand_node),
+                    ("drain_metric", drain_metric), ("path_pref", path_pref),
+                    ("source_pref", source_pref), ("distance", distance)):
+        check_tensor(name, t, torch.int32, (P, C), dev)
+    check_tensor("cand_ok", cand_ok, torch.bool, (P, C), dev)
+    check_tensor("cand_node_in_area", cand_node_in_area, torch.int32, (P, C, A), dev)
+    use = torch.empty((P, C), dtype=torch.bool, device=dev)
+    shortest = torch.empty((P, A), dtype=torch.float32, device=dev)
+    lanes = torch.empty((P, A, D), dtype=torch.bool, device=dev)
+    valid = torch.empty((P, A), dtype=torch.bool, device=dev)
+    fn = function(
+        "route_select",
+        "openr_multi_area_select",
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    args = (
+        ptr(dist), ptr(nh), ptr(overloaded), ptr(soft), ptr(cand_area),
+        ptr(cand_node), ptr(cand_ok), ptr(drain_metric), ptr(path_pref),
+        ptr(source_pref), ptr(distance), ptr(cand_node_in_area), ptr(use),
+        ptr(shortest), ptr(lanes), ptr(valid), P, C, A, V, D,
+        int(bool(per_area_distance)), BIG, stream(dev),
+    )
+
+    def launch() -> None:
+        if P == 0:
+            return
+        check_launch("multi_area_select_from_tables", fn(*args))
+        LAUNCHES["multi_area_select_from_tables"] += 1
+
+    return launch, (use, shortest, lanes, valid)
+
+
+def multi_area_select_from_tables_cuda(*args):
+    launch, outs = multi_area_select_from_tables_launcher(*args)
+    launch()
+    return outs
+
+
+def multi_area_select_from_tables(
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+    path_pref, source_pref, distance, cand_node_in_area, per_area_distance: bool,
+):
+    """Multi-area buildRouteDb selection: GLOBAL across areas
+    (SpfSolver.cpp:456-495), per-area ECMP lane sets back separately for
+    the host's cross-area min-metric merge.  Row-independent over P.
+
+    Returns (use [P, C], shortest [P, A], lanes [P, A, D], valid [P, A])."""
+    args = (
+        dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+        drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+        per_area_distance,
+    )
+    if dist.device.type == "cpu":
+        return multi_area_select_from_tables_plain(*args)
+    return multi_area_select_from_tables_cuda(*args)

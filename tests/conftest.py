@@ -61,6 +61,11 @@ def pytest_configure(config):
         "markers",
         "fleet: fleet-compute-fabric test (openr_tpu.fleet)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (openr_tpu_torch hand kernels); skips "
+        "without one",
+    )
 
 
 def pytest_terminal_summary(terminalreporter, exitstatus, config):
