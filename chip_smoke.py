@@ -1,28 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``openr_tpu_torch``) on one card.
 
-Drives the port's main path — the Decision cold route build,
-``CudaBackend.build_route_db`` — through a few requests on a 4096-node
-grid with 100 prefixes per node (409,600 prefixes), then on a small
-3-area world once per selection algorithm:
+Drives the port's main path, ``CudaBackend.build_route_db``, on a 4096-node
+grid with 100 prefixes per node (409,600 prefixes), then on a small 3-area
+world once per selection algorithm:
 
   1. a cold build
-  2. a rebuild after a link metric change
-  3. a rebuild after a node is hard-drained (overloaded)
+  2. a rebuild after a link metric change (unhinted: a cold solve)
+  3. a rebuild after a node is hard-drained (unhinted)
   4. the 3-area world, SHORTEST_DISTANCE and PER_AREA_SHORTEST_DISTANCE
+
+and then the steady-state ticks on the same grid, each with the hints
+Decision passes:
+
+  5. prefix churn: 2,048 withdrawals and 2,048 new prefixes with
+     ``changed_prefixes`` (the gathered [K, C] selection)
+  6. node1 undrained, ``warm_delta`` (the full-edge warm kernels; the
+     root's second lane opens, so most lanes move from their warm seed,
+     and too many rows move for a gathered selection)
+  7. a pure-weakening metric increase on one link, ``warm_delta`` (the
+     bounded warm repair and the warm-selective selection)
+  8. the metric restored, ``warm_delta`` (the full-edge warm kernels; the
+     lanes below the link move back from their seed)
+  9. two unhinted drain ticks with ``changed_prefixes=set()``: the first
+     keeps its selection outputs, the second diffs against them on the
+     card (the fused select + delta kernel and the changed-row gather)
 
 The CUDA kernels are built from ``openr_tpu_torch/kernels/csrc`` at first
 use.  Every build checks, with exact equality:
   * each kernel against its plain PyTorch version on the card, on the
-    inputs the build gave it (dist/nh bit-equal, all four selection
-    outputs bit-equal)
+    inputs the build gave it (tables bit-equal, all selection outputs
+    bit-equal); warm tables also against the cold kernels' tables of the
+    same topology, and the reset-semantics lane kernel once more from an
+    all-zero seed (any seed reaches the same fixed point), so its
+    propagation runs whatever the tick's seed was
   * the RouteDb (``route_db_summary``) against a backend that runs the
-    plain versions on the card
+    plain versions on the card through the same builds, and on the
+    steady-state ticks against a fresh backend's cold build
+  * on the steady-state ticks, that the changed set the backend reports
+    covers every route that moved
   * ~200 sampled prefixes (all of them on the small world) against the
     scalar ``SpfSolver.create_route_for_prefix`` oracle
-and that the build launched every kernel (launch counts are reset just
-before each build and read just after).  Any mismatch or exception exits
-non-zero.
+and that the build launched exactly the kernels its path needs (launch
+counts are reset just before each build and read just after).  Any
+mismatch or exception exits non-zero.
 
 Prints the kernel and phase times with the card's name and power limit,
 a ``{"kernels": [...]}`` line, and last
@@ -61,6 +82,8 @@ from openr_tpu_torch.types import PrefixEntry, PrefixMetrics, RouteComputationRu
 #: the main path's world: grid_edges(64), 4096 nodes, 100 prefixes each
 GRID_SIDE = 64
 PREFIXES_PER_NODE = 100
+#: prefixes withdrawn and advertised by the churn tick
+CHURN = 2048
 
 #: back-to-back launches per timed span, and timed spans per figure
 TIMED_LAUNCHES = 50
@@ -69,6 +92,9 @@ TIMED_SPANS = 5
 #: NVIDIA H100 SXM data-sheet peaks (at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # outside the tensor cores; used for int ALU work too
+
+COLD = {"dense_spf_distances", "dense_spf_nexthop_lanes"}
+SELECT = "multi_area_select_from_tables"
 
 SOURCES = {
     "dense_spf_distances": (
@@ -82,6 +108,22 @@ SOURCES = {
     "multi_area_select_from_tables": (
         "openr_tpu_torch/kernels/csrc/route_select.cu",
         "openr_tpu/ops/route_select.py:267",
+    ),
+    "warm_spf_distances": (
+        "openr_tpu_torch/kernels/csrc/spf_warm.cu",
+        "openr_tpu/ops/spf.py:449",
+    ),
+    "spf_nexthop_lanes_reset": (
+        "openr_tpu_torch/kernels/csrc/spf_warm.cu",
+        "openr_tpu/ops/spf.py:493",
+    ),
+    "warm_subgraph_repair": (
+        "openr_tpu_torch/kernels/csrc/spf_warm.cu",
+        "openr_tpu/ops/spf.py:548",
+    ),
+    "multi_area_select_delta_from_tables": (
+        "openr_tpu_torch/kernels/csrc/route_select.cu",
+        "openr_tpu/ops/route_select.py:368",
     ),
 }
 
@@ -97,21 +139,49 @@ def check(cond, what):
 
 class KernelPath(CudaBackend):
     """The port's backend, recording the inputs and outputs its kernels
-    saw so they can be held against the plain versions afterwards."""
+    saw in the last build so they can be held against the plain versions
+    afterwards."""
+
+    def build_route_db(self, *args, **kwargs):
+        self.io = {}
+        return super().build_route_db(*args, **kwargs)
 
     def _spf_tables(self, *args):
         out = super()._spf_tables(*args)
-        self.spf_io = (args, out)
+        self.io["spf"] = (args, out)
+        return out
+
+    def _warm_tables(self, *args):
+        out = super()._warm_tables(*args)
+        self.io["warm"] = (args, out)
+        return out
+
+    def _subgraph_tables(self, *args):
+        out = super()._subgraph_tables(*args)
+        self.io["sub"] = (args, out)
         return out
 
     def _select(self, *args):
         out = super()._select(*args)
-        self.select_io = (args, out)
+        self.io["select"] = (args, out)
+        return out
+
+    def _select_delta(self, *args):
+        out = super()._select_delta(*args)
+        self.io["delta"] = (args, out)
         return out
 
 
+def warm_plain(*args):
+    src, dst, w, ok, ovl, roots, prev_dist, prev_nh, reset, lane_keep, D = args
+    d0, nh0 = spf.warm_seeds(prev_dist, prev_nh, reset, lane_keep)
+    dist, rd = spf.warm_spf_distances_plain(src, dst, w, ok, ovl, roots, d0)
+    nh, rl = spf.spf_nexthop_lanes_reset_plain(src, dst, w, ok, ovl, roots, dist, nh0, D)
+    return dist, nh, rd, rl
+
+
 class PlainPath(CudaBackend):
-    """The same build with the kernels' plain PyTorch versions, on the card."""
+    """The same builds with the kernels' plain PyTorch versions, on the card."""
 
     def _spf_tables(self, in_src, in_w, in_ok, in_rank, in_has, ovl, roots, D):
         dist = spf.dense_spf_distances_plain(in_src, in_w, in_ok, ovl, roots)
@@ -120,8 +190,17 @@ class PlainPath(CudaBackend):
         )
         return dist, nh
 
+    def _warm_tables(self, *args):
+        return warm_plain(*args)
+
+    def _subgraph_tables(self, *args):
+        return spf.warm_subgraph_repair_plain(*args)
+
     def _select(self, *args):
         return rs.multi_area_select_from_tables_plain(*args)
+
+    def _select_delta(self, *args):
+        return rs.multi_area_select_delta_from_tables_plain(*args)
 
 
 def smi_line():
@@ -227,7 +306,13 @@ def lane_rounds(planes, dist):
 
 
 def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+
+def select_ops(P, C, A, D):
+    # ~8 compare/select ops per candidate per chain stage, plus the
+    # per-area lane sums
+    return P * C * (48 + A * (4 + D))
 
 
 class KernelReport:
@@ -235,98 +320,186 @@ class KernelReport:
         self.launches = {n: 0 for n in KERNEL_NAMES}
         self.err = {n: 0.0 for n in KERNEL_NAMES}
         self.timing = {}
+        #: (v, lane) cells the last warm tick's lanes moved from their seed
+        self.lane_moves = 0
+        #: the lane kernel's ms from an all-zero seed, where first timed
+        self.zero_seed_ms = None
+
+    def held(self, name, pairs):
+        """Record and require exact agreement of (kernel, plain) output
+        pairs."""
+        e = 0.0
+        for k, p in pairs:
+            e = max(e, max_abs_err(k, p))
+        check(e == 0.0, f"{name} kernel != plain (err {e})")
+        self.err[name] = max(self.err[name], e)
+
+    def time(self, name, launch, plain_fn, t_bytes, ops, per_round_bytes, rounds):
+        if name in self.timing:
+            return
+        dev_ms, host_ms = per_launch_ms(launch)
+        self.timing[name] = dict(
+            ms=dev_ms, host_issue_ms=host_ms, plain_ms=plain_ms(plain_fn),
+            bytes=t_bytes, ops=ops, per_round_bytes=per_round_bytes, rounds=rounds,
+        )
 
     def kernel_checks(self, backend, timed):
-        """Hold each kernel against its plain version on the inputs the
-        build gave it; time both on the first (main-shape) build."""
-        spf_args, (dist_main, nh_main) = backend.spf_io
-        in_src, in_w, in_ok, in_rank, in_has, ovl, roots, D = spf_args
-        planes = (in_src, in_w, in_ok, in_rank, in_has, ovl, roots)
+        """Hold each kernel the last build ran against its plain version
+        on the inputs the build gave it; time it on the first main-shape
+        build that ran it."""
+        io = backend.io
+        if "spf" in io:
+            self._check_cold(*io["spf"], timed)
+        if "warm" in io:
+            self._check_warm(*io["warm"], timed)
+        if "sub" in io:
+            self._check_sub(*io["sub"], timed)
+        if "select" in io:
+            self._check_select(*io["select"], timed)
+        if "delta" in io:
+            self._check_delta(*io["delta"], timed)
 
-        def k_dist():
-            return spf.dense_spf_distances_cuda(in_src, in_w, in_ok, ovl, roots)
+    def _check_cold(self, args, out, timed):
+        dist_main, nh_main = out
+        in_src, in_w, in_ok, in_rank, in_has, ovl, roots, D = args
+        planes = (in_src, in_w, in_ok, in_rank, in_has, ovl, roots)
 
         def p_dist():
             return spf.dense_spf_distances_plain(in_src, in_w, in_ok, ovl, roots)
 
-        dist_k, dist_p = k_dist(), p_dist()
-        e = max(max_abs_err(dist_k, dist_p), max_abs_err(dist_main, dist_p))
-        check(e == 0.0, f"dense_spf_distances kernel != plain (err {e})")
-        self.err["dense_spf_distances"] = max(self.err["dense_spf_distances"], e)
-
-        def k_nh():
-            return spf.dense_spf_nexthop_lanes_cuda(*planes, dist_p, D)
+        dist_p = p_dist()
+        dist_k = spf.dense_spf_distances_cuda(in_src, in_w, in_ok, ovl, roots)
+        self.held("dense_spf_distances", [(dist_k, dist_p), (dist_main, dist_p)])
 
         def p_nh():
             return spf.dense_spf_nexthop_lanes_plain(*planes, dist_p, D)
 
-        nh_k, nh_p = k_nh(), p_nh()
-        e = max(max_abs_err(nh_k, nh_p), max_abs_err(nh_main, nh_p))
-        check(e == 0.0, f"dense_spf_nexthop_lanes kernel != plain (err {e})")
-        self.err["dense_spf_nexthop_lanes"] = max(self.err["dense_spf_nexthop_lanes"], e)
-
-        sel_args, sel_main = backend.select_io
-
-        def k_sel():
-            return rs.multi_area_select_from_tables_cuda(*sel_args)
-
-        def p_sel():
-            return rs.multi_area_select_from_tables_plain(*sel_args)
-
-        e = 0.0
-        for k, p, m in zip(k_sel(), p_sel(), sel_main):
-            e = max(e, max_abs_err(k, p), max_abs_err(m, p))
-        check(e == 0.0, f"multi_area_select_from_tables kernel != plain (err {e})")
-        self.err["multi_area_select_from_tables"] = max(
-            self.err["multi_area_select_from_tables"], e
-        )
+        nh_p = p_nh()
+        nh_k = spf.dense_spf_nexthop_lanes_cuda(*planes, dist_p, D)
+        self.held("dense_spf_nexthop_lanes", [(nh_k, nh_p), (nh_main, nh_p)])
         if not timed:
             return
         A, V, K = in_src.shape
         r_d = relax_rounds(in_src, in_w, in_ok, ovl, roots)
         r_l = lane_rounds(planes, dist_p)
-        sel_in = nbytes(*(t for t in sel_args if isinstance(t, torch.Tensor)))
-        sel_out = nbytes(*sel_main)
-        P, C = sel_args[4].shape
         launch_d, _ = spf.dense_spf_distances_launcher(in_src, in_w, in_ok, ovl, roots)
         launch_n, _ = spf.dense_spf_nexthop_lanes_launcher(*planes, dist_p, D)
-        launch_s, _ = rs.multi_area_select_from_tables_launcher(*sel_args)
-        ms = {
-            "dense_spf_distances": per_launch_ms(launch_d),
-            "dense_spf_nexthop_lanes": per_launch_ms(launch_n),
-            "multi_area_select_from_tables": per_launch_ms(launch_s),
-        }
-        self.timing = {
-            "dense_spf_distances": dict(
-                ms=ms["dense_spf_distances"][0],
-                host_issue_ms=ms["dense_spf_distances"][1],
-                plain_ms=plain_ms(p_dist),
-                bytes=nbytes(in_src, in_w, in_ok, ovl, roots, dist_p),
-                ops=2 * r_d * A * V * K,
-                per_round_bytes=nbytes(in_src, in_w, in_ok) + 2 * nbytes(dist_p),
-                rounds=r_d,
-            ),
-            "dense_spf_nexthop_lanes": dict(
-                ms=ms["dense_spf_nexthop_lanes"][0],
-                host_issue_ms=ms["dense_spf_nexthop_lanes"][1],
-                plain_ms=plain_ms(p_nh),
-                bytes=nbytes(*planes, dist_p, nh_p),
-                ops=2 * r_l * A * V * K * D,
-                per_round_bytes=A * V * K * 5 + 2 * nbytes(nh_p),
-                rounds=r_l,
-            ),
-            "multi_area_select_from_tables": dict(
-                ms=ms["multi_area_select_from_tables"][0],
-                host_issue_ms=ms["multi_area_select_from_tables"][1],
-                plain_ms=plain_ms(p_sel),
-                bytes=sel_in + sel_out,
-                # ~8 compare/select ops per candidate per chain stage,
-                # plus the per-area lane sums
-                ops=P * C * (48 + A * (4 + D)),
-                per_round_bytes=sel_in + sel_out,
-                rounds=1,
-            ),
-        }
+        self.time(
+            "dense_spf_distances", launch_d, p_dist,
+            nbytes(in_src, in_w, in_ok, ovl, roots, dist_p), 2 * r_d * A * V * K,
+            nbytes(in_src, in_w, in_ok) + 2 * nbytes(dist_p), r_d,
+        )
+        self.time(
+            "dense_spf_nexthop_lanes", launch_n, p_nh,
+            nbytes(*planes, dist_p, nh_p), 2 * r_l * A * V * K * D,
+            A * V * K * 5 + 2 * nbytes(nh_p), r_l,
+        )
+
+    def _check_warm(self, args, out, timed):
+        src, dst, w, ok, ovl, roots, prev_dist, prev_nh, reset, lane_keep, D = args
+        seg = (src, dst, w, ok, ovl, roots)
+        d0, nh0 = spf.warm_seeds(prev_dist, prev_nh, reset, lane_keep)
+
+        def p_dist():
+            return spf.warm_spf_distances_plain(*seg, d0)
+
+        dist_p = p_dist()[0]
+        launch_d, (dist_k, _) = spf.warm_spf_distances_launcher(*seg, d0)
+        launch_d()
+        self.held("warm_spf_distances", [(dist_k, dist_p), (out[0], dist_p)])
+
+        def p_nh():
+            return spf.spf_nexthop_lanes_reset_plain(*seg, dist_p, nh0, D)
+
+        nh_p = p_nh()[0]
+        launch_n, (nh_k, _) = spf.spf_nexthop_lanes_reset_launcher(*seg, dist_p, nh0, D)
+        launch_n()
+        self.lane_moves = int((nh0 != nh_p).sum())
+        # reset semantics make any seed safe: from all zeros every lane
+        # must propagate down the whole DAG to the same tables
+        zero = torch.zeros_like(nh0)
+        nh_zp = spf.spf_nexthop_lanes_reset_plain(*seg, dist_p, zero, D)[0]
+        launch_z, (nh_zk, _) = spf.spf_nexthop_lanes_reset_launcher(*seg, dist_p, zero, D)
+        launch_z()
+        self.held(
+            "spf_nexthop_lanes_reset",
+            [(nh_k, nh_p), (out[1], nh_p), (nh_zk, nh_zp), (nh_zk, out[1])],
+        )
+        if not timed:
+            return
+        if self.zero_seed_ms is None:
+            self.zero_seed_ms = per_launch_ms(launch_z)[0]
+        A, E = src.shape
+        r_d = int(spf.warm_spf_distances_plain(*seg, d0, unroll=1)[1].max())
+        r_l = int(spf.spf_nexthop_lanes_reset_plain(*seg, dist_p, nh0, D, unroll=1)[1].max())
+        self.time(
+            "warm_spf_distances", launch_d, p_dist,
+            nbytes(*seg, d0, dist_p), 2 * r_d * A * E,
+            nbytes(src, w, ok) + 2 * nbytes(dist_p), r_d,
+        )
+        self.time(
+            "spf_nexthop_lanes_reset", launch_n, p_nh,
+            nbytes(*seg, dist_p, nh0, nh_p), 2 * r_l * A * E * D,
+            nbytes(src) + A * E + 2 * nbytes(nh_p), r_l,
+        )
+
+    def _check_sub(self, args, out, timed):
+        def p_sub():
+            return spf.warm_subgraph_repair_plain(*args)
+
+        want = p_sub()
+        launch, got = spf.warm_subgraph_repair_launcher(*args)
+        launch()
+        self.held(
+            "warm_subgraph_repair",
+            [(got[0], want[0]), (got[1], want[1]), (out[0], want[0]), (out[1], want[1])],
+        )
+        if not timed:
+            return
+        src_sub = args[0]
+        D = args[-1]
+        A, Es = src_sub.shape
+        _d, _n, r_d, r_l = spf.warm_subgraph_repair_plain(*args, unroll=1)
+        r_d, r_l = int(r_d.max()), int(r_l.max())
+        self.time(
+            "warm_subgraph_repair", launch, p_sub,
+            nbytes(*args[:-1], want[0], want[1]),
+            2 * r_d * A * Es + 2 * r_l * A * Es * D,
+            nbytes(*args[:4]) + 2 * nbytes(want[0]) + 2 * nbytes(want[1]), r_d + r_l,
+        )
+
+    def _check_select(self, args, out, timed):
+        def p_sel():
+            return rs.multi_area_select_from_tables_plain(*args)
+
+        want = p_sel()
+        got = rs.multi_area_select_from_tables_cuda(*args)
+        self.held(SELECT, list(zip(got, want)) + list(zip(out, want)))
+        if not timed:
+            return
+        P, C = args[4].shape
+        A, _V, D = args[1].shape
+        launch, _ = rs.multi_area_select_from_tables_launcher(*args)
+        t_bytes = nbytes(*args) + nbytes(*out)
+        self.time(SELECT, launch, p_sel, t_bytes, select_ops(P, C, A, D), t_bytes, 1)
+
+    def _check_delta(self, args, out, timed):
+        name = "multi_area_select_delta_from_tables"
+
+        def p_delta():
+            return rs.multi_area_select_delta_from_tables_plain(*args)
+
+        want = p_delta()
+        launch, got = rs.multi_area_select_delta_from_tables_launcher(*args)
+        launch()
+        self.held(name, list(zip(got, want)) + list(zip(out, want)))
+        if not timed:
+            return
+        P, C = args[4].shape
+        A, _V, D = args[1].shape
+        t_bytes = nbytes(*args) + nbytes(*out)
+        ops = select_ops(P, C, A, D) + P * (2 * C + A * (4 + D) + C * A)
+        self.time(name, launch, p_delta, t_bytes, ops, t_bytes, 1)
 
     def json_line(self):
         rows = []
@@ -353,29 +526,24 @@ class KernelReport:
         return json.dumps({"kernels": rows})
 
 
-def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample, timed=False):
-    """One request through the port's main path plus its checks."""
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    db = kernel_be.build_route_db(areas, ps)
-    wall = (time.perf_counter() - t0) * 1e3
-    counts = dict(LAUNCHES)
-    for name in KERNEL_NAMES:
-        check(counts[name] >= 1, f"{label}: kernel {name} was not launched")
-        report.launches[name] += counts[name]
-    phases = " ".join(f"{k}={v:.1f}ms" for k, v in kernel_be.last_phase_ms.items())
-    print(f"[{label}] build wall={wall:.1f}ms {phases} launches={counts} "
-          f"routes={len(db.unicast_routes)}", flush=True)
+def warm_tables_equal_cold(backend):
+    """The tables a warm tick left on the card against the cold kernels'
+    tables of the same topology (the backend's current encoding)."""
+    dist, nh = backend._tables[:2]
+    a = backend._enc_cache[3]
+    planes = [a[k] for k in ("in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded", "roots")]
+    cold_d, cold_n = spf.dense_spf_one(*planes, max_degree=nh.shape[2])
+    check(torch.equal(dist, cold_d) and torch.equal(nh, cold_n), "warm tables != cold tables")
 
-    report.kernel_checks(kernel_be, timed)
-    plain_db = plain_be.build_route_db(areas, ps)
-    want = route_db_summary(db)
-    check(route_db_summary(plain_db) == want, f"{label}: RouteDb != plain-path RouteDb")
 
-    prefixes = sorted(ps.prefixes())
-    picks = prefixes if sample is None else [
-        prefixes[i] for i in rng.choice(len(prefixes), sample, replace=False)
-    ]
+def moved_routes(prev, new):
+    """Prefixes whose route differs between two RouteDbs (identical
+    objects are the same route)."""
+    a, b = prev.unicast_routes, new.unicast_routes
+    return {p for p in a.keys() | b.keys() if a.get(p) is not b.get(p) and a.get(p) != b.get(p)}
+
+
+def sample_oracle(db, oracle, areas, ps, picks, label):
     got, ref = DecisionRouteDb(), DecisionRouteDb()
     for p in picks:
         if p in db.unicast_routes:
@@ -385,6 +553,70 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample, ti
             ref.add_unicast_route(entry)
     check(route_db_summary(got) == route_db_summary(ref), f"{label}: scalar oracle mismatch")
     check(len(got.unicast_routes) > 0, f"{label}: sampled prefixes produced no routes")
+
+
+def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
+          expect, hints=None, timed=False, steady=False):
+    """One request through the port's main path plus its checks.
+    ``expect`` is the exact set of kernels the path must launch."""
+    hints = hints or {}
+    prev_db = kernel_be._last_db
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    db = kernel_be.build_route_db(areas, ps, **hints)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(LAUNCHES)
+    launched = {name for name, n in counts.items() if n}
+    check(launched == set(expect), f"{label}: launched {sorted(launched)}, expected {sorted(expect)}")
+    for name in KERNEL_NAMES:
+        report.launches[name] += counts[name]
+    changed = kernel_be.take_last_changed_prefixes()
+    if changed is not None:
+        shown = len(changed)
+    else:
+        incremental = hints.get("changed_prefixes") is not None and not hints.get("force_full")
+        shown = "the churned prefixes" if incremental else "full"
+    phases = " ".join(f"{k}={v:.1f}ms" for k, v in kernel_be.last_phase_ms.items())
+    rows = " ".join(f"{k}={v}" for k, v in kernel_be.last_rows.items())
+    print(f"[{label}] build wall={wall:.1f}ms {phases} rows: {rows} "
+          f"launches={ {k: v for k, v in counts.items() if v} } routes={len(db.unicast_routes)} "
+          f"changed={shown}", flush=True)
+
+    report.kernel_checks(kernel_be, timed)
+    if "warm" in kernel_be.io or "sub" in kernel_be.io:
+        warm_tables_equal_cold(kernel_be)
+        moved = f" lane cells moved from seed={report.lane_moves}" if "warm" in kernel_be.io else ""
+        print(f"[{label}] warm rounds={kernel_be.warm_last_rounds} "
+              f"reset nodes={kernel_be.warm_last_reset_nodes} "
+              f"est depth={kernel_be.warm_last_est_depth}{moved}: warm tables == cold tables",
+              flush=True)
+    plain_db = plain_be.build_route_db(areas, ps, **hints)
+    plain_be.take_last_changed_prefixes()
+    want = route_db_summary(db)
+    check(route_db_summary(plain_db) == want, f"{label}: RouteDb != plain-path RouteDb")
+
+    prefixes = sorted(ps.prefixes())
+    picks = prefixes if sample is None else [
+        prefixes[i] for i in rng.choice(len(prefixes), sample, replace=False)
+    ]
+    if steady:
+        fresh = CudaBackend(SpfSolver(oracle.my_node_name))
+        check(route_db_summary(fresh.build_route_db(areas, ps)) == want,
+              f"{label}: RouteDb != a fresh backend's cold build")
+        # a patched build names its changed set; an incremental one may
+        # change only the churned prefixes; a full build claims nothing
+        claimed = changed
+        if claimed is None and not hints.get("force_full"):
+            claimed = hints.get("changed_prefixes")
+        if claimed is not None:
+            moved = sorted(moved_routes(prev_db, db))
+            check(set(moved) <= claimed, f"{label}: moved routes outside the changed set")
+            print(f"[{label}] {len(moved)} routes moved, all inside the changed set of "
+                  f"{len(claimed)}; RouteDb == fresh cold build", flush=True)
+            if moved:  # a quarter of the oracle sample from the moved routes
+                k = min(sample // 4, len(moved))
+                picks = picks[: sample - k] + [moved[i] for i in rng.choice(len(moved), k, replace=False)]
+    sample_oracle(db, oracle, areas, ps, picks, label)
     print(f"[{label}] kernels == plain, RouteDb == plain path, "
           f"{len(picks)} prefixes == scalar oracle", flush=True)
     return db
@@ -436,6 +668,87 @@ def three_area_world():
     return areas, ps, me
 
 
+def set_metric(areas, dbs, node, neighbor, metric):
+    db = dbs[node]
+    adjs = [dataclasses.replace(a, metric=metric) if a.other_node_name == neighbor else a
+            for a in db.adjacencies]
+    dbs[node] = dataclasses.replace(db, adjacencies=adjs)
+    areas["0"].update_adjacency_database(dbs[node])
+
+
+def set_overload(areas, dbs, node, overloaded):
+    dbs[node] = dataclasses.replace(dbs[node], is_overloaded=overloaded)
+    areas["0"].update_adjacency_database(dbs[node])
+
+
+def steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng):
+    """The Decision steady state on the grid, each tick with its hints."""
+    common = dict(rng=rng, sample=200, steady=True)
+    side = GRID_SIDE
+
+    # 5. prefix churn: withdraw CHURN prefixes, advertise CHURN new ones
+    owners = {p: next(iter(e))[0] for p, e in ps.prefixes().items()}
+    names = sorted(dbs)
+    held = sorted(owners)
+    gone = [held[i] for i in rng.choice(len(held), CHURN, replace=False)]
+    changed = set()
+    for p in gone:
+        changed |= ps.delete_prefix(owners[p], "0", p)
+    for i in range(CHURN):
+        node = names[int(rng.integers(len(names)))]
+        changed |= ps.update_prefix(node, "0", PrefixEntry(f"10.100.{i >> 8}.{i & 255}/32"))
+    before = kernel_be.num_incremental_builds
+    drive(report, kernel_be, plain_be, oracle, areas, ps, "prefix-churn", expect={SELECT},
+          hints=dict(changed_prefixes=changed), **common)
+    check(kernel_be.num_incremental_builds == before + 1, "prefix churn did not patch")
+
+    # 6. node1 undrained: an improvement that opens the root's second
+    # lane, so the warm lane kernel must move lanes from its seed
+    warm = dict(changed_prefixes=set(), force_full=True, warm_delta=True)
+    warm_kernels = {"warm_spf_distances", "spf_nexthop_lanes_reset"}
+    set_overload(areas, dbs, "node1", False)
+    before = kernel_be.num_warm_builds
+    drive(report, kernel_be, plain_be, oracle, areas, ps, "undrain:node1",
+          expect=warm_kernels | {SELECT}, hints=warm, timed=True, **common)
+    check(kernel_be.num_warm_builds == before + 1, "undrain did not take the warm path")
+    check(report.lane_moves > 0, "undrain: no lane moved from its warm seed")
+
+    # 7. pure weakening: the column-0 link half-way down, whose head's
+    # column is reached through it alone
+    a, b = f"node{(side // 2) * side}", f"node{(side // 2 + 1) * side}"
+    set_metric(areas, dbs, a, b, 11)
+    set_metric(areas, dbs, b, a, 11)
+    before = kernel_be.num_warm_subgraph_builds
+    drive(report, kernel_be, plain_be, oracle, areas, ps, f"weaken:{a}-{b}",
+          expect={"warm_subgraph_repair", SELECT}, hints=warm, timed=True, **common)
+    check(kernel_be.num_warm_subgraph_builds == before + 1, "weakening did not take the bounded repair")
+
+    # 8. the metric restored: an improvement, the full-edge warm kernels;
+    # the column below the link leaves over node64's lane alone again
+    set_metric(areas, dbs, a, b, 1)
+    set_metric(areas, dbs, b, a, 1)
+    before = kernel_be.num_warm_selective_builds
+    drive(report, kernel_be, plain_be, oracle, areas, ps, f"restore:{a}-{b}",
+          expect=warm_kernels | {SELECT}, hints=warm, **common)
+    check(kernel_be.num_warm_selective_builds == before + 1, "restore did not re-select selectively")
+    check(report.lane_moves > 0, "restore: no lane moved from its warm seed")
+
+    # 9. two unhinted drain ticks: the first keeps its outputs, the second
+    # diffs against them on the card
+    unhinted = dict(changed_prefixes=set(), force_full=True)
+    first = f"node{(side * 3 // 8) * side + side * 3 // 8}"
+    set_overload(areas, dbs, first, True)
+    drive(report, kernel_be, plain_be, oracle, areas, ps, f"drain:{first}",
+          expect=COLD | {SELECT}, hints=unhinted, **common)
+    drained = f"node{(side * 5 // 8) * side + side * 5 // 8}"
+    set_overload(areas, dbs, drained, True)
+    before = kernel_be.num_delta_builds
+    drive(report, kernel_be, plain_be, oracle, areas, ps, f"drain:{drained}",
+          expect=COLD | {"multi_area_select_delta_from_tables"}, hints=unhinted, timed=True,
+          **common)
+    check(kernel_be.num_delta_builds == before + 1, "the drain tick did not take the delta path")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -466,22 +779,19 @@ def main():
     kernel_be = KernelPath(SpfSolver("node0"))
     plain_be = PlainPath(SpfSolver("node0"))
     oracle = SpfSolver("node0")
-    common = dict(rng=rng, sample=200)
+    full = COLD | {SELECT}
+    common = dict(rng=rng, sample=200, expect=full)
     drive(report, kernel_be, plain_be, oracle, areas, ps, "cold", timed=True, **common)
 
     # 2. a link metric change in the middle of the grid
     mid = f"node{n // 2 + GRID_SIDE // 2}"
-    db = dbs[mid]
-    adj = db.adjacencies[0]
-    new_adj = dataclasses.replace(adj, metric=adj.metric + 4)
-    new_db = dataclasses.replace(db, adjacencies=[new_adj] + db.adjacencies[1:])
-    areas["0"].update_adjacency_database(new_db)
+    adj = dbs[mid].adjacencies[0]
+    set_metric(areas, dbs, mid, adj.other_node_name, adj.metric + 4)
     drive(report, kernel_be, plain_be, oracle, areas, ps, f"metric:{mid}->{adj.other_node_name}", **common)
 
     # 3. a hard-drained node next to me
-    drained = "node1"
-    areas["0"].update_adjacency_database(dataclasses.replace(dbs[drained], is_overloaded=True))
-    drive(report, kernel_be, plain_be, oracle, areas, ps, f"overload:{drained}", **common)
+    set_overload(areas, dbs, "node1", True)
+    drive(report, kernel_be, plain_be, oracle, areas, ps, "overload:node1", **common)
 
     # 4. a 3-area world, once per selection algorithm
     for algo in (
@@ -492,16 +802,22 @@ def main():
         kb = KernelPath(SpfSolver(me, route_selection_algorithm=algo))
         pb = PlainPath(SpfSolver(me, route_selection_algorithm=algo))
         oracle3 = SpfSolver(me, route_selection_algorithm=algo)
-        drive(report, kb, pb, oracle3, a3, ps3, f"3-area:{algo.name}", rng=rng, sample=None)
+        drive(report, kb, pb, oracle3, a3, ps3, f"3-area:{algo.name}", rng=rng, sample=None,
+              expect=full)
+
+    # 5-9. the steady-state ticks on the grid
+    steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
 
     for name in KERNEL_NAMES:
         t = report.timing[name]
         bound_rounds_ms = t["per_round_bytes"] * t["rounds"] / HBM_BYTES_PER_S * 1e3
         print(f"kernel {name}: {t['ms']:.4f} ms per launch over {TIMED_LAUNCHES} "
               f"back-to-back launches (host issue {t['host_issue_ms']:.4f} ms per launch), "
-              f"plain {t['plain_ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, launches {report.launches[name]}, "
               f"rounds {t['rounds']}, bytes-per-round x rounds bound {bound_rounds_ms:.5f} ms "
               f"({smi})", flush=True)
+    print(f"kernel spf_nexthop_lanes_reset from an all-zero seed (undrain tick's input): "
+          f"{report.zero_seed_ms:.4f} ms per launch ({smi})", flush=True)
     print(report.json_line(), flush=True)
     print(smi, flush=True)
     device = {

@@ -11,6 +11,10 @@ KERNEL_NAMES = (
     "dense_spf_distances",
     "dense_spf_nexthop_lanes",
     "multi_area_select_from_tables",
+    "warm_spf_distances",
+    "spf_nexthop_lanes_reset",
+    "warm_subgraph_repair",
+    "multi_area_select_delta_from_tables",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

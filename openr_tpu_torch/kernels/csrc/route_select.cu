@@ -1,7 +1,10 @@
 // Multi-area best-route selection for Hopper (sm_90a).
 //
-// Replaces the jitted XLA kernel of the JAX package
+// Replaces the jitted XLA kernels of the JAX package
 //   openr_tpu/ops/route_select.py:267 multi_area_select_from_tables
+//       (kernel 3 here: multi_area_select_kernel<false>)
+//   openr_tpu/ops/route_select.py:368 multi_area_select_delta_from_tables
+//       (kernel 7 here: multi_area_select_kernel<true>)
 // (SpfSolver.cpp:161-312, 456-556; LsdbUtil.cpp:761-823), computed for
 // every prefix row p over its C candidate advertisements:
 //   1. reach: candidate ok and its node reached by SPF in its own area
@@ -12,7 +15,12 @@
 //      that area (only areas holding a winner advertisement), and the
 //      union of the min-cost winners' first-hop lanes
 // Outputs: use [P, C], shortest [P, A] f32, lanes [P, A, D], valid [P, A]
-// (bool tensors, one byte each).
+// (bool tensors, one byte each).  Kernel 7 runs the same body (the
+// template flag) and then flags changed[p] when any output differs from
+// the previous generation's, or when a candidate touches a node whose
+// drain state moved (node_changed [A, V]): for cand_ok slots, the
+// candidate's own-area cell and every area's cell it resolves to
+// (cand_node_in_area >= 0).  The host re-decodes only the flagged rows.
 //
 // Design: one thread per row, looping over C, A and D; the row's
 // candidate sets are bitmasks in a register (C <= 64, the largest
@@ -51,6 +59,7 @@ __device__ __forceinline__ uint64_t keep_max(uint64_t mask, const int32_t* key,
   return out;
 }
 
+template <bool kDelta>
 __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
     const float* __restrict__ dist, const int8_t* __restrict__ nh,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
@@ -62,7 +71,12 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
     const int32_t* __restrict__ distance,
     const int32_t* __restrict__ cand_node_in_area, uint8_t* __restrict__ use_out,
     float* __restrict__ shortest_out, uint8_t* __restrict__ lanes_out,
-    uint8_t* __restrict__ valid_out, int P, int C, int A, int V, int D,
+    uint8_t* __restrict__ valid_out, const uint8_t* __restrict__ prev_use,
+    const float* __restrict__ prev_shortest,
+    const uint8_t* __restrict__ prev_lanes,
+    const uint8_t* __restrict__ prev_valid,
+    const uint8_t* __restrict__ node_changed,
+    uint8_t* __restrict__ changed_out, int P, int C, int A, int V, int D,
     int per_area, float big) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
@@ -107,7 +121,12 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
       if ((use & bit(c)) && dd[c] == best) kept |= bit(c);
   }
   use = kept;
-  for (int c = 0; c < C; ++c) use_out[row + c] = (use >> c) & 1;
+  bool changed = false;
+  for (int c = 0; c < C; ++c) {
+    const uint8_t u = (use >> c) & 1;
+    use_out[row + c] = u;
+    if (kDelta) changed |= u != prev_use[row + c];
+  }
 
   // 5. per-area min-cost winners and their lane union
   for (int a = 0; a < A; ++a) {
@@ -145,10 +164,58 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
       }
       lanes_out[out * D + l] = hits > 0;
       num_nh += hits > 0;
+      if (kDelta) changed |= (hits > 0) != (prev_lanes[out * D + l] != 0);
     }
+    const bool valid = mc != 0 && num_nh > 0;
     shortest_out[out] = shortest;
-    valid_out[out] = mc != 0 && num_nh > 0;
+    valid_out[out] = valid;
+    if (kDelta) {
+      changed |= shortest != prev_shortest[out];
+      changed |= valid != (prev_valid[out] != 0);
+    }
   }
+  if (!kDelta) return;
+  // drain-state touches: decode wraps the winning entry from LinkState's
+  // drain lookups, so such rows re-decode even with unchanged outputs
+  for (int c = 0; c < C && !changed; ++c) {
+    if (!cand_ok[row + c]) continue;
+    changed = node_changed[(size_t)area[c] * V + cand_node[row + c]];
+    for (int a = 0; a < A && !changed; ++a) {
+      const int n = cand_node_in_area[(row + c) * A + a];
+      changed = n >= 0 && node_changed[(size_t)a * V + n];
+    }
+  }
+  changed_out[p] = changed;
+}
+
+template <bool kDelta>
+int launch_select(const void* dist, const void* nh, const void* overloaded,
+                  const void* soft, const void* cand_area,
+                  const void* cand_node, const void* cand_ok,
+                  const void* drain_metric, const void* path_pref,
+                  const void* source_pref, const void* distance,
+                  const void* cand_node_in_area, void* use, void* shortest,
+                  void* lanes, void* valid, const void* prev_use,
+                  const void* prev_shortest, const void* prev_lanes,
+                  const void* prev_valid, const void* node_changed,
+                  void* changed, int P, int C, int A, int V, int D,
+                  int per_area, float big, void* stream) {
+  if (C > 64) return (int)cudaErrorInvalidValue;
+  if (P == 0) return (int)cudaSuccess;
+  const int blocks = (P + kThreads - 1) / kThreads;
+  multi_area_select_kernel<kDelta>
+      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
+          (const int32_t*)soft, (const int32_t*)cand_area,
+          (const int32_t*)cand_node, (const uint8_t*)cand_ok,
+          (const int32_t*)drain_metric, (const int32_t*)path_pref,
+          (const int32_t*)source_pref, (const int32_t*)distance,
+          (const int32_t*)cand_node_in_area, (uint8_t*)use, (float*)shortest,
+          (uint8_t*)lanes, (uint8_t*)valid, (const uint8_t*)prev_use,
+          (const float*)prev_shortest, (const uint8_t*)prev_lanes,
+          (const uint8_t*)prev_valid, (const uint8_t*)node_changed,
+          (uint8_t*)changed, P, C, A, V, D, per_area, big);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -160,16 +227,25 @@ extern "C" int openr_multi_area_select(
     const void* distance, const void* cand_node_in_area, void* use,
     void* shortest, void* lanes, void* valid, int P, int C, int A, int V,
     int D, int per_area, float big, void* stream) {
-  if (C > 64) return (int)cudaErrorInvalidValue;
-  if (P == 0) return (int)cudaSuccess;
-  const int blocks = (P + kThreads - 1) / kThreads;
-  multi_area_select_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
-      (const int32_t*)soft, (const int32_t*)cand_area,
-      (const int32_t*)cand_node, (const uint8_t*)cand_ok,
-      (const int32_t*)drain_metric, (const int32_t*)path_pref,
-      (const int32_t*)source_pref, (const int32_t*)distance,
-      (const int32_t*)cand_node_in_area, (uint8_t*)use, (float*)shortest,
-      (uint8_t*)lanes, (uint8_t*)valid, P, C, A, V, D, per_area, big);
-  return (int)cudaGetLastError();
+  return launch_select<false>(
+      dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+      path_pref, source_pref, distance, cand_node_in_area, use, shortest,
+      lanes, valid, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, P,
+      C, A, V, D, per_area, big, stream);
+}
+
+extern "C" int openr_multi_area_select_delta(
+    const void* dist, const void* nh, const void* overloaded, const void* soft,
+    const void* cand_area, const void* cand_node, const void* cand_ok,
+    const void* drain_metric, const void* path_pref, const void* source_pref,
+    const void* distance, const void* cand_node_in_area, void* use,
+    void* shortest, void* lanes, void* valid, const void* prev_use,
+    const void* prev_shortest, const void* prev_lanes, const void* prev_valid,
+    const void* node_changed, void* changed, int P, int C, int A, int V,
+    int D, int per_area, float big, void* stream) {
+  return launch_select<true>(
+      dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+      path_pref, source_pref, distance, cand_node_in_area, use, shortest,
+      lanes, valid, prev_use, prev_shortest, prev_lanes, prev_valid,
+      node_changed, changed, P, C, A, V, D, per_area, big, stream);
 }

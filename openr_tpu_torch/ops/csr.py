@@ -9,9 +9,11 @@ dst-sorted edge order, so a relaxation round is a gather ``d[in_src] +
 in_w`` and a min over K — no scatter.
 
 This is the numpy encoder of ``openr_tpu.ops.csr`` (``encode_link_state``
-/ ``encode_multi_area``) and produces the same arrays bit for bit; the
-reference's incremental patch/slot encoders and its native fill are not
-part of this package.
+/ ``encode_multi_area``) and produces the same arrays bit for bit, plus
+its O(links) perturbation patch (``patch_encoded_topology`` /
+``patch_encoded_multi_area``).  The reference's slot-stable membership
+patch and its native fill are not part of this package: membership churn
+re-encodes cold.
 
 Layout (single topology; the multi-area encoding stacks a leading area
 axis):
@@ -65,6 +67,9 @@ class EncodedTopology:
     node_ids: Dict[str, int]
     id_to_node: List[str]
     links: List[Link]  # undirected link objects by link id
+    #: [L, 2] positions of each undirected link's two directed edges in
+    #: the (dst-sorted) edge arrays — what the patch refreshes
+    link_edge_pos: np.ndarray
     num_nodes: int
     num_edges: int  # valid directed edges
 
@@ -74,11 +79,14 @@ class EncodedTopology:
     # the nexthop lane id whenever ``in_src == root``.  ``in_has`` marks
     # vertices present in the padded dst[]: the reference's segment
     # kernels leave int8-min (-128) in lane rows of absent dsts, and the
-    # dense kernels reproduce that exactly.
+    # dense kernels reproduce that exactly.  ``in_edge_pos`` maps each
+    # edge-list position to its flat V*K slot (-1 for padding edges), so
+    # the patch refreshes in_w/in_ok without re-deriving the layout.
     in_src: Optional[np.ndarray] = None  # [V, K] int32 (0 on padding)
     in_w: Optional[np.ndarray] = None  # [V, K] float32 (INF pad/down)
     in_ok: Optional[np.ndarray] = None  # [V, K] bool
     in_rank: Optional[np.ndarray] = None  # [V, K] int32 (-1 = no lane)
+    in_edge_pos: Optional[np.ndarray] = None  # [E] int64 flat slot (-1)
     in_has: Optional[np.ndarray] = None  # [V] bool
 
     @property
@@ -88,6 +96,10 @@ class EncodedTopology:
     @property
     def padded_nodes(self) -> int:
         return int(self.overloaded.shape[0])
+
+    @property
+    def padded_edges(self) -> int:
+        return int(self.src.shape[0])
 
     def node_id(self, name: str) -> int:
         return self.node_ids[name]
@@ -129,6 +141,20 @@ def build_in_edge_matrix(
     max in-degree exceeds the largest bucket.  Every REAL edge
     (``link_index >= 0``) owns a slot, down links included; padding slots
     read ``in_ok=False, in_w=INF`` and gather node 0."""
+    dense = _in_edge_layout(
+        src, dst, w, edge_ok, link_index, padded_v, in_degree_bucket
+    )
+    if dense is None:
+        return None
+    in_src, in_w, in_ok, in_rank, _in_edge_pos, in_has = dense
+    return in_src, in_w, in_ok, in_rank, in_has
+
+
+def _in_edge_layout(
+    src, dst, w, edge_ok, link_index, padded_v, in_degree_bucket=None
+):
+    """:func:`build_in_edge_matrix` plus ``in_edge_pos`` [E] (each edge's
+    flat V*K slot, -1 for padding), which the patch re-scatters through."""
     valid = np.nonzero(link_index >= 0)[0]
     n = len(valid)
     max_in = int(np.bincount(dst[valid], minlength=padded_v).max()) if n else 0
@@ -142,12 +168,14 @@ def build_in_edge_matrix(
     in_w = np.full((padded_v, K), INF, np.float32)
     in_ok = np.zeros((padded_v, K), bool)
     in_rank = np.full((padded_v, K), -1, np.int32)
+    in_edge_pos = np.full(src.shape[0], -1, np.int64)
     if n:
         d = dst[valid]
         # edges are dst-sorted, so each dst's run is contiguous: slot k
         # = position within the run (first-occurrence searchsorted)
         run_start = np.searchsorted(d, d, side="left")
         flat = d.astype(np.int64) * K + (np.arange(n) - run_start)
+        in_edge_pos[valid] = flat
         s = src[valid]
         # out-edge rank per edge: index among same-src edges in edge
         # order (a stable sort by src preserves position order)
@@ -161,7 +189,7 @@ def build_in_edge_matrix(
         in_ok.flat[flat] = edge_ok[valid]
         in_rank.flat[flat] = rank
     in_has = np.bincount(dst, minlength=padded_v) > 0
-    return in_src, in_w, in_ok, in_rank, in_has
+    return in_src, in_w, in_ok, in_rank, in_edge_pos, in_has
 
 
 def encode_link_state(
@@ -243,13 +271,18 @@ def encode_link_state(
     w = w[order]
     edge_ok = edge_ok[order]
     link_index = link_index[order]
+    # positions of each link's two directed edges in the sorted layout:
+    # stable-argsort link_index groups pads (-1) first, then pairs per li
+    by_link = np.argsort(link_index, kind="stable")
+    pad_count = int((link_index < 0).sum())
+    link_edge_pos = by_link[pad_count:].reshape(L, 2).astype(np.int32)
 
-    dense = build_in_edge_matrix(
+    dense = _in_edge_layout(
         src, dst, w, edge_ok, link_index, padded_v, in_degree_bucket
     )
-    in_src = in_w = in_ok = in_rank = in_has = None
+    in_src = in_w = in_ok = in_rank = in_edge_pos = in_has = None
     if dense is not None:
-        in_src, in_w, in_ok, in_rank, in_has = dense
+        in_src, in_w, in_ok, in_rank, in_edge_pos, in_has = dense
 
     return EncodedTopology(
         src=src,
@@ -262,12 +295,14 @@ def encode_link_state(
         node_ids=node_ids,
         id_to_node=names,
         links=links,
+        link_edge_pos=link_edge_pos,
         num_nodes=V,
         num_edges=E,
         in_src=in_src,
         in_w=in_w,
         in_ok=in_ok,
         in_rank=in_rank,
+        in_edge_pos=in_edge_pos,
         in_has=in_has,
     )
 
@@ -279,6 +314,10 @@ class EncodedMultiArea:
 
     areas: List[str]
     topos: List[EncodedTopology]
+    src: np.ndarray  # [A, E] (the segment form the warm kernels read)
+    dst: np.ndarray  # [A, E]
+    w: np.ndarray  # [A, E]
+    edge_ok: np.ndarray  # [A, E]
     overloaded: np.ndarray  # [A, V]
     soft: np.ndarray  # [A, V]
     roots: np.ndarray  # [A] my node id per area
@@ -335,6 +374,10 @@ def encode_multi_area(
     return EncodedMultiArea(
         areas=areas,
         topos=topos,
+        src=np.stack([t.src for t in topos]),
+        dst=np.stack([t.dst for t in topos]),
+        w=np.stack([t.w for t in topos]),
+        edge_ok=np.stack([t.edge_ok for t in topos]),
         overloaded=np.stack([t.overloaded for t in topos]),
         soft=np.stack([t.soft for t in topos]),
         roots=np.asarray([t.node_id(me) for t in topos], np.int32),
@@ -363,4 +406,120 @@ def _stack_dense(topos: List[EncodedTopology]) -> dict:
         in_ok=np.stack([widen(t.in_ok, False) for t in topos]),
         in_rank=np.stack([widen(t.in_rank, -1) for t in topos]),
         in_has=np.stack([t.in_has for t in topos]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# perturbation patch: the warm topology tick's O(links) re-encode
+# ---------------------------------------------------------------------------
+
+
+def patch_encoded_topology(
+    old: EncodedTopology, link_state: LinkState, me: Optional[str] = None
+) -> Optional[EncodedTopology]:
+    """O(links) re-encode of a PERTURBED topology (link weight / up-down /
+    overload / soft-drain churn): when the node symbol table and the
+    undirected link identity set are unchanged, only the weight, validity
+    and drain columns are refreshed and every layout array (src, dst,
+    link_index, link_edge_pos, the dense in_src/in_rank/in_edge_pos/in_has
+    and the symbol tables) is the previous encoding's own object.  Returns
+    None on any membership change; the caller then re-encodes cold."""
+    names = set(link_state.get_adjacency_databases().keys())
+    if me is not None:
+        names.add(me)
+    if names != set(old.node_ids.keys()):
+        return None
+    links = link_state.all_links()
+    L = len(links)
+    if L != len(old.links):
+        return None
+    if any(link._key != prev._key for link, prev in zip(links, old.links)):
+        return None
+
+    col_m = np.fromiter((l.get_max_metric() for l in links), np.float32, L)
+    col_ok = np.fromiter((l.is_up() for l in links), bool, L)
+    if np.any(col_ok & (col_m <= 0)):
+        raise ValueError(
+            "non-positive metric on an up link; device SPF requires "
+            "metrics >= 1"
+        )
+    w = np.full(old.padded_edges, INF, np.float32)
+    edge_ok = np.zeros(old.padded_edges, bool)
+    if L:
+        m_dir = np.where(col_ok, col_m, INF)
+        for side in (0, 1):
+            w[old.link_edge_pos[:, side]] = m_dir
+            edge_ok[old.link_edge_pos[:, side]] = col_ok
+
+    overloaded = np.zeros(old.padded_nodes, bool)
+    soft = np.zeros(old.padded_nodes, np.int32)
+    for n, i in old.node_ids.items():
+        overloaded[i] = link_state.is_node_overloaded(n)
+        soft[i] = link_state.get_node_metric_increment(n)
+
+    # only the weight/validity planes re-scatter from the patched columns
+    in_w = in_ok = None
+    if old.has_dense:
+        pos = old.in_edge_pos
+        m = pos >= 0
+        in_w = np.full_like(old.in_w, INF)
+        in_ok = np.zeros_like(old.in_ok)
+        in_w.flat[pos[m]] = w[m]
+        in_ok.flat[pos[m]] = edge_ok[m]
+
+    return dataclasses.replace(
+        old, w=w, edge_ok=edge_ok, overloaded=overloaded, soft=soft,
+        links=links, in_w=in_w, in_ok=in_ok,
+    )
+
+
+def patch_encoded_multi_area(
+    prev: EncodedMultiArea, area_link_states, me: str
+) -> Optional[EncodedMultiArea]:
+    """Multi-area wrapper over :func:`patch_encoded_topology`: every area
+    must patch (same area set, per-area node/link identity unchanged) or
+    the whole attempt declines (None).  The stacked [A, ...] weight and
+    drain views are restacked; the layout arrays (src, dst, in_src,
+    in_rank, in_has, roots) stay the previous encoding's objects, which is
+    how the warm planner and the delta selection recognise one layout
+    chain."""
+    areas = sorted(area_link_states.keys())
+    if areas != prev.areas:
+        return None
+    topos = []
+    for a, old_topo in zip(areas, prev.topos):
+        patched = patch_encoded_topology(old_topo, area_link_states[a], me)
+        if patched is None:
+            return None
+        topos.append(patched)
+    dense = {}
+    if prev.has_dense:
+        K = prev.in_src.shape[2]
+
+        def widen(a, fill):
+            pad = K - a.shape[1]
+            if not pad:
+                return a
+            return np.concatenate(
+                [a, np.full((a.shape[0], pad), fill, a.dtype)], axis=1
+            )
+
+        dense = dict(
+            in_src=prev.in_src,
+            in_rank=prev.in_rank,
+            in_has=prev.in_has,
+            in_w=np.stack([widen(t.in_w, INF) for t in topos]),
+            in_ok=np.stack([widen(t.in_ok, False) for t in topos]),
+        )
+    return EncodedMultiArea(
+        areas=areas,
+        topos=topos,
+        src=prev.src,
+        dst=prev.dst,
+        w=np.stack([t.w for t in topos]),
+        edge_ok=np.stack([t.edge_ok for t in topos]),
+        overloaded=np.stack([t.overloaded for t in topos]),
+        soft=np.stack([t.soft for t in topos]),
+        roots=prev.roots,
+        **dense,
     )

@@ -1,6 +1,10 @@
 """Per-area SPF tables and multi-area best-route selection — the
 counterpart of ``openr_tpu/ops/route_select.py``'s
-``multi_area_spf_tables_dense`` and ``multi_area_select_from_tables``.
+``multi_area_spf_tables_dense``, ``multi_area_select_from_tables``,
+``multi_area_select_delta_from_tables`` and ``gather_selection_rows``
+(its warm table builders, ``warm_multi_area_spf_tables`` and
+``warm_multi_area_subgraph_tables``, are ``ops/spf.py``'s
+``warm_spf_one`` and ``warm_subgraph_repair``: one call over all areas).
 
 Selection implements SpfSolver's per-prefix semantics
 (SpfSolver.cpp:161-312, 456-556; LsdbUtil.cpp:761-823) over [P] prefix
@@ -17,10 +21,12 @@ me (dist [A, V], nexthop lanes [A, V, D]):
      winners' first-hop lanes
 
 The host does skip-if-self, the min-nexthop gate and the cross-area
-min-metric merge during decode.  ``multi_area_select_from_tables``
-dispatches on the device of its inputs: the hand-written kernel
-(``kernels/csrc/route_select.cu``) for CUDA tensors, the plain version
-for CPU tensors, never a fallback.
+min-metric merge during decode.  The delta variant also diffs every row
+against the previous generation's outputs, so a full rebuild moves only
+the changed rows to the host.  Both selections dispatch on the device of
+their inputs: the hand-written kernel (``kernels/csrc/route_select.cu``,
+one body under a template flag) for CUDA tensors, the plain version for
+CPU tensors, never a fallback.
 """
 
 from __future__ import annotations
@@ -134,15 +140,12 @@ def multi_area_select_from_tables_plain(
     return use, shortest, lanes, valid
 
 
-def multi_area_select_from_tables_launcher(
+def _select_operands(
     dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
-    path_pref, source_pref, distance, cand_node_in_area, per_area_distance: bool,
-) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
-    """Check the inputs, allocate the outputs and bind the kernel once.
-
-    Returns ``(launch, (use, shortest, lanes, valid))``: each ``launch()``
-    enqueues the kernel on the current stream (no synchronize), writes the
-    four outputs and counts one launch."""
+    path_pref, source_pref, distance, cand_node_in_area,
+):
+    """Check the selection inputs and allocate the four outputs; returns
+    ((P, C, A, V, D), the input pointers, the output tensors)."""
     dev = dist.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called on {dev}")
@@ -161,30 +164,45 @@ def multi_area_select_from_tables_launcher(
         check_tensor(name, t, torch.int32, (P, C), dev)
     check_tensor("cand_ok", cand_ok, torch.bool, (P, C), dev)
     check_tensor("cand_node_in_area", cand_node_in_area, torch.int32, (P, C, A), dev)
-    use = torch.empty((P, C), dtype=torch.bool, device=dev)
-    shortest = torch.empty((P, A), dtype=torch.float32, device=dev)
-    lanes = torch.empty((P, A, D), dtype=torch.bool, device=dev)
-    valid = torch.empty((P, A), dtype=torch.bool, device=dev)
+    outs = (
+        torch.empty((P, C), dtype=torch.bool, device=dev),
+        torch.empty((P, A), dtype=torch.float32, device=dev),
+        torch.empty((P, A, D), dtype=torch.bool, device=dev),
+        torch.empty((P, A), dtype=torch.bool, device=dev),
+    )
+    ins = (dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+           drain_metric, path_pref, source_pref, distance, cand_node_in_area)
+    return (P, C, A, V, D), tuple(ptr(t) for t in ins), outs
+
+
+def multi_area_select_from_tables_launcher(
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+    path_pref, source_pref, distance, cand_node_in_area, per_area_distance: bool,
+) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """Check the inputs, allocate the outputs and bind the kernel once.
+
+    Returns ``(launch, (use, shortest, lanes, valid))``: each ``launch()``
+    enqueues the kernel on the current stream (no synchronize), writes the
+    four outputs and counts one launch."""
+    dims, ins, outs = _select_operands(
+        dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+        drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+    )
     fn = function(
         "route_select",
         "openr_multi_area_select",
         [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     )
-    args = (
-        ptr(dist), ptr(nh), ptr(overloaded), ptr(soft), ptr(cand_area),
-        ptr(cand_node), ptr(cand_ok), ptr(drain_metric), ptr(path_pref),
-        ptr(source_pref), ptr(distance), ptr(cand_node_in_area), ptr(use),
-        ptr(shortest), ptr(lanes), ptr(valid), P, C, A, V, D,
-        int(bool(per_area_distance)), BIG, stream(dev),
-    )
+    args = (*ins, *(ptr(o) for o in outs), *dims, int(bool(per_area_distance)),
+            BIG, stream(dist.device))
 
     def launch() -> None:
-        if P == 0:
+        if dims[0] == 0:
             return
         check_launch("multi_area_select_from_tables", fn(*args))
         LAUNCHES["multi_area_select_from_tables"] += 1
 
-    return launch, (use, shortest, lanes, valid)
+    return launch, outs
 
 
 def multi_area_select_from_tables_cuda(*args):
@@ -210,3 +228,101 @@ def multi_area_select_from_tables(
     if dist.device.type == "cpu":
         return multi_area_select_from_tables_plain(*args)
     return multi_area_select_from_tables_cuda(*args)
+
+
+# ---------------------------------------------------------------------------
+# fused selection + generation delta
+# ---------------------------------------------------------------------------
+
+
+def multi_area_select_delta_from_tables_plain(
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+    path_pref, source_pref, distance, cand_node_in_area,
+    prev_use,  # [P, C] previous generation's selection outputs
+    prev_shortest,  # [P, A]
+    prev_lanes,  # [P, A, D]
+    prev_valid,  # [P, A]
+    node_changed,  # [A, V] bool: nodes whose drain inputs moved
+    per_area_distance: bool,
+):
+    """Selection, then a per-row diff against the previous generation's
+    outputs, OR rows whose candidates touch a node in ``node_changed``
+    (own-area cell and every area's resolution, cand_ok slots only):
+    decode wraps the winning entry from LinkState's drain lookups, so
+    those rows re-decode even with identical outputs.  Returns (use,
+    shortest, lanes, valid, changed [P] bool)."""
+    use, shortest, lanes, valid = multi_area_select_from_tables_plain(
+        dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+        drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+        per_area_distance,
+    )
+    changed = (
+        (use != prev_use).any(dim=1)
+        | (valid != prev_valid).any(dim=1)
+        | (shortest != prev_shortest).any(dim=1)
+        | (lanes != prev_lanes).any(dim=2).any(dim=1)
+    )
+    touch_own = (node_changed[cand_area.long(), cand_node.long()] & cand_ok).any(dim=1)
+    A = dist.shape[0]
+    a_idx = torch.arange(A, device=dist.device)[None, None, :]
+    cnia_ok = (cand_node_in_area >= 0) & cand_ok[:, :, None]
+    touch_x = (
+        cnia_ok & node_changed[a_idx, cand_node_in_area.clamp(min=0).long()]
+    ).any(dim=2).any(dim=1)
+    return use, shortest, lanes, valid, changed | touch_own | touch_x
+
+
+def multi_area_select_delta_from_tables_launcher(
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+    path_pref, source_pref, distance, cand_node_in_area, prev_use,
+    prev_shortest, prev_lanes, prev_valid, node_changed,
+    per_area_distance: bool,
+) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """As :func:`multi_area_select_from_tables_launcher`, for the fused
+    select + diff kernel: ``(launch, (use, shortest, lanes, valid,
+    changed))``."""
+    dims, ins, outs = _select_operands(
+        dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+        drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+    )
+    P, C, A, V, D = dims
+    dev = dist.device
+    check_tensor("prev_use", prev_use, torch.bool, (P, C), dev)
+    check_tensor("prev_shortest", prev_shortest, torch.float32, (P, A), dev)
+    check_tensor("prev_lanes", prev_lanes, torch.bool, (P, A, D), dev)
+    check_tensor("prev_valid", prev_valid, torch.bool, (P, A), dev)
+    check_tensor("node_changed", node_changed, torch.bool, (A, V), dev)
+    changed = torch.empty((P,), dtype=torch.bool, device=dev)
+    fn = function(
+        "route_select",
+        "openr_multi_area_select_delta",
+        [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    prev = (prev_use, prev_shortest, prev_lanes, prev_valid, node_changed)
+    args = (*ins, *(ptr(o) for o in outs), *(ptr(t) for t in prev), ptr(changed),
+            *dims, int(bool(per_area_distance)), BIG, stream(dev))
+
+    def launch() -> None:
+        if P == 0:
+            return
+        check_launch("multi_area_select_delta_from_tables", fn(*args))
+        LAUNCHES["multi_area_select_delta_from_tables"] += 1
+
+    return launch, (*outs, changed)
+
+
+def multi_area_select_delta_from_tables(*args):
+    """Fused selection + on-device generation delta: (use, shortest,
+    lanes, valid, changed [P]); the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if args[0].device.type == "cpu":
+        return multi_area_select_delta_from_tables_plain(*args)
+    launch, outs = multi_area_select_delta_from_tables_launcher(*args)
+    launch()
+    return outs
+
+
+def gather_selection_rows(use, shortest, lanes, valid, idx):
+    """Compaction of the changed selection rows ``idx`` [G] (a plain row
+    gather, on whatever device the outputs are)."""
+    return tuple(torch.index_select(a, 0, idx) for a in (use, shortest, lanes, valid))

@@ -46,20 +46,27 @@ DENSE_UNROLL = 8
 INT8_MIN = -128
 
 
+def can_transit(overloaded, roots):
+    """[A, V] bool: which nodes may relax their out-edges."""
+    V = overloaded.shape[1]
+    ids = torch.arange(V, device=overloaded.device)
+    return (~overloaded) | (ids[None, :] == roots.long()[:, None])
+
+
 def transit_ok(in_src, in_ok, overloaded, roots):
     """[A, V, K] bool: in-edge usable (ok and its src may transit)."""
-    A, V, _K = in_src.shape
+    A = in_src.shape[0]
     src = in_src.long()
-    ids = torch.arange(V, device=in_src.device)
-    transit = (~overloaded) | (ids[None, :] == roots.long()[:, None])
+    transit = can_transit(overloaded, roots)
     return in_ok & torch.gather(transit, 1, src.reshape(A, -1)).reshape(src.shape)
 
 
-def gather_rows(table, in_src):
-    """table [A, V, ...] gathered at in_src [A, V, K] → [A, V, K, ...]."""
+def gather_rows(table, idx):
+    """table [A, V, ...] gathered per area at idx [A, ...] (in_src
+    [A, V, K] or an edge list [A, E]) → [A, ..., ...]."""
     A = table.shape[0]
-    areas = torch.arange(A, device=table.device)[:, None, None]
-    return table[areas, in_src.long()]
+    areas = torch.arange(A, device=table.device).view(A, *([1] * (idx.dim() - 1)))
+    return table[areas, idx.long()]
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +210,8 @@ def dense_spf_nexthop_lanes_launcher(
         A, V, K, D, BIG, stream(dev),
     )
 
-    def launch() -> None:
+    # the default argument keeps the scratch alive for every later launch
+    def launch(_scratch=edge_class) -> None:
         if A == 0:
             return
         check_launch("dense_spf_nexthop_lanes", fn(*args))
@@ -256,3 +264,407 @@ def dense_spf_one(
         in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, dist, max_degree
     )
     return dist, nh
+
+
+# ---------------------------------------------------------------------------
+# Warm-start (generation-delta) tables — the counterpart of the reference's
+# ``warm_spf_distances``, ``spf_nexthop_lanes_reset`` and
+# ``warm_subgraph_repair_one``.  They read the SEGMENT form: per-area edge
+# lists ``src/dst/w/edge_ok [A, E]`` sorted by dst, each vertex's in-edges
+# one contiguous run.  The seed is the previous generation's tables with
+# the host-planned reset vertices at BIG (``ops/repair.py``), so the loops
+# run for the depth of the perturbed region, not the hop diameter.  Lanes
+# use RESET semantics (each round replaces a value), whose fixed point on
+# the shortest-path DAG is unique, so any lane seed is safe.
+# ---------------------------------------------------------------------------
+
+#: relaxation rounds per convergence check in the plain warm versions
+#: (the reference's WARM_UNROLL); extra rounds past the fixed point are
+#: no-ops
+WARM_UNROLL = 16
+
+_INF = float("inf")
+
+
+def segment_reduce(values, dst, num_segments: int, reduce: str, fill):
+    """The reference's ``segment_min``/``segment_max`` per area: values
+    [A, E, ...] reduced by dst [A, E] into [A, V, ...]; an empty segment
+    holds ``fill`` (the reduction's identity: +inf for a f32 min, -128 for
+    an int8 max)."""
+    A, E = dst.shape
+    tail = values.shape[2:]
+    base = torch.arange(A, device=dst.device)[:, None] * num_segments
+    idx = (dst.long() + base).reshape(A * E, *([1] * len(tail))).expand(A * E, *tail)
+    out = torch.full(
+        (A * num_segments, *tail), fill, dtype=values.dtype, device=values.device
+    )
+    out.scatter_reduce_(0, idx, values.reshape(A * E, *tail), reduce, include_self=True)
+    return out.reshape(A, num_segments, *tail)
+
+
+def shortest_path_dag(src, dst, w, edge_ok, overloaded, roots, dist):
+    """[A, E] bool: directed edges on some shortest path from the root."""
+    big = torch.tensor(BIG, dtype=torch.float32, device=w.device)
+    transit = gather_rows(can_transit(overloaded, roots), src)
+    dd = gather_rows(dist, dst)
+    ds = gather_rows(dist, src)
+    return edge_ok & transit & (dd < big) & (ds + torch.where(edge_ok, w, big) == dd)
+
+
+def warm_spf_distances_plain(
+    src, dst, w, edge_ok, overloaded, roots, d0, unroll: int = WARM_UNROLL
+):
+    """Warm-started masked Bellman-Ford from the over-estimate seed ``d0``
+    [A, V] (the root pinned at 0).  Returns (dist [A, V] f32, rounds [A]
+    int32, the rounds run: a multiple of ``unroll``, the last one finding
+    nothing to change)."""
+    A, V = overloaded.shape
+    big = torch.tensor(BIG, dtype=torch.float32, device=w.device)
+    ww = torch.where(edge_ok, w, big)
+    src_ok = gather_rows(can_transit(overloaded, roots), src) & edge_ok
+    dist = d0.clone()
+    dist[torch.arange(A, device=dist.device), roots.long()] = 0.0
+
+    def relax(d):
+        cand = torch.where(src_ok, gather_rows(d, src) + ww, big)
+        return torch.minimum(d, segment_reduce(cand, dst, V, "amin", _INF))
+
+    i = 0
+    while True:
+        nd = dist
+        for _ in range(unroll):
+            nd = relax(nd)
+        changed = bool((nd < dist).any())
+        dist = nd
+        i += unroll
+        if not changed or i >= V:
+            return dist, torch.full((A,), i, dtype=torch.int32, device=dist.device)
+
+
+def spf_nexthop_lanes_reset_plain(
+    src, dst, w, edge_ok, overloaded, roots, dist, nh0, max_degree: int,
+    unroll: int = WARM_UNROLL,
+):
+    """Reset-semantics first-hop lane fixed point from the seed ``nh0``
+    [A, V, D] int8.  Returns (nh [A, V, D] int8, rounds [A] int32).  Lane
+    r is the r-th out-edge of the root in edge order."""
+    A, V = overloaded.shape
+    D = max_degree
+    sp = shortest_path_dag(src, dst, w, edge_ok, overloaded, roots, dist)
+    is_root_out = src.long() == roots.long()[:, None]
+    rank = torch.cumsum(is_root_out.to(torch.int32), dim=1) - 1
+    lanes = torch.arange(D, device=src.device)
+    seed = (is_root_out[..., None] & (rank[..., None] == lanes)).to(torch.int8)
+    seed_mask = (sp & is_root_out)[..., None].to(torch.int8)
+    seed_part = segment_reduce(seed * seed_mask, dst, V, "amax", INT8_MIN)
+    prop = (sp & ~is_root_out)[..., None].to(torch.int8)
+
+    def step(nh):
+        # int8 arithmetic as the reference's: -128 * 1 = -128, -128 * 0 = 0
+        new = segment_reduce(gather_rows(nh, src) * prop, dst, V, "amax", INT8_MIN)
+        # RESET: seed | in-edge max, replacing the previous round's value
+        return torch.maximum(new, seed_part)
+
+    nh = nh0.to(torch.int8)
+    i = 0
+    while True:
+        new = nh
+        for _ in range(unroll):
+            new = step(new)
+        changed = bool((new != nh).any())
+        nh = new
+        i += unroll
+        if not changed or i >= V:
+            return nh, torch.full((A,), i, dtype=torch.int32, device=nh.device)
+
+
+def warm_subgraph_repair_plain(
+    src_sub, dst_sub, w_sub, ok_sub, rank_sub, prev_dist, prev_nh, reset,
+    max_degree: int, unroll: int = WARM_UNROLL,
+):
+    """Bounded repair of a PURE-WEAKENING delta: only the reset vertices
+    re-relax, over the sub-edge list ``[A, Es]`` (every in-edge of a reset
+    vertex, dst ascending; pads carry ok_sub False, rank -1 and the last
+    real dst).  Every other vertex keeps its previous distance and lanes.
+    A reset vertex with no sub-edge ends at -128 lanes, as the reference's
+    empty segment does.  Returns (dist, nh, rounds_d [A], rounds_l [A])."""
+    A, V = prev_dist.shape
+    D = max_degree
+    big = torch.tensor(BIG, dtype=torch.float32, device=prev_dist.device)
+    d = torch.where(reset, big, prev_dist)
+    w_sub = torch.where(ok_sub, w_sub, big)
+
+    def relax(d):
+        cand = torch.where(ok_sub, gather_rows(d, src_sub) + w_sub, big)
+        best = segment_reduce(cand, dst_sub, V, "amin", _INF)
+        return torch.where(reset, torch.minimum(d, best), d)
+
+    rounds_d = 0
+    while True:
+        nd = d
+        for _ in range(unroll):
+            nd = relax(nd)
+        changed = bool((nd < d).any())
+        d = nd
+        rounds_d += unroll
+        if not changed or rounds_d >= V:
+            break
+
+    dd = gather_rows(d, dst_sub)
+    on = ok_sub & (dd < big) & (gather_rows(d, src_sub) + w_sub == dd)
+    lanes = torch.arange(D, device=prev_dist.device)
+    seed = ((rank_sub[..., None] == lanes) & on[..., None]).to(torch.int8)
+    seed_part = segment_reduce(seed, dst_sub, V, "amax", INT8_MIN)
+    prop = (on & (rank_sub < 0))[..., None].to(torch.int8)
+    keep = reset[..., None]
+
+    def step(nh):
+        new = segment_reduce(gather_rows(nh, src_sub) * prop, dst_sub, V, "amax", INT8_MIN)
+        return torch.where(keep, torch.maximum(new, seed_part), nh)
+
+    nh = torch.where(keep, torch.zeros((), dtype=torch.int8, device=prev_nh.device), prev_nh)
+    rounds_l = 0
+    while True:
+        new = nh
+        for _ in range(unroll):
+            new = step(new)
+        changed = bool((new != nh).any())
+        nh = new
+        rounds_l += unroll
+        if not changed or rounds_l >= V:
+            break
+    full = torch.full((A,), 0, dtype=torch.int32, device=d.device)
+    return d, nh, full + rounds_d, full + rounds_l
+
+
+# -- CUDA kernel wrappers (kernels/csrc/spf_warm.cu) -------------------------
+
+
+def segment_offsets(dst, num_segments: int):
+    """[A, V + 1] int32: where each vertex's run starts in the dst-sorted
+    edge list (the segment kernels' layout, derived on the device)."""
+    A = dst.shape[0]
+    bounds = torch.arange(num_segments + 1, dtype=dst.dtype, device=dst.device)
+    return torch.searchsorted(
+        dst, bounds.expand(A, num_segments + 1).contiguous(), out_int32=True
+    )
+
+
+def root_lane_rank(src, roots):
+    """[A, E] int32: rank of each root out-edge among the root's out-edges
+    in edge order (its lane), -1 on every other edge."""
+    is_root_out = src == roots[:, None]
+    rank = torch.cumsum(is_root_out.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    return torch.where(is_root_out, rank, torch.full_like(rank, -1)).contiguous()
+
+
+def _check_segments(src, dst, w, edge_ok, overloaded, roots):
+    if src.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on {src.device}")
+    A, V = overloaded.shape
+    if V > MAX_KERNEL_NODES:
+        raise ValueError(f"{V} nodes exceed the kernel's shared-memory bound")
+    E = src.shape[1]
+    dev = src.device
+    check_tensor("src", src, torch.int32, (A, E), dev)
+    check_tensor("dst", dst, torch.int32, (A, E), dev)
+    check_tensor("w", w, torch.float32, (A, E), dev)
+    check_tensor("edge_ok", edge_ok, torch.bool, (A, E), dev)
+    check_tensor("overloaded", overloaded, torch.bool, (A, V), dev)
+    check_tensor("roots", roots, torch.int32, (A,), dev)
+    return A, V, E, dev
+
+
+def warm_spf_distances_launcher(src, dst, w, edge_ok, overloaded, roots, d0):
+    """Check the inputs, derive the segment offsets, allocate the outputs
+    and bind the kernel once.  Returns ``(launch, (dist, rounds))``: each
+    ``launch()`` enqueues the kernel (no synchronize) and counts one
+    launch."""
+    A, V, E, dev = _check_segments(src, dst, w, edge_ok, overloaded, roots)
+    check_tensor("d0", d0, torch.float32, (A, V), dev)
+    seg_off = segment_offsets(dst, V)
+    seg_end = torch.empty((A, V), dtype=torch.int32, device=dev)
+    dist = torch.empty((A, V), dtype=torch.float32, device=dev)
+    rounds = torch.empty((A,), dtype=torch.int32, device=dev)
+    fn = function(
+        "spf_warm",
+        "openr_warm_spf_distances",
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    args = (
+        ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), ptr(roots),
+        ptr(d0), ptr(seg_off), ptr(seg_end), ptr(dist), ptr(rounds), A, V, E,
+        BIG, stream(dev),
+    )
+
+    # the default argument keeps the derived layout and scratch alive
+    def launch(_held=(seg_off, seg_end)) -> None:
+        if A == 0:
+            return
+        check_launch("warm_spf_distances", fn(*args))
+        LAUNCHES["warm_spf_distances"] += 1
+
+    return launch, (dist, rounds)
+
+
+def spf_nexthop_lanes_reset_launcher(
+    src, dst, w, edge_ok, overloaded, roots, dist, nh0, max_degree: int
+):
+    """Like :func:`warm_spf_distances_launcher`: ``(launch, (nh, rounds))``
+    with ``nh`` [A, V, D] int8 written by each ``launch()``."""
+    A, V, E, dev = _check_segments(src, dst, w, edge_ok, overloaded, roots)
+    D = int(max_degree)
+    check_tensor("dist", dist, torch.float32, (A, V), dev)
+    check_tensor("nh0", nh0, torch.int8, (A, V, D), dev)
+    seg_off = segment_offsets(dst, V)
+    seg_end = torch.empty((A, V), dtype=torch.int32, device=dev)
+    rank = root_lane_rank(src, roots)
+    edge_class = torch.empty((A, E), dtype=torch.uint8, device=dev)
+    nh = torch.empty((A, V, D), dtype=torch.int8, device=dev)
+    rounds = torch.empty((A,), dtype=torch.int32, device=dev)
+    fn = function(
+        "spf_warm",
+        "openr_spf_nexthop_lanes_reset",
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    args = (
+        ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), ptr(roots),
+        ptr(dist), ptr(nh0), ptr(seg_off), ptr(seg_end), ptr(rank),
+        ptr(edge_class), ptr(nh), ptr(rounds), A, V, E, D, BIG, stream(dev),
+    )
+
+    # the default argument keeps the derived layout and scratch alive
+    def launch(_held=(seg_off, seg_end, rank, edge_class)) -> None:
+        if A == 0:
+            return
+        check_launch("spf_nexthop_lanes_reset", fn(*args))
+        LAUNCHES["spf_nexthop_lanes_reset"] += 1
+
+    return launch, (nh, rounds)
+
+
+def warm_subgraph_repair_launcher(
+    src_sub, dst_sub, w_sub, ok_sub, rank_sub, prev_dist, prev_nh, reset,
+    max_degree: int,
+):
+    """``(launch, (dist, nh, rounds_d, rounds_l))`` for the bounded
+    repair, as :func:`warm_spf_distances_launcher`."""
+    dev = src_sub.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called on {dev}")
+    A, V = prev_dist.shape
+    if V > MAX_KERNEL_NODES:
+        raise ValueError(f"{V} nodes exceed the kernel's shared-memory bound")
+    Es = src_sub.shape[1]
+    D = int(max_degree)
+    for name, t in (("src_sub", src_sub), ("dst_sub", dst_sub), ("rank_sub", rank_sub)):
+        check_tensor(name, t, torch.int32, (A, Es), dev)
+    check_tensor("w_sub", w_sub, torch.float32, (A, Es), dev)
+    check_tensor("ok_sub", ok_sub, torch.bool, (A, Es), dev)
+    check_tensor("prev_dist", prev_dist, torch.float32, (A, V), dev)
+    check_tensor("prev_nh", prev_nh, torch.int8, (A, V, D), dev)
+    check_tensor("reset", reset, torch.bool, (A, V), dev)
+    seg_off = segment_offsets(dst_sub, V)
+    seg_end = torch.empty((A, V), dtype=torch.int32, device=dev)
+    edge_class = torch.empty((A, Es), dtype=torch.uint8, device=dev)
+    dist = torch.empty((A, V), dtype=torch.float32, device=dev)
+    nh = torch.empty((A, V, D), dtype=torch.int8, device=dev)
+    rounds_d = torch.empty((A,), dtype=torch.int32, device=dev)
+    rounds_l = torch.empty((A,), dtype=torch.int32, device=dev)
+    fn = function(
+        "spf_warm",
+        "openr_warm_subgraph_repair",
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    args = (
+        ptr(src_sub), ptr(dst_sub), ptr(w_sub), ptr(ok_sub), ptr(rank_sub),
+        ptr(prev_dist), ptr(prev_nh), ptr(reset), ptr(seg_off), ptr(seg_end),
+        ptr(edge_class), ptr(dist), ptr(nh), ptr(rounds_d), ptr(rounds_l), A,
+        V, Es, D, BIG, stream(dev),
+    )
+
+    # the default argument keeps the derived layout and scratch alive
+    def launch(_held=(seg_off, seg_end, edge_class)) -> None:
+        if A == 0:
+            return
+        check_launch("warm_subgraph_repair", fn(*args))
+        LAUNCHES["warm_subgraph_repair"] += 1
+
+    return launch, (dist, nh, rounds_d, rounds_l)
+
+
+def _launched(launcher, *args):
+    launch, outs = launcher(*args)
+    launch()
+    return outs
+
+
+def warm_spf_distances(src, dst, w, edge_ok, overloaded, roots, d0):
+    """(dist [A, V], rounds [A]); the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    args = (src, dst, w, edge_ok, overloaded, roots, d0)
+    if src.device.type == "cpu":
+        return warm_spf_distances_plain(*args)
+    return _launched(warm_spf_distances_launcher, *args)
+
+
+def spf_nexthop_lanes_reset(
+    src, dst, w, edge_ok, overloaded, roots, dist, nh0, max_degree: int
+):
+    """(nh [A, V, D] int8, rounds [A]); kernel or plain version by device."""
+    args = (src, dst, w, edge_ok, overloaded, roots, dist, nh0, max_degree)
+    if src.device.type == "cpu":
+        return spf_nexthop_lanes_reset_plain(*args)
+    return _launched(spf_nexthop_lanes_reset_launcher, *args)
+
+
+def warm_subgraph_repair(
+    src_sub, dst_sub, w_sub, ok_sub, rank_sub, prev_dist, prev_nh, reset,
+    max_degree: int,
+):
+    """Bounded-subgraph warm rebuild of a pure-weakening delta over all
+    areas (:func:`warm_subgraph_repair_plain` says what it computes).
+    Returns (dist [A, V], nh [A, V, D] int8, rounds_d [A], rounds_l [A]);
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    args = (src_sub, dst_sub, w_sub, ok_sub, rank_sub, prev_dist, prev_nh,
+            reset, max_degree)
+    if src_sub.device.type == "cpu":
+        return warm_subgraph_repair_plain(*args)
+    return _launched(warm_subgraph_repair_launcher, *args)
+
+
+def warm_seeds(prev_dist, prev_nh, reset, lane_keep):
+    """(d0, nh0) the full-edge warm kernels start from: reset vertices at
+    BIG, and the previous lanes where ``lane_keep`` [A] (root out-edge
+    signature unchanged) and the vertex is not reset, else 0."""
+    big = torch.tensor(BIG, dtype=torch.float32, device=prev_dist.device)
+    d0 = torch.where(reset, big, prev_dist)
+    keep = lane_keep[:, None, None] & ~reset[..., None]
+    zero = torch.zeros((), dtype=torch.int8, device=prev_nh.device)
+    return d0, torch.where(keep, prev_nh, zero)
+
+
+def warm_spf_one(
+    src,  # [A, E] the NEW generation's edge lists (dst-sorted)
+    dst,  # [A, E]
+    w,  # [A, E]
+    edge_ok,  # [A, E]
+    overloaded,  # [A, V]
+    roots,  # [A]
+    prev_dist,  # [A, V] previous generation's distances
+    prev_nh,  # [A, V, D] previous generation's lanes
+    reset,  # [A, V] bool host-planned affected vertices
+    lane_keep,  # [A] bool root out-edge signature unchanged
+    max_degree: int,
+):
+    """Generation-delta warm rebuild of the per-area SPF tables over the
+    full edge lists (two kernels: distances, reset-semantics lanes),
+    warm-started from the previous generation (:func:`warm_seeds`).
+    Exact: the tables a cold solve gives.  Returns (dist [A, V], nh
+    [A, V, D] int8, rounds_d [A], rounds_l [A])."""
+    d0, nh0 = warm_seeds(prev_dist, prev_nh, reset, lane_keep)
+    dist, rounds_d = warm_spf_distances(src, dst, w, edge_ok, overloaded, roots, d0)
+    nh, rounds_l = spf_nexthop_lanes_reset(
+        src, dst, w, edge_ok, overloaded, roots, dist, nh0, max_degree
+    )
+    return dist, nh, rounds_d, rounds_l

@@ -46,7 +46,8 @@ def card():
 def _areas(world):
     me = "me"
     if world == "grid":
-        edges = {"0": grid_edges(12) + [("node0", me, 1)]}
+        # two root lanes: node0 carries column 0, node1 every other column
+        edges = {"0": grid_edges(12) + [("node0", me, 1), ("node1", me, 1)]}
         drains = {"0": dict(overloaded=["node13"], soft_drained={"node40": 9})}
     else:  # multi-area with an area where me has no adjacencies
         edges = {
@@ -129,3 +130,197 @@ def test_backend_on_card_equals_scalar(card, algo):
     backend = CudaBackend(SpfSolver(me, route_selection_algorithm=algo), device=card)
     got = backend.build_route_db(areas, ps)
     assert route_db_summary(got) == route_db_summary(solver.build_route_db(areas, ps))
+
+
+# -- the steady-state kernels: warm SPF, bounded repair, select + delta ----
+
+
+def _warm_world(world):
+    """(adjacency dbs by area, LinkStates, me) for the 144-node grid or the
+    2-area world with an isolated root."""
+    me = "me"
+    if world == "grid":
+        # two root lanes: node0 carries column 0, node1 every other column
+        edges = {"0": grid_edges(12) + [("node0", me, 1), ("node1", me, 1)]}
+        drains = {"0": dict(overloaded=["node13"], soft_drained={"node40": 9})}
+    else:
+        edges = {
+            "1": random_connected_edges(30, 20, seed=3, prefix="a") + [("a0", me, 2)],
+            "2": random_connected_edges(20, 10, seed=4, prefix="b"),
+        }
+        drains = {"1": dict(overloaded=["a7"]), "2": {}}
+    dbs = {a: build_adj_dbs(e, area=a, **drains[a]) for a, e in edges.items()}
+    areas = {}
+    for a, by_node in dbs.items():
+        ls = LinkState(a, me)
+        for db in by_node.values():
+            ls.update_adjacency_database(db)
+        areas[a] = ls
+    return dbs, areas, me
+
+
+def _cold_tables(enc, card):
+    planes = tables_from_numpy([getattr(enc, f) for f in FIELDS], card)
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    return spf.dense_spf_one(*planes, max_degree=D), D
+
+
+def _set_metric(dbs, areas, area, node, metric, neighbor=None):
+    """Set the metric of ``node``'s adjacency to ``neighbor`` (its first
+    adjacency when None)."""
+    db = dbs[area][node]
+    for adj in db.adjacencies:
+        if neighbor is None or adj.other_node_name == neighbor:
+            adj.metric = metric
+            break
+    areas[area].update_adjacency_database(db)
+
+
+def _set_overload(dbs, areas, area, node, overloaded):
+    db = dbs[area][node]
+    db.is_overloaded = overloaded
+    areas[area].update_adjacency_database(db)
+
+
+def _set_link_metric(dbs, areas, a, b, metric):
+    """Both directions of the grid link a-b; column 0 below node0 is
+    reached through these links alone, so routes move with them."""
+    _set_metric(dbs, areas, "0", a, metric, neighbor=b)
+    _set_metric(dbs, areas, "0", b, metric, neighbor=a)
+
+
+@pytest.mark.parametrize("world", ["grid", "multiarea_isolated"])
+@pytest.mark.parametrize("delta", ["weaken", "improve"])
+def test_warm_kernels_equal_plain_and_cold(card, world, delta):
+    from openr_tpu_torch.ops.repair import plan_generation_delta
+
+    dbs, areas, me = _warm_world(world)
+    area = sorted(areas)[0]
+    node = "node77" if world == "grid" else "a11"
+    # the grid's improvement undrains node1: the root's second lane opens
+    # and the lanes of every column but 0 move from their warm seed
+    undrain = delta == "improve" and world == "grid"
+    if undrain:
+        _set_overload(dbs, areas, area, "node1", True)
+    elif delta == "improve":
+        _set_metric(dbs, areas, area, node, 6)
+    old = csr.encode_multi_area(areas, me)
+    (prev_dist, prev_nh), D = _cold_tables(old, card)
+    if undrain:
+        _set_overload(dbs, areas, area, "node1", False)
+    else:
+        _set_metric(dbs, areas, area, node, 6 if delta == "weaken" else 1)
+    new = csr.patch_encoded_multi_area(old, areas, me)
+    assert new is not None
+    plans = [
+        plan_generation_delta(ot, int(new.roots[i]), prev_dist[i].cpu().numpy(), nt)
+        for i, (ot, nt) in enumerate(zip(old.topos, new.topos))
+    ]
+    (reset,) = tables_from_numpy([np.stack([p.reset for p in plans])], card)
+    (want_d, want_n), _ = _cold_tables(new, card)
+    reset_launch_counts()
+    if delta == "weaken":
+        assert all(not p.has_improvements and p.lanes_compatible for p in plans)
+        assert int(reset.sum()) > 0
+        sub = tables_from_numpy(CudaBackend._pack_sub_edges(None, new, plans), card)
+        args = (*sub, prev_dist, prev_nh, reset, D)
+        got = spf.warm_subgraph_repair(*args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["warm_subgraph_repair"] == 1
+        plain = spf.warm_subgraph_repair_plain(*args)
+    else:
+        assert any(p.has_improvements for p in plans)
+        seg = tables_from_numpy(
+            [getattr(new, f) for f in ("src", "dst", "w", "edge_ok", "overloaded", "roots")]
+            + [np.asarray([p.lanes_compatible for p in plans], bool)],
+            card,
+        )
+        args = (*seg[:6], prev_dist, prev_nh, reset, seg[6], D)
+        got = spf.warm_spf_one(*args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["warm_spf_distances"] == 1
+        assert LAUNCHES["spf_nexthop_lanes_reset"] == 1
+        d0, nh0 = spf.warm_seeds(prev_dist, prev_nh, reset, seg[6])
+        plain_d, _ = spf.warm_spf_distances_plain(*seg[:6], d0)
+        plain_n, _ = spf.spf_nexthop_lanes_reset_plain(*seg[:6], plain_d, nh0, D)
+        plain = (plain_d, plain_n)
+        if undrain:
+            assert bool(seg[6].all())  # the lane seed is the previous lanes
+            assert int((nh0 != want_n).sum()) > 100
+        # reset semantics make any seed safe: from all zeros every lane
+        # propagates down the whole DAG to the same tables
+        zero = torch.zeros_like(nh0)
+        got_z, _ = spf.spf_nexthop_lanes_reset(*seg[:6], got[0], zero, D)
+        plain_z, _ = spf.spf_nexthop_lanes_reset_plain(*seg[:6], plain_d, zero, D)
+        assert torch.equal(got_z, plain_z) and torch.equal(got_z, want_n)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    assert torch.equal(got[0], want_d) and torch.equal(got[1], want_n)
+    if world == "multiarea_isolated":
+        assert bool((got[1] == -128).any())
+
+
+@pytest.mark.parametrize("per_area", [False, True])
+def test_select_delta_kernel_equals_plain(card, per_area):
+    inputs = _select_inputs(2)
+    rng = np.random.default_rng(7)
+    dist, nh = inputs[0], inputs[1]
+    prev_dist = np.where(rng.random(dist.shape) < 0.1, dist + 1, dist).astype(np.float32)
+    prev = rs.multi_area_select_from_tables_plain(
+        *tables_from_numpy((prev_dist, *inputs[1:]), card), per_area
+    )
+    node_changed = rng.random(dist.shape) < 0.03
+    args = (*tables_from_numpy(inputs, card), *prev,
+            *tables_from_numpy([node_changed], card))
+    reset_launch_counts()
+    got = rs.multi_area_select_delta_from_tables(*args, per_area)
+    torch.cuda.synchronize()
+    assert LAUNCHES["multi_area_select_delta_from_tables"] == 1
+    want = rs.multi_area_select_delta_from_tables_plain(*args, per_area)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert 0 < int(got[4].sum()) < got[4].numel()
+
+
+def test_backend_steady_state_ticks_on_card(card):
+    """Prefix churn, a weakening and a restoring warm tick (the lanes
+    below the link move to node1's lane and back), a warm undrain, and
+    two unhinted drain ticks, each on its kernels and equal to the
+    oracle."""
+    dbs, areas, me = _warm_world("grid")
+    ps = PrefixState()
+    for i in range(144):
+        ps.update_prefix(f"node{i}", "0", PrefixEntry(f"10.0.{i}.0/24"))
+    backend = CudaBackend(SpfSolver(me), device=card)
+    backend.build_route_db(areas, ps)
+
+    def drain(node):
+        db = dbs["0"][node]
+        db.is_overloaded = not db.is_overloaded
+        areas["0"].update_adjacency_database(db)
+
+    ticks = [
+        ("churn", lambda: ps.update_prefix("node5", "0", PrefixEntry("10.9.0.0/24")),
+         dict(changed_prefixes={"10.9.0.0/24"}), {"multi_area_select_from_tables"}),
+        ("weaken", lambda: _set_link_metric(dbs, areas, "node60", "node72", 6),
+         dict(changed_prefixes=set(), force_full=True, warm_delta=True),
+         {"warm_subgraph_repair", "multi_area_select_from_tables"}),
+        ("restore", lambda: _set_link_metric(dbs, areas, "node60", "node72", 1),
+         dict(changed_prefixes=set(), force_full=True, warm_delta=True),
+         {"warm_spf_distances", "spf_nexthop_lanes_reset", "multi_area_select_from_tables"}),
+        ("undrain", lambda: drain("node13"),
+         dict(changed_prefixes=set(), force_full=True, warm_delta=True),
+         {"warm_spf_distances", "spf_nexthop_lanes_reset", "multi_area_select_from_tables"}),
+        ("drain", lambda: drain("node30"), dict(changed_prefixes=set(), force_full=True),
+         {"dense_spf_distances", "dense_spf_nexthop_lanes", "multi_area_select_from_tables"}),
+        ("drain2", lambda: drain("node31"), dict(changed_prefixes=set(), force_full=True),
+         {"dense_spf_distances", "dense_spf_nexthop_lanes",
+          "multi_area_select_delta_from_tables"}),
+    ]
+    for name, change, hints, kernels in ticks:
+        change()
+        reset_launch_counts()
+        got = backend.build_route_db(areas, ps, **hints)
+        torch.cuda.synchronize()
+        assert {k for k, v in LAUNCHES.items() if v} == kernels, name
+        want = SpfSolver(me).build_route_db(areas, ps)
+        assert route_db_summary(got) == route_db_summary(want), name
