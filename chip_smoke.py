@@ -26,6 +26,21 @@ Decision passes:
      keeps its selection outputs, the second diffs against them on the
      card (the fused select + delta kernel and the changed-row gather)
 
+and then the single-area link-failure what-if path (kernels 8-11):
+
+ 10. the headline world of the reference's benchmark (1024-node WAN, 2048
+     chords, seed 7, a loopback per node, vantage node0): 10,240 seeded
+     single-link failures through ``LinkFailureSweep.run`` and
+     ``SweepRouteSelector.run`` (a cold base: the cold sweep kernel), then
+     a second generation with one of node0's links raised, warm-seeded
+     from the first (the repair kernel solves the base)
+ 11. ``_whatif_engine_criticality`` over every link of that world with a
+     16,384-pair scan, through ``WhatIfApiEngine``
+ 12. ``WhatIfApiEngine.run`` on the grid: node0's two links plus 30 seeded
+     random links, then one simultaneous set of 3 links (failing a root
+     link moves about half the routes, so the compaction overflows its
+     first buffer and re-runs on the card)
+
 The CUDA kernels are built from ``openr_tpu_torch/kernels/csrc`` at first
 use.  Every build checks, with exact equality:
   * each kernel against its plain PyTorch version on the card, on the
@@ -42,8 +57,16 @@ use.  Every build checks, with exact equality:
   * ~200 sampled prefixes (all of them on the small world) against the
     scalar ``SpfSolver.create_route_for_prefix`` oracle
 and that the build launched exactly the kernels its path needs (launch
-counts are reset just before each build and read just after).  Any
-mismatch or exception exits non-zero.
+counts are reset just before each build and read just after).  The
+what-if phases check, exactly: every call of kernels 8-11 against its
+plain version on the inputs the run gave it; the repair sweep's tables
+against the cold sweep kernel's for 1,024 failures (where lanes move from
+the warm seed); the warm base against a cold one; ``WhatIfApiEngine``
+answers against ``GenericSolverWhatIfEngine`` (the scalar solver on the
+LSDB with the links removed) on sampled failures and a simultaneous set
+of the headline world; and on the grid the answers against the same
+engine running the plain versions on the card plus a scalar-oracle
+sample of prefixes.  Any mismatch or exception exits non-zero.
 
 Prints the kernel and phase times with the card's name and power limit,
 a ``{"kernels": [...]}`` line, and last
@@ -63,6 +86,7 @@ import time
 import numpy as np
 import torch
 
+from openr_tpu_torch.decision import whatif_api
 from openr_tpu_torch.decision.backend import CudaBackend
 from openr_tpu_torch.decision.link_state import LinkState
 from openr_tpu_torch.decision.prefix_state import PrefixState
@@ -74,8 +98,10 @@ from openr_tpu_torch.emulation.topology import (
     random_connected_edges,
 )
 from openr_tpu_torch.kernels import KERNEL_NAMES, LAUNCHES, build, reset_launch_counts
+from openr_tpu_torch.ops import csr, repair, spf, sweep_select
 from openr_tpu_torch.ops import route_select as rs
-from openr_tpu_torch.ops import spf
+from openr_tpu_torch.ops import whatif as whatif_ops
+from openr_tpu_torch.ops.bits import unpack_bits_last
 from openr_tpu_torch.ops.consts import BIG
 from openr_tpu_torch.types import PrefixEntry, PrefixMetrics, RouteComputationRules
 
@@ -125,7 +151,36 @@ SOURCES = {
         "openr_tpu_torch/kernels/csrc/route_select.cu",
         "openr_tpu/ops/route_select.py:368",
     ),
+    "sweep_spf_link_failures": (
+        "openr_tpu_torch/kernels/csrc/spf_sweep.cu",
+        "openr_tpu/ops/spf.py:878",
+    ),
+    "repair_sweep": (
+        "openr_tpu_torch/kernels/csrc/repair_sweep.cu",
+        "openr_tpu/ops/repair.py:367",
+    ),
+    "select_chunk": (
+        "openr_tpu_torch/kernels/csrc/sweep_select.cu",
+        "openr_tpu/ops/sweep_select.py:155",
+    ),
+    "compact_deltas": (
+        "openr_tpu_torch/kernels/csrc/sweep_select.cu",
+        "openr_tpu/ops/sweep_select.py:274",
+    ),
 }
+
+#: the what-if phases: the reference benchmark's headline world
+#: (bench.py:106 build_headline_world) and its failure draw (bench.py:5389)
+WHATIF_NODES = 1024
+WHATIF_FAILURES = 10240
+#: criticality: pairs scanned after the single-failure sweep
+CRIT_PAIRS = 16384
+#: what-if on the grid: random links besides node0's two
+GRID_RANDOM_LINKS = 30
+#: failures of the headline world held against the scalar solver
+GENERIC_SAMPLE = 8
+#: snapshots on which the repair tables are held against the cold kernel
+COLD_HOLD = 1024
 
 
 class CheckFailed(Exception):
@@ -324,6 +379,8 @@ class KernelReport:
         self.lane_moves = 0
         #: the lane kernel's ms from an all-zero seed, where first timed
         self.zero_seed_ms = None
+        #: the delta tick's changed-row gather (ms, rows, bytes, bound_ms)
+        self.gather = None
 
     def held(self, name, pairs):
         """Record and require exact agreement of (kernel, plain) output
@@ -334,13 +391,15 @@ class KernelReport:
         check(e == 0.0, f"{name} kernel != plain (err {e})")
         self.err[name] = max(self.err[name], e)
 
-    def time(self, name, launch, plain_fn, t_bytes, ops, per_round_bytes, rounds):
+    def time(self, name, launch, plain_fn, t_bytes, ops, per_round_bytes, rounds,
+             library_fn=None):
         if name in self.timing:
             return
         dev_ms, host_ms = per_launch_ms(launch)
         self.timing[name] = dict(
             ms=dev_ms, host_issue_ms=host_ms, plain_ms=plain_ms(plain_fn),
             bytes=t_bytes, ops=ops, per_round_bytes=per_round_bytes, rounds=rounds,
+            library_ms=None if library_fn is None else plain_ms(library_fn),
         )
 
     def kernel_checks(self, backend, timed):
@@ -500,6 +559,14 @@ class KernelReport:
         t_bytes = nbytes(*args) + nbytes(*out)
         ops = select_ops(P, C, A, D) + P * (2 * C + A * (4 + D) + C * A)
         self.time(name, launch, p_delta, t_bytes, ops, t_bytes, 1)
+        # the changed-row gather that follows on the delta path (a PyTorch
+        # row gather, no kernel of this repository): timed on these rows
+        idx = torch.nonzero(out[4]).squeeze(1)
+        rows = rs.gather_selection_rows(*out[:4], idx)
+        ms = per_launch_ms(lambda: rs.gather_selection_rows(*out[:4], idx))[0]
+        g_bytes = nbytes(idx) + 2 * nbytes(*rows)
+        self.gather = dict(ms=ms, rows=int(idx.numel()), bytes=g_bytes,
+                           bound_ms=g_bytes / HBM_BYTES_PER_S * 1e3)
 
     def json_line(self):
         rows = []
@@ -520,7 +587,7 @@ class KernelReport:
                     "plain_ms": t["plain_ms"],
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": None,
+                    "library_ms": t["library_ms"],
                 }
             )
         return json.dumps({"kernels": rows})
@@ -749,6 +816,355 @@ def steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
     check(kernel_be.num_delta_builds == before + 1, "the drain tick did not take the delta path")
 
 
+# ---------------------------------------------------------------------------
+# the what-if path: kernels 8-11
+# ---------------------------------------------------------------------------
+
+WHATIF_KERNELS = ("sweep_spf_link_failures", "repair_sweep", "select_chunk", "compact_deltas")
+
+
+def _plain_compact(*args, **kwargs):
+    count, *rest = sweep_select.compact_deltas_plain(*args, **kwargs)
+    return (count.reshape(1), *rest)
+
+
+#: (module, attribute, kernel name, plain version) of each kernel entry
+#: point the what-if path calls
+WHATIF_ENTRIES = (
+    (whatif_ops, "sweep_spf_link_failures", "sweep_spf_link_failures",
+     spf.sweep_spf_link_failures_plain),
+    (repair, "repair_sweep", "repair_sweep", repair.repair_sweep_plain),
+    (sweep_select, "select_chunk", "select_chunk", sweep_select.select_chunk_plain),
+    (sweep_select, "compact_deltas", "compact_deltas", _plain_compact),
+)
+
+
+class Recorder:
+    """Within ``with``: every call of the what-if path's kernel entry
+    points keeps its inputs and outputs (``calls[name]``), so each kernel
+    can be held against its plain version on them afterwards.  With
+    ``plain=True`` the entry points run the plain versions instead (the
+    plain path on the card)."""
+
+    def __init__(self, plain=False):
+        self.plain = plain
+        self.calls = {name: [] for name in WHATIF_KERNELS}
+        self._saved = []
+
+    def __enter__(self):
+        for mod, attr, name, plain_fn in WHATIF_ENTRIES:
+            orig = getattr(mod, attr)
+            self._saved.append((mod, attr, orig))
+            target = plain_fn if self.plain else orig
+
+            def wrapped(*args, _fn=target, _name=name, **kwargs):
+                outs = _fn(*args, **kwargs)
+                self.calls[_name].append((args, kwargs, outs))
+                return outs
+
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self._saved:
+            setattr(mod, attr, orig)
+        self._saved = []
+        return False
+
+
+def whatif_run(report, label, expect, fn):
+    """One what-if request through the port: launch counts zeroed just
+    before and read just after; the run must launch exactly ``expect``."""
+    with Recorder() as rec:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(LAUNCHES)
+    launched = {name for name, n in counts.items() if n}
+    check(launched == set(expect), f"{label}: launched {sorted(launched)}, expected {sorted(expect)}")
+    for name in KERNEL_NAMES:
+        report.launches[name] += counts[name]
+    print(f"[{label}] wall={wall:.1f}ms launches={ {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    hold_whatif(report, rec)
+    return out, rec, wall
+
+
+def hold_whatif(report, rec):
+    """Every recorded kernel call against its plain version on the same
+    inputs, exactly."""
+    for args, kw, outs in rec.calls["sweep_spf_link_failures"]:
+        want = spf.sweep_spf_link_failures_plain(*args, **kw)
+        report.held("sweep_spf_link_failures", [(outs[0], want[0]), (outs[1], want[1])])
+    for args, kw, outs in rec.calls["repair_sweep"]:
+        want = repair.repair_sweep_plain(*args, **kw)
+        report.held("repair_sweep", [(outs[0], want[0]), (outs[1], want[1])])
+    for args, kw, outs in rec.calls["select_chunk"]:
+        kw = {k: v for k, v in kw.items() if k != "out"}
+        want = sweep_select.select_chunk_plain(*args, **kw)
+        report.held("select_chunk", list(zip(outs, want)))
+    for args, kw, outs in rec.calls["compact_deltas"]:
+        report.held("compact_deltas", list(zip(outs, _plain_compact(*args, **kw))))
+
+
+def time_whatif(report, rec):
+    """Time each of kernels 8-11 on the first call ``rec`` holds for it,
+    with its bound from these inputs."""
+    if rec.calls["sweep_spf_link_failures"] and "sweep_spf_link_failures" not in report.timing:
+        args, kw, outs = rec.calls["sweep_spf_link_failures"][0]
+        src, dst, w, ok, li, failed, ovl, root, D = args
+        _d, _n, r_d, r_l = spf.sweep_spf_link_failures_plain(*args)
+        E, B = src.shape[0], failed.shape[0]
+        launch, _ = spf.sweep_spf_link_failures_launcher(*args)
+        report.time(
+            "sweep_spf_link_failures", launch,
+            lambda: spf.sweep_spf_link_failures_plain(*args),
+            nbytes(src, dst, w, ok, li, failed, ovl, outs[0], outs[1]),
+            2 * r_d * E * B + 2 * r_l * E * B * D,
+            nbytes(src, w, ok, li) + 2 * nbytes(outs[0]), r_d + r_l,
+        )
+    if rec.calls["repair_sweep"] and "repair_sweep" not in report.timing:
+        args, kw, outs = max(rec.calls["repair_sweep"], key=lambda c: c[0][5].shape[0])
+        _d, _n, r_d, r_l = repair.repair_sweep_plain(*args, **kw)
+        E, B = args[0].shape[0], args[5].shape[0]
+        V, D, Bw = outs[1].shape
+        din = kw["din"]
+        launch, _ = repair.repair_sweep_launcher(*args, **kw)
+        report.time(
+            "repair_sweep", launch, lambda: repair.repair_sweep_plain(*args, **kw),
+            nbytes(*args, outs[0], outs[1]),
+            2 * r_d * E * B + 2 * r_l * V * din * D * Bw,
+            nbytes(*args[:5]) + 2 * nbytes(outs[0]), r_d + r_l,
+        )
+    if rec.calls["select_chunk"] and "select_chunk" not in report.timing:
+        args, kw, outs = max(rec.calls["select_chunk"], key=lambda c: c[0][0].shape[1])
+        kw = {k: v for k, v in kw.items() if k != "out"}
+        launch, fresh = sweep_select.select_chunk_launcher(*args, **kw)
+        b = args[0].shape[1]
+        P, C = args[5].shape
+        t_bytes = nbytes(*args) + nbytes(*outs)
+        report.time(
+            "select_chunk", launch, lambda: sweep_select.select_chunk_plain(*args, **kw),
+            t_bytes, b * select_ops(P, C, 1, args[-1]), t_bytes, 1,
+        )
+    if rec.calls["compact_deltas"] and "compact_deltas" not in report.timing:
+        args, kw, outs = rec.calls["compact_deltas"][0]
+        changed, valid, metric, lanes, row_id, cap = args
+        count = int(outs[0][0])
+        launch, _ = sweep_select.compact_deltas_launcher(*args)
+        P = valid.shape[1]
+        Dw = lanes.shape[2]
+        # the one PyTorch call that finds the same rows: nonzero of the
+        # flat changed mask
+        flat = (unpack_bits_last(changed, P) & (row_id >= 0)[:, None]).reshape(-1)
+        t_bytes = nbytes(changed, row_id) + count * (1 + 4 + 4 * Dw) + nbytes(*outs)
+        report.time(
+            "compact_deltas", launch, lambda: _plain_compact(*args),
+            t_bytes, 3 * changed.numel(), t_bytes, 1,
+            library_fn=lambda: torch.nonzero(flat),
+        )
+
+
+def headline_world(metric_bump=None):
+    """The reference benchmark's world: LinkState, a loopback prefix per
+    node (PrefixState) and its encoding.  ``metric_bump`` raises node0's
+    first link both ways by that much (the second generation)."""
+    edges = random_connected_edges(WHATIF_NODES, 2 * WHATIF_NODES, seed=7)
+    if metric_bump:
+        first = next(i for i, (a, b, _m) in enumerate(edges) if "node0" in (a, b))
+        a, b, m = edges[first]
+        edges[first] = (a, b, m + metric_bump)
+    ls = LinkState("0", "node0")
+    for db in build_adj_dbs(edges).values():
+        ls.update_adjacency_database(db)
+    ps = PrefixState()
+    for i in range(WHATIF_NODES):
+        ps.update_prefix(f"node{i}", "0", PrefixEntry(f"10.{200 + (i >> 8)}.{i & 255}.0/24"))
+    return ls, ps, csr.encode_link_state(ls)
+
+
+def lane_bits_on_affected(rs_engine, fails):
+    """Lane bits the repair sets on affected vertices that are not the
+    root's neighbours: they start from zero in the warm seed, so every one
+    is a lane that moved."""
+    plan = rs_engine.plan
+    fails_t = torch.from_numpy(fails[:, None]).to(rs_engine.device)
+    aff, _d0, _en = repair.repair_sweep_init(
+        rs_engine._edges[3], fails_t, rs_engine._plan_t[0], rs_engine._plan_t[1],
+        plan.base_dist.shape[0],
+    )
+    aff[torch.from_numpy(plan.seed_v).long().to(aff.device)] = False
+    _d, nh, _, _ = rs_engine.solve(fails)
+    bits = unpack_bits_last(nh, len(fails))  # [V, D, B]
+    return int((bits & aff[:, None, :]).sum())
+
+
+def normalized_changes(resp):
+    return [
+        [dict(c, old_nexthops=sorted(c["old_nexthops"]), new_nexthops=sorted(c["new_nexthops"]))
+         for c in f.get("changes", [])]
+        for f in resp["failures"]
+    ]
+
+
+def whatif_phases(report, rng, grid_areas, grid_ps):
+    """The what-if path: (a) the headline sweep, cold then warm-seeded,
+    (b) the criticality report, (c) operator queries on the grid."""
+    walls = {}
+    kernels = set(WHATIF_KERNELS)
+    warm_kernels = kernels - {"sweep_spf_link_failures"}
+
+    # (a) the headline sweep: 10,240 single-link failures
+    ls, ps, topo = headline_world()
+    fails = np.random.default_rng(0).integers(0, len(topo.links), size=WHATIF_FAILURES).astype(np.int32)
+    cands = sweep_select.SweepCandidates.single_advertiser(np.arange(WHATIF_NODES))
+
+    def sweep_once(t, engine):
+        sel = sweep_select.SweepRouteSelector(t, "node0", cands, max_degree=engine.D)
+        return sel.run(engine.run(fails, fetch=False))
+
+    eng = whatif_ops.LinkFailureSweep(topo, "node0")
+    deltas, rec, walls["a: cold sweep"] = whatif_run(
+        report, "whatif:headline-cold", kernels, lambda: sweep_once(topo, eng)
+    )
+    check(eng.base_source == "device", "the cold base did not come from the sweep kernel")
+    time_whatif(report, rec)
+    solves = len(np.unique(deltas.snap_row)) - 1
+    print(f"[whatif:headline-cold] {WHATIF_FAILURES} failures, {solves} unique on-DAG solves, "
+          f"{deltas.num_deltas} route deltas, fetch groups {deltas.fetch_groups}", flush=True)
+    check(deltas.num_deltas > 0 and deltas.fetch_groups >= 1, "headline sweep found no deltas")
+
+    # the repair tables against the cold kernel's, on COLD_HOLD failures
+    rs_engine = eng.repair_sweep()
+    hold = fails[:COLD_HOLD]
+    r_dist, r_nh, _, _ = rs_engine.solve(hold)
+    c_dist, c_nh, _, _ = spf.sweep_spf_link_failures(
+        eng._src, eng._dst, eng._w, eng._edge_ok, eng._link_index,
+        torch.from_numpy(hold).to(eng.device), eng._overloaded, eng.root_id, eng.D,
+    )
+    bits = unpack_bits_last(r_nh, COLD_HOLD).permute(0, 2, 1).to(torch.int8)
+    check(torch.equal(r_dist, c_dist) and torch.equal(bits, (c_nh > 0).to(torch.int8)),
+          "repair tables != cold sweep tables")
+    moved = lane_bits_on_affected(rs_engine, hold)
+    check(moved > 0, "no lane moved from the warm seed")
+    print(f"[whatif:headline-cold] repair tables == cold sweep tables on {COLD_HOLD} failures; "
+          f"{moved} lane bits set on affected vertices (zero in the warm seed)", flush=True)
+
+    # the second generation: node0's first link raised, warm-seeded base
+    _ls2, _ps2, topo2 = headline_world(metric_bump=5)
+    eng2 = whatif_ops.LinkFailureSweep(topo2, "node0")
+    check(eng2.seed_base_from(eng), "the second generation did not take the warm seed")
+    deltas2, _rec, walls["a: warm-seeded sweep"] = whatif_run(
+        report, "whatif:headline-warm", warm_kernels, lambda: sweep_once(topo2, eng2)
+    )
+    check(eng2.base_source == "warm", "the second generation's base was not warm")
+    cold2 = whatif_ops.LinkFailureSweep(topo2, "node0").base_solve()
+    check(all(np.array_equal(a, b) for a, b in zip(cold2, eng2.base_solve())),
+          "warm base != cold base")
+    print(f"[whatif:headline-warm] {deltas2.num_deltas} route deltas; warm base == cold base",
+          flush=True)
+
+    # (b) criticality over every link, with the pair scan
+    engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
+    areas = {"0": ls}
+    crit, _rec, walls["b: criticality"] = whatif_run(
+        report, "whatif:criticality", kernels,
+        lambda: whatif_api._whatif_engine_criticality(engine, areas, ps, 1, max_pairs=CRIT_PAIRS),
+    )
+    pairs = crit["pairs"]
+    check(len(crit["links"]) == len(topo.links) and pairs["checked"] == CRIT_PAIRS,
+          "criticality did not cover every link and the pair budget")
+    print(f"[whatif:criticality] {len(crit['links'])} links, top withdraws "
+          f"{crit['links'][0]['routes_withdrawn']}; {pairs['checked']} of {pairs['total']} pairs, "
+          f"{pairs['risky_count']} risky", flush=True)
+
+    # answers against the scalar solver with the links removed
+    on_dag = engine._sweep.on_dag_links()
+    cand = [int(l) for l in np.unique(fails) if on_dag[l]]
+    picks = [cand[i] for i in rng.choice(len(cand), GENERIC_SAMPLE, replace=False)]
+    root_link = next(i for i, l in enumerate(topo.links) if "node0" in (l.n1, l.n2))
+    pair_names = [(topo.links[i].n1, topo.links[i].n2) for i in [root_link] + picks]
+    generic = whatif_api.GenericSolverWhatIfEngine(SpfSolver("node0"))
+    got = engine.run(pair_names, areas, ps, 1)
+    want = generic.run(pair_names, areas, ps, 1)
+    check(normalized_changes(got) == normalized_changes(want), "what-if != generic solver")
+    sim = pair_names[:3]
+    got = engine.run(sim, areas, ps, 1, simultaneous=True)
+    want = generic.run(sim, areas, ps, 1, simultaneous=True)
+    check(normalized_changes(got) == normalized_changes(want), "simultaneous what-if != generic solver")
+    changed = sum(f["routes_changed"] for f in engine.run(pair_names, areas, ps, 1)["failures"])
+    print(f"[whatif:headline] {len(pair_names)} failures ({changed} route changes) and a set of 3 "
+          f"== GenericSolverWhatIfEngine", flush=True)
+
+    # (c) operator queries on the grid at full prefix width
+    gtopo = csr.encode_link_state(grid_areas["0"])
+    root_links = [i for i, l in enumerate(gtopo.links) if "node0" in (l.n1, l.n2)]
+    rest = [i for i in range(len(gtopo.links)) if i not in root_links]
+    others = [int(i) for i in rng.choice(rest, GRID_RANDOM_LINKS, replace=False)]
+    query = [(gtopo.links[i].n1, gtopo.links[i].n2) for i in root_links + others]
+    grid_engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
+    got, rec, walls["c: grid query"] = whatif_run(
+        report, "whatif:grid", kernels, lambda: grid_engine.run(query, grid_areas, grid_ps, 1)
+    )
+    check(len(rec.calls["compact_deltas"]) >= 2, "the grid query did not overflow the compaction")
+    # a root link with two random links: about half the routes move again
+    sim = [query[0], query[2], query[3]]
+    got_sim, _rec, walls["c: grid set of 3"] = whatif_run(
+        report, "whatif:grid-set", warm_kernels,
+        lambda: grid_engine.run(sim, grid_areas, grid_ps, 1, simultaneous=True),
+    )
+    plain_engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
+    with Recorder(plain=True):
+        reset_launch_counts()
+        want = plain_engine.run(query, grid_areas, grid_ps, 1)
+        want_sim = plain_engine.run(sim, grid_areas, grid_ps, 1, simultaneous=True)
+        check(not any(LAUNCHES.values()), "the plain path launched a kernel")
+    check(got == want and got_sim == want_sim, "grid what-if != plain path")
+    moved = [f["routes_changed"] for f in got["failures"]]
+    print(f"[whatif:grid] {len(query)} failures, routes changed per failure: max {max(moved)}, "
+          f"total {sum(moved)}; set of 3: {got_sim['failures'][0]['routes_changed']}; "
+          f"== plain path", flush=True)
+    grid_oracle_sample(rng, grid_areas, grid_ps, query[0], got["failures"][0])
+    grid_oracle_sample(rng, grid_areas, grid_ps, query[-1], got["failures"][-1])
+    return walls
+
+
+def grid_oracle_sample(rng, areas, ps, link, failure, sample=100):
+    """A sample of the grid's prefixes, changed and unchanged, against the
+    scalar solver on the LSDB with the link removed."""
+    drop = {frozenset(link)}
+    mod = whatif_api.GenericSolverWhatIfEngine._states_without(areas, drop)
+    base_oracle, mod_oracle = SpfSolver("node0"), SpfSolver("node0")
+    by_prefix = {c["prefix"]: c for c in failure["changes"]}
+    prefixes = sorted(ps.prefixes())
+    changed = sorted(by_prefix)
+    picks = [prefixes[i] for i in rng.choice(len(prefixes), sample, replace=False)]
+    if changed:
+        picks += [changed[i] for i in rng.choice(len(changed), min(sample, len(changed)), replace=False)]
+
+    def view(entry):
+        if entry is None:
+            return None
+        return float(entry.igp_cost), sorted({n.neighbor_node_name for n in entry.nexthops})
+
+    for p in picks:
+        old = view(base_oracle.create_route_for_prefix(p, areas, ps))
+        new = view(mod_oracle.create_route_for_prefix(p, mod, ps))
+        c = by_prefix.get(p)
+        if old == new:
+            check(c is None, f"grid what-if {link}: {p} reported changed, oracle unchanged")
+            continue
+        check(c is not None, f"grid what-if {link}: {p} changed in the oracle, not reported")
+        check((c["old_metric"], sorted(c["old_nexthops"])) == (old if old else (None, [])),
+              f"grid what-if {link}: {p} old route != oracle")
+        check((c["new_metric"], sorted(c["new_nexthops"])) == (new if new else (None, [])),
+              f"grid what-if {link}: {p} new route != oracle")
+    print(f"[whatif:grid] link {link[0]}-{link[1]}: {len(picks)} sampled prefixes "
+          f"== scalar oracle ({len(changed)} changed)", flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -808,6 +1224,9 @@ def main():
     # 5-9. the steady-state ticks on the grid
     steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
 
+    # 10-12. the link-failure what-if path
+    walls = whatif_phases(report, rng, areas, ps)
+
     for name in KERNEL_NAMES:
         t = report.timing[name]
         bound_rounds_ms = t["per_round_bytes"] * t["rounds"] / HBM_BYTES_PER_S * 1e3
@@ -818,6 +1237,14 @@ def main():
               f"({smi})", flush=True)
     print(f"kernel spf_nexthop_lanes_reset from an all-zero seed (undrain tick's input): "
           f"{report.zero_seed_ms:.4f} ms per launch ({smi})", flush=True)
+    t = report.timing["compact_deltas"]
+    print(f"library compact_deltas (torch.nonzero of the flat changed mask): "
+          f"{t['library_ms']:.4f} ms ({smi})", flush=True)
+    g = report.gather
+    print(f"gather_selection_rows (torch.index_select, drain delta tick): {g['ms']:.4f} ms per "
+          f"call for {g['rows']} rows, byte bound {g['bound_ms']:.6f} ms ({smi})", flush=True)
+    print("what-if walls: " + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
+          + f" ({smi})", flush=True)
     print(report.json_line(), flush=True)
     print(smi, flush=True)
     device = {

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, Tuple
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -63,12 +65,40 @@ def tables_from_numpy(
     arrays: Iterable[np.ndarray], device="cpu"
 ) -> Tuple[torch.Tensor, ...]:
     """numpy arrays → contiguous tensors of the same dtype on ``device``
-    (int32 ids stay int32, int8 lanes int8, bool masks bool)."""
+    (int32 ids stay int32, int8 lanes int8, bool masks bool; uint32 bit
+    words become int32 tensors of the same bits, ``ops/bits.py``)."""
     out = []
     for a in arrays:
         a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
         if a.dtype not in _DTYPES:
             raise TypeError(f"unsupported table dtype {a.dtype}")
         out.append(torch.from_numpy(a).to(device))
     return tuple(out)
 
+
+
+def _fields_of(cls, fields) -> dict:
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = fields[f.name]
+        out[f.name] = np.array(v, copy=True) if isinstance(v, np.ndarray) else v
+    return out
+
+
+def repair_plan_from_fields(fields):
+    """The reference's ``RepairPlan`` as a mapping of its fields → the
+    port's ``ops/repair.py`` RepairPlan (arrays copied with their
+    dtypes)."""
+    from openr_tpu_torch.ops.repair import RepairPlan
+
+    return RepairPlan(**_fields_of(RepairPlan, fields))
+
+
+def sweep_candidates_from_fields(fields):
+    """The reference's ``SweepCandidates`` (or ``EncodedPrefixCandidates``)
+    fields → the port's ``ops/sweep_select.py`` SweepCandidates."""
+    from openr_tpu_torch.ops.sweep_select import SweepCandidates
+
+    return SweepCandidates(**_fields_of(SweepCandidates, fields))

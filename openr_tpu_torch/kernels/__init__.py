@@ -15,6 +15,10 @@ KERNEL_NAMES = (
     "spf_nexthop_lanes_reset",
     "warm_subgraph_repair",
     "multi_area_select_delta_from_tables",
+    "sweep_spf_link_failures",
+    "repair_sweep",
+    "select_chunk",
+    "compact_deltas",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

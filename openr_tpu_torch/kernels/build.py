@@ -29,7 +29,7 @@ from typing import Any, Dict, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().with_name("_build")
-SOURCES = ("spf_dense", "spf_warm", "route_select")
+SOURCES = ("spf_dense", "spf_warm", "route_select", "spf_sweep", "repair_sweep", "sweep_select")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",

@@ -308,6 +308,91 @@ def encode_link_state(
 
 
 @dataclasses.dataclass
+class EncodedPrefixCandidates:
+    """One area's per-prefix candidate advertisements as [P, C] arrays:
+    for each of P prefixes (sorted), up to C candidate (node, metrics)
+    advertisements — the single-area selection's input (the what-if
+    sweep's candidate table)."""
+
+    cand_node: np.ndarray  # [P, C] int32 node ids
+    cand_ok: np.ndarray  # [P, C] bool
+    drain_metric: np.ndarray  # [P, C] int32
+    path_pref: np.ndarray  # [P, C] int32
+    source_pref: np.ndarray  # [P, C] int32
+    distance: np.ndarray  # [P, C] int32
+    min_nexthop: np.ndarray  # [P, C] int32 (0 = unset)
+    prefixes: List[str]
+
+    @property
+    def num_prefixes(self) -> int:
+        return len(self.prefixes)
+
+
+def encode_prefix_candidates(
+    prefix_state,
+    topo: EncodedTopology,
+    area: str,
+    max_candidates: Optional[int] = None,
+    cand_buckets: Sequence[int] = (8, 16, 32, 64),
+) -> EncodedPrefixCandidates:
+    """Flatten PrefixState (for one area) into padded candidate arrays.
+
+    The candidate axis is padded to the smallest bucket in `cand_buckets`
+    that fits the widest prefix; `max_candidates` pins the width
+    instead.  Raises ValueError past the largest bucket."""
+    table = prefix_state.prefixes()
+    prefixes = sorted(table.keys())
+    P = max(len(prefixes), 1)
+    if max_candidates is not None:
+        C = max_candidates
+    else:
+        widest = 1
+        for prefix in prefixes:
+            n = sum(
+                1
+                for (node, parea) in table[prefix]
+                if parea == area and node in topo.node_ids
+            )
+            widest = max(widest, n)
+        C = bucket_for(widest, cand_buckets)
+    cand_node = np.zeros((P, C), np.int32)
+    cand_ok = np.zeros((P, C), bool)
+    drain = np.zeros((P, C), np.int32)
+    pp = np.zeros((P, C), np.int32)
+    sp = np.zeros((P, C), np.int32)
+    dist = np.zeros((P, C), np.int32)
+    minnh = np.zeros((P, C), np.int32)
+    for p, prefix in enumerate(prefixes):
+        c = 0
+        for (node, parea), entry in sorted(table[prefix].items()):
+            if parea != area or node not in topo.node_ids:
+                continue
+            if c >= C:
+                raise ValueError(
+                    f"prefix {prefix}: more than {C} candidates; raise "
+                    "max_candidates"
+                )
+            cand_node[p, c] = topo.node_ids[node]
+            cand_ok[p, c] = True
+            drain[p, c] = entry.metrics.drain_metric
+            pp[p, c] = entry.metrics.path_preference
+            sp[p, c] = entry.metrics.source_preference
+            dist[p, c] = entry.metrics.distance
+            minnh[p, c] = entry.min_nexthop or 0
+            c += 1
+    return EncodedPrefixCandidates(
+        cand_node=cand_node,
+        cand_ok=cand_ok,
+        drain_metric=drain,
+        path_pref=pp,
+        source_pref=sp,
+        distance=dist,
+        min_nexthop=minnh,
+        prefixes=prefixes,
+    )
+
+
+@dataclasses.dataclass
 class EncodedMultiArea:
     """Per-area EncodedTopologies padded to COMMON buckets + stacked
     arrays (leading axis = area, in `areas` order)."""

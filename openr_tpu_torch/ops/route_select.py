@@ -1,7 +1,8 @@
 """Per-area SPF tables and multi-area best-route selection — the
 counterpart of ``openr_tpu/ops/route_select.py``'s
 ``multi_area_spf_tables_dense``, ``multi_area_select_from_tables``,
-``multi_area_select_delta_from_tables`` and ``gather_selection_rows``
+``multi_area_select_delta_from_tables``, ``gather_selection_rows`` and the
+single-area chain ``select_routes_one`` (the what-if sweep's selection)
 (its warm table builders, ``warm_multi_area_spf_tables`` and
 ``warm_multi_area_subgraph_tables``, are ``ops/spf.py``'s
 ``warm_spf_one`` and ``warm_subgraph_repair``: one call over all areas).
@@ -52,6 +53,68 @@ I32_MAX = 2**31 - 1
 
 #: the kernel holds a row's candidate sets as 64-bit masks
 MAX_KERNEL_CANDIDATES = 64
+
+
+def select_routes_one(
+    cand_node,  # [P, C] int32
+    cand_ok,  # [P, C] bool
+    drain_metric,  # [P, C] int32
+    path_pref,  # [P, C] int32
+    source_pref,  # [P, C] int32
+    distance,  # [P, C] int32
+    min_nexthop,  # [P, C] int32 (0 = no requirement)
+    dist,  # [..., V] f32 SPF distances from the root
+    nh,  # [..., V, D] int8 first-hop lanes from the root
+    overloaded,  # [V] bool
+    soft,  # [V] int32 node soft-drain increments
+    root: int,
+):
+    """The single-area selection chain (the reference's
+    ``select_routes_one``, SpfSolver.cpp:161-312) for one snapshot, or a
+    batch of snapshots along leading axes of ``dist`` / ``nh``: reach ▸
+    hard-drain with fallback ▸ not drained ▸ path_pref ▸ source_pref ▸
+    min distance ▸ skip-if-self ▸ igp-tie ECMP lane union (a max of the
+    winners' lanes) ▸ min-nexthop gate.  Plain PyTorch: the what-if
+    sweep's selection kernel (``ops/sweep_select.py``) runs this chain per
+    snapshot.  Returns (valid [..., P], metric [..., P] f32, nexthops
+    [..., P, D] int8, num_nexthops [..., P], use [..., P, C])."""
+    cn = cand_node.long()
+    cdist = dist[..., cn]  # [..., P, C]
+    reach = cand_ok & (cdist < BIG)
+    hard = overloaded[cn]
+    nonhard = reach & ~hard
+    use = torch.where(nonhard.any(dim=-1, keepdim=True), nonhard, reach)
+    drained = (drain_metric > 0) | (soft[cn] > 0)
+    not_drained = (~drained).to(torch.int32)
+
+    def keep_max(mask, key):
+        best = torch.where(mask, key, I32_MIN).amax(dim=-1, keepdim=True)
+        return mask & (key == best)
+
+    def keep_min(mask, key):
+        best = torch.where(mask, key, I32_MAX).amin(dim=-1, keepdim=True)
+        return mask & (key == best)
+
+    use = keep_max(use, not_drained)
+    use = keep_max(use, path_pref)
+    use = keep_max(use, source_pref)
+    use = keep_min(use, distance)
+    self_wins = (use & (cand_node == root)).any(dim=-1)
+    best_igp = torch.where(use, cdist, BIG).amin(dim=-1)  # [..., P]
+    winners = use & (cdist == best_igp[..., None])
+    cand_nh = nh[..., cn, :]  # [..., P, C, D]
+    zero = torch.zeros((), dtype=torch.int8, device=nh.device)
+    nh_out = torch.where(winners[..., None], cand_nh, zero).amax(dim=-2)
+    num_nh = nh_out.to(torch.int32).sum(dim=-1)
+    req = torch.where(use, min_nexthop, 0).amax(dim=-1)
+    valid = (
+        winners.any(dim=-1)
+        & ~self_wins
+        & (best_igp < BIG)
+        & (num_nh > 0)
+        & (num_nh >= req)
+    )
+    return valid, best_igp, nh_out, num_nh, use
 
 
 def multi_area_spf_tables_dense(

@@ -668,3 +668,170 @@ def warm_spf_one(
         src, dst, w, edge_ok, overloaded, roots, dist, nh0, max_degree
     )
     return dist, nh, rounds_d, rounds_l
+
+
+# ---------------------------------------------------------------------------
+# Cold batch-minor link-failure sweep — the counterpart of the reference's
+# ``sweep_spf_link_failures`` (with ``spf_distances_sweep``,
+# ``spf_lanes_sweep`` and ``spf_lanes_sweep_packed``).  One topology in the
+# single-area edge-list form (``src/dst/w/edge_ok/link_index [E]``, dst
+# sorted), B snapshots, snapshot b failing the link ``failed_link[b]`` (-1:
+# none).  Tables are batch-minor: dist [V, B], lanes [V, B, D] int8.  The
+# lane fixed point OR-accumulates (a lane once set stays set), seeded at
+# the root's shortest-path out-edges; a vertex absent from the padded dst
+# list keeps the segment-max identity, int8 -128.
+#
+# The reference can also pack the lanes 6 to a uint32 channel as 5-bit
+# digits (a TPU byte layout); the port computes the int8 form only, and
+# ``unpack_lanes`` decodes the reference's packed channels for the parity
+# tests.
+# ---------------------------------------------------------------------------
+
+#: the reference's packed-lane encoding: 6 lanes per uint32 channel, 5
+#: bits per lane digit
+LANES_PER_CHANNEL = 6
+LANE_BITS = 5
+
+
+def lane_channels(max_degree: int) -> int:
+    return (max_degree + LANES_PER_CHANNEL - 1) // LANES_PER_CHANNEL
+
+
+def unpack_lanes(packed, max_degree: int):
+    """[..., C] uint32 packed channels (numpy) → [..., D] int8 0/1."""
+    import numpy as np
+
+    d = np.arange(max_degree)
+    chan = d // LANES_PER_CHANNEL
+    shift = (d % LANES_PER_CHANNEL) * LANE_BITS
+    vals = packed[..., chan] >> shift.astype(packed.dtype)
+    return ((vals & ((1 << LANE_BITS) - 1)) > 0).astype(np.int8)
+
+
+def _segment_1d(values, dst, V: int, reduce: str, fill):
+    """:func:`segment_reduce` of one edge list: values [E, ...] → [V, ...]."""
+    return segment_reduce(values[None], dst[None], V, reduce, fill)[0]
+
+
+def sweep_spf_link_failures_plain(
+    src, dst, w, edge_ok, link_index, failed_link, overloaded, root: int,
+    max_degree: int,
+):
+    """Synchronous (Jacobi) rounds, as the reference's while loops.
+    Returns (dist [V, B] f32, nh [V, B, D] int8, rounds_d, rounds_l): the
+    rounds each loop ran, the last one finding nothing to change."""
+    V = overloaded.shape[0]
+    D = max_degree
+    dev = w.device
+    big = torch.tensor(BIG, dtype=torch.float32, device=dev)
+    en = edge_ok[:, None] & (link_index[:, None] != failed_link[None, :])  # [E, B]
+    transit = ~overloaded | (torch.arange(V, device=dev) == root)
+    src_l = src.long()
+    dst_l = dst.long()
+    src_ok = transit[src_l][:, None] & en
+    wcol = torch.where(en, w[:, None], big)
+    dist = torch.full((V, failed_link.shape[0]), BIG, dtype=torch.float32, device=dev)
+    dist[root] = 0.0
+    rounds_d = 0
+    while True:
+        cand = torch.where(src_ok, dist[src_l] + wcol, big)
+        nd = torch.minimum(dist, _segment_1d(cand, dst, V, "amin", _INF))
+        rounds_d += 1
+        changed = bool((nd < dist).any())
+        dist = nd
+        if not changed or rounds_d >= V:
+            break
+
+    sp = src_ok & (dist[dst_l] < big) & (dist[src_l] + wcol == dist[dst_l])  # [E, B]
+    is_root_out = src_l == root
+    rank = torch.cumsum(is_root_out.to(torch.int32), dim=0) - 1
+    lanes = torch.arange(D, device=dev)
+    seed = (is_root_out[:, None] & (rank[:, None] == lanes)).to(torch.int8)  # [E, D]
+    seed_mask = (sp & is_root_out[:, None]).to(torch.int8)  # [E, B]
+    nh = _segment_1d(seed[:, None, :] * seed_mask[:, :, None], dst, V, "amax", INT8_MIN)
+    prop = (sp & ~is_root_out[:, None]).to(torch.int8)[:, :, None]
+    rounds_l = 0
+    while True:
+        # int8 arithmetic as the reference's: -128 * 1 = -128
+        new = torch.maximum(_segment_1d(nh[src_l] * prop, dst, V, "amax", INT8_MIN), nh)
+        rounds_l += 1
+        changed = bool((new != nh).any())
+        nh = new
+        if not changed or rounds_l >= V:
+            break
+    return dist, nh, rounds_d, rounds_l
+
+
+#: kernel 8 keeps each vertex's enabled-run end in shared memory
+MAX_SWEEP_NODES = 32768
+
+
+def sweep_spf_link_failures_launcher(
+    src, dst, w, edge_ok, link_index, failed_link, overloaded, root: int,
+    max_degree: int,
+):
+    """Check the inputs, derive the segment layout, allocate the outputs
+    and bind kernel 8 (``kernels/csrc/spf_sweep.cu``) once.  Returns
+    ``(launch, (dist, nh, rounds_d, rounds_l))``: each ``launch()``
+    enqueues the kernel (no synchronize) and counts one launch; the round
+    counts are per 32-snapshot word, in place, so they differ from the
+    plain version's synchronous counts."""
+    dev = src.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called on {dev}")
+    V = overloaded.shape[0]
+    E = src.shape[0]
+    B = failed_link.shape[0]
+    D = int(max_degree)
+    if V > MAX_SWEEP_NODES:
+        raise ValueError(f"{V} nodes exceed the sweep kernel's {MAX_SWEEP_NODES}")
+    if D < 1 or not 0 <= root < V:
+        raise ValueError(f"bad max_degree {D} or root {root}")
+    for name, t in (("src", src), ("dst", dst), ("link_index", link_index)):
+        check_tensor(name, t, torch.int32, (E,), dev)
+    check_tensor("w", w, torch.float32, (E,), dev)
+    check_tensor("edge_ok", edge_ok, torch.bool, (E,), dev)
+    check_tensor("failed_link", failed_link, torch.int32, (B,), dev)
+    check_tensor("overloaded", overloaded, torch.bool, (V,), dev)
+    seg_off = segment_offsets(dst[None], V)[0].contiguous()
+    roots = torch.tensor([root], dtype=torch.int32, device=dev)
+    lane_rank = root_lane_rank(src[None], roots)[0].contiguous()
+    words = (B + 31) // 32
+    dist = torch.empty((V, B), dtype=torch.float32, device=dev)
+    nh = torch.empty((V, B, D), dtype=torch.int8, device=dev)
+    rounds_d = torch.empty((words,), dtype=torch.int32, device=dev)
+    rounds_l = torch.empty((words,), dtype=torch.int32, device=dev)
+    fn = function(
+        "spf_sweep",
+        "openr_sweep_spf_link_failures",
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    args = (
+        ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(link_index),
+        ptr(failed_link), ptr(overloaded), ptr(lane_rank), ptr(seg_off),
+        ptr(dist), ptr(nh), ptr(rounds_d), ptr(rounds_l), V, E, B, D, root,
+        BIG, stream(dev),
+    )
+
+    # the default argument keeps the derived layout alive
+    def launch(_held=(seg_off, lane_rank)) -> None:
+        if B == 0:
+            return
+        check_launch("sweep_spf_link_failures", fn(*args))
+        LAUNCHES["sweep_spf_link_failures"] += 1
+
+    return launch, (dist, nh, rounds_d, rounds_l)
+
+
+def sweep_spf_link_failures(
+    src, dst, w, edge_ok, link_index, failed_link, overloaded, root: int,
+    max_degree: int,
+):
+    """Cold single-link-failure sweep, batch-minor: (dist [V, B] f32, nh
+    [V, B, D] int8, rounds_d, rounds_l).  Kernel 8 for CUDA tensors, the
+    plain version for CPU tensors; exact either way (unique fixed
+    points)."""
+    args = (src, dst, w, edge_ok, link_index, failed_link, overloaded, root, max_degree)
+    if src.device.type == "cpu":
+        return sweep_spf_link_failures_plain(*args)
+    return _launched(sweep_spf_link_failures_launcher, *args)

@@ -324,3 +324,154 @@ def test_backend_steady_state_ticks_on_card(card):
         assert {k for k, v in LAUNCHES.items() if v} == kernels, name
         want = SpfSolver(me).build_route_db(areas, ps)
         assert route_db_summary(got) == route_db_summary(want), name
+
+
+# -- the what-if path: kernels 8-11 ---------------------------------------
+
+
+def _whatif_world(world):
+    from openr_tpu_torch.decision.link_state import LinkState as _LS
+
+    if world == "wan":
+        edges = random_connected_edges(96, 160, seed=7)
+    elif world == "grid":
+        edges = grid_edges(10)
+    else:  # a line: every link a bridge
+        edges = [(f"node{i}", f"node{i + 1}", 1) for i in range(11)]
+    drains = dict(overloaded=["node5"]) if world == "wan" else {}
+    ls = _LS("0", "node0")
+    for db in build_adj_dbs(edges, **drains).values():
+        ls.update_adjacency_database(db)
+    ps = PrefixState()
+    for n in sorted(ls.get_adjacency_databases()):
+        ps.update_prefix(n, "0", PrefixEntry(f"10.{int(n[4:]) // 256}.{int(n[4:]) % 256}.0/24"))
+    return ls, ps
+
+
+def _whatif_fails(topo, size=150, seed=1):
+    L = len(topo.links)
+    root_links = sorted({int(topo.link_index[e]) for e in np.nonzero(topo.src == 0)[0]})
+    rng = np.random.default_rng(seed)
+    return np.concatenate([root_links, np.arange(L), rng.integers(-1, L, size=size)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("world", ["wan", "grid", "line"])
+def test_sweep_and_repair_kernels_equal_plain_and_each_other(card, world):
+    from openr_tpu_torch.ops import repair as rp
+    from openr_tpu_torch.ops.whatif import LinkFailureSweep
+
+    ls, _ps = _whatif_world(world)
+    topo = csr.encode_link_state(ls)
+    eng = LinkFailureSweep(topo, "node0", device=card)
+    fails = _whatif_fails(topo)
+    fails = np.concatenate([fails, np.full(-len(fails) % 32, -1, np.int32)])
+    edges = tables_from_numpy(
+        [topo.src, topo.dst, topo.w, topo.edge_ok, topo.link_index], card
+    )
+    ovl = tables_from_numpy([topo.overloaded], card)[0]
+    failed = tables_from_numpy([fails], card)[0]
+    reset_launch_counts()
+    cd, cn, _, _ = spf.sweep_spf_link_failures(*edges, failed, ovl, 0, eng.D)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sweep_spf_link_failures"] == 1
+    pd, pn, _, _ = spf.sweep_spf_link_failures_plain(*edges, failed, ovl, 0, eng.D)
+    assert torch.equal(cd, pd) and torch.equal(cn, pn)
+
+    rs = eng.repair_sweep()
+    plain_args = None
+    for k, batch in ((1, fails), (3, None)):
+        if batch is None:  # sets of 1-3 links, some cutting the graph
+            rng = np.random.default_rng(3)
+            batch = np.full((64, 3), -1, np.int32)
+            for i in range(64):
+                m = int(rng.integers(1, 4))
+                batch[i, :m] = rng.choice(len(topo.links), size=m, replace=False)
+        reset_launch_counts()
+        kd, kn, _, _ = rs.solve(batch)
+        torch.cuda.synchronize()
+        assert LAUNCHES["repair_sweep"] == 1
+        src, dst, w, lid = rs._edges
+        fails_t = tables_from_numpy([batch.reshape(len(batch), -1)], card)[0]
+        plain_args = (src, dst, w, lid, rs._tsok, fails_t, *rs._plan_t)
+        qd, qn, _, _ = rp.repair_sweep_plain(*plain_args, d_lanes=rs.plan.lanes, din=rs.plan.din)
+        assert torch.equal(kd, qd) and torch.equal(kn, qn), k
+    # the repair's single-link tables are the cold kernel's
+    kd, kn, _, _ = rs.solve(fails)
+    B = len(fails)
+    bits = (kn[:, :, torch.arange(B, device=card) // 32] >> (torch.arange(B, device=card) % 32)) & 1
+    assert torch.equal(kd, cd)
+    assert torch.equal(bits.permute(0, 2, 1).to(torch.int8), (cn > 0).to(torch.int8))
+
+
+@pytest.mark.parametrize("cap", [8192, 50])
+def test_select_and_compact_kernels_equal_plain(card, cap):
+    from openr_tpu_torch.ops import sweep_select as ss
+    from openr_tpu_torch.ops.whatif import LinkFailureSweep
+
+    ls, ps = _whatif_world("wan")
+    topo = csr.encode_link_state(ls)
+    cands = csr.encode_prefix_candidates(ps, topo, "0")
+    eng = LinkFailureSweep(topo, "node0", max_chunk=64, device=card)
+    sel = ss.SweepRouteSelector(topo, "node0", cands, eng.D, device=card)
+    sweep = eng.run(_whatif_fails(topo), fetch=False)
+    assert len(sweep.chunks) > 1
+    sel.base_routes(*sweep.base)
+    bufs = []
+    for _off, _n, dist, nh in sweep.chunks:
+        args = (dist, nh, sel._overloaded, sel._soft, sel.root_id, *sel._cand, *sel._base_dev, sel.D)
+        reset_launch_counts()
+        got = ss.select_chunk(*args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["select_chunk"] == 1
+        want = ss.select_chunk_plain(*args)
+        for g, p in zip(got, want):
+            assert torch.equal(g, p)
+        bufs.append(got)
+    cat = [torch.cat([b[i] for b in bufs]) for i in range(4)]
+    row_id = torch.cat([
+        torch.where(torch.arange(d.shape[1], device=card) < n,
+                    off + torch.arange(d.shape[1], device=card), -1).to(torch.int32)
+        for off, n, d, _nh in sweep.chunks
+    ])
+    reset_launch_counts()
+    got = ss.compact_deltas(*cat, row_id, cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES["compact_deltas"] == 1
+    want = ss.compact_deltas_plain(*cat, row_id, cap)
+    assert int(got[0][0]) == int(want[0]) > 50
+    for g, p in zip(got[1:], want[1:]):
+        assert torch.equal(g, p)
+
+
+def test_whatif_engine_on_card_equals_plain_path_and_generic(card):
+    from openr_tpu_torch.decision import whatif_api as wa
+
+    ls, ps = _whatif_world("wan")
+    areas = {"0": ls}
+    topo = csr.encode_link_state(ls)
+    pairs = [(l.n1, l.n2) for l in topo.links[:12]] + [("node0", "nope")]
+    on_card = wa.WhatIfApiEngine(SpfSolver("node0"), device=card)
+    plain = wa.WhatIfApiEngine(SpfSolver("node0"), device="cpu")
+    reset_launch_counts()
+    got = on_card.run(pairs, areas, ps, 1)
+    torch.cuda.synchronize()
+    launched = {n for n, c in LAUNCHES.items() if c}
+    assert launched == {"sweep_spf_link_failures", "repair_sweep", "select_chunk", "compact_deltas"}
+    assert got == plain.run(pairs, areas, ps, 1)
+    generic = wa.GenericSolverWhatIfEngine(SpfSolver("node0")).run(pairs[:4], areas, ps, 1)
+
+    def changes(resp):
+        return [
+            [dict(c, old_nexthops=sorted(c["old_nexthops"]), new_nexthops=sorted(c["new_nexthops"]))
+             for c in f.get("changes", [])]
+            for f in resp["failures"]
+        ]
+
+    assert changes(on_card.run(pairs[:4], areas, ps, 1)) == changes(generic)
+    sim = pairs[:3]
+    assert on_card.run(sim, areas, ps, 1, simultaneous=True) == plain.run(
+        sim, areas, ps, 1, simultaneous=True
+    )
+    assert wa._whatif_engine_criticality(on_card, areas, ps, 1, max_pairs=300) == (
+        wa._whatif_engine_criticality(plain, areas, ps, 1, max_pairs=300)
+    )
