@@ -41,6 +41,24 @@ and then the single-area link-failure what-if path (kernels 8-11):
      link moves about half the routes, so the compaction overflows its
      first buffer and re-runs on the card)
 
+and then the fleet RIB and the multi-area what-if (kernels 12-14):
+
+ 13. ``FleetRibEngine`` on the reference benchmark's fleet world (the same
+     WAN, a /24 per node, benchmarks/suite.py:437-455 at --full): a cold
+     ``fleet_summary`` (kernels 12 and 13), ``compute_for_node`` for every
+     one of the 1,024 roots (timed: decode-all), then a generation with one
+     link raised and one restoring it (the delta on the card: the changed
+     roots fetched, the rest skipped)
+ 14. the fleet on the 3-area world (both algorithms; most roots are absent
+     from two areas) and on a hub with 1,025 leaves, whose in-degree
+     declines the dense layout (kernels 14 and 13), ``CudaBackend`` on the
+     hub world (kernel 14 at one row), and kernel 14 at one row against
+     kernels 1/2 on the grid
+ 15. ``MultiAreaWhatIfEngine`` from the ABR m0_0 of the registered
+     wan_multi_area class at 1,024 nodes, seed 7 (63 areas): every single
+     link failure of area "0" and metro0 in one batch (203 rows and the
+     base row), then metro0's two homing links as one simultaneous set
+
 The CUDA kernels are built from ``openr_tpu_torch/kernels/csrc`` at first
 use.  Every build checks, with exact equality:
   * each kernel against its plain PyTorch version on the card, on the
@@ -66,7 +84,15 @@ answers against ``GenericSolverWhatIfEngine`` (the scalar solver on the
 LSDB with the links removed) on sampled failures and a simultaneous set
 of the headline world; and on the grid the answers against the same
 engine running the plain versions on the card plus a scalar-oracle
-sample of prefixes.  Any mismatch or exception exits non-zero.
+sample of prefixes.  The fleet and multi-area phases check, exactly:
+every call of kernels 12-14 against its plain version on the inputs the
+run gave it; kernel 14 at one row against kernels 1/2; the fleet RouteDbs
+against the scalar ``SpfSolver(node).build_route_db`` (16 sampled roots
+of the WAN, every root of the 3-area and hub worlds) and the summary
+against the plain path; each delta generation's summary against a fresh
+engine's; the multi-area answers against the plain path and against
+``GenericSolverWhatIfEngine`` on sampled failures and the set.  Any
+mismatch or exception exits non-zero.
 
 Prints the kernel and phase times with the card's name and power limit,
 a ``{"kernels": [...]}`` line, and last
@@ -87,7 +113,8 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.decision import whatif_api
-from openr_tpu_torch.decision.backend import CudaBackend
+from openr_tpu_torch.decision.backend import DEGREE_BUCKETS, CudaBackend
+from openr_tpu_torch.decision.fleet import FleetRibEngine
 from openr_tpu_torch.decision.link_state import LinkState
 from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.decision.rib import DecisionRouteDb, route_db_summary
@@ -96,9 +123,12 @@ from openr_tpu_torch.emulation.topology import (
     build_adj_dbs,
     grid_edges,
     random_connected_edges,
+    wan_area_of,
+    wan_multi_area_dbs,
 )
+from openr_tpu_torch.interop import tables_from_numpy
 from openr_tpu_torch.kernels import KERNEL_NAMES, LAUNCHES, build, reset_launch_counts
-from openr_tpu_torch.ops import csr, repair, spf, sweep_select
+from openr_tpu_torch.ops import csr, fleet_tables, repair, spf, sweep_select
 from openr_tpu_torch.ops import route_select as rs
 from openr_tpu_torch.ops import whatif as whatif_ops
 from openr_tpu_torch.ops.bits import unpack_bits_last
@@ -167,6 +197,18 @@ SOURCES = {
         "openr_tpu_torch/kernels/csrc/sweep_select.cu",
         "openr_tpu/ops/sweep_select.py:274",
     ),
+    "fleet_spf_dense": (
+        "openr_tpu_torch/kernels/csrc/spf_dense.cu",
+        "openr_tpu/ops/fleet_tables.py:89",
+    ),
+    "fleet_select": (
+        "openr_tpu_torch/kernels/csrc/route_select.cu",
+        "openr_tpu/ops/fleet_tables.py:89",
+    ),
+    "spf_segment_batch": (
+        "openr_tpu_torch/kernels/csrc/spf_warm.cu",
+        "openr_tpu/ops/fleet_tables.py:217",
+    ),
 }
 
 #: the what-if phases: the reference benchmark's headline world
@@ -181,6 +223,18 @@ GRID_RANDOM_LINKS = 30
 GENERIC_SAMPLE = 8
 #: snapshots on which the repair tables are held against the cold kernel
 COLD_HOLD = 1024
+
+#: the fleet phases: the reference benchmark's fleet world
+#: (benchmarks/suite.py:437-455 at --full), roots held against the scalar
+#: solver there, and the hub world's leaves (tests/test_stream_delta.py:184)
+FLEET_NODES = 1024
+FLEET_ORACLE_SAMPLE = 16
+HUB_LEAVES = csr.IN_DEGREE_BUCKETS[-1] + 1
+#: the multi-area what-if: the registered wan_multi_area class at this
+#: scale and seed, vantage the ABR m0_0, and the failures held against the
+#: scalar solver
+MULTIAREA_SCALE = 1024
+MULTIAREA_GENERIC_SAMPLE = 8
 
 
 class CheckFailed(Exception):
@@ -216,6 +270,11 @@ class KernelPath(CudaBackend):
         self.io["sub"] = (args, out)
         return out
 
+    def _segment_tables(self, *args):
+        out = super()._segment_tables(*args)
+        self.io["segment"] = (args, out)
+        return out
+
     def _select(self, *args):
         out = super()._select(*args)
         self.io["select"] = (args, out)
@@ -225,6 +284,12 @@ class KernelPath(CudaBackend):
         out = super()._select_delta(*args)
         self.io["delta"] = (args, out)
         return out
+
+
+def segment_plain(src, dst, w, ok, ovl, roots, D):
+    """The segment-form cold tables by the plain versions."""
+    dist = spf.spf_distances_plain(src, dst, w, ok, ovl, roots)
+    return dist, spf.spf_nexthop_lanes_plain(src, dst, w, ok, ovl, roots, dist, D)
 
 
 def warm_plain(*args):
@@ -244,6 +309,9 @@ class PlainPath(CudaBackend):
             in_src, in_w, in_ok, in_rank, in_has, ovl, roots, dist, D
         )
         return dist, nh
+
+    def _segment_tables(self, *args):
+        return segment_plain(*args)
 
     def _warm_tables(self, *args):
         return warm_plain(*args)
@@ -310,6 +378,8 @@ def plain_ms(fn):
 
 def max_abs_err(a, b):
     check(a.dtype == b.dtype and a.shape == b.shape, "kernel/plain dtype or shape differ")
+    if torch.equal(a, b):  # the common case, without a temporary of the tables' size
+        return 0.0
     if a.dtype == torch.bool:
         return float((a != b).sum().item())
     if a.dtype == torch.float32:
@@ -317,7 +387,8 @@ def max_abs_err(a, b):
         if bool(same.all()):
             return 0.0
         return float((a.double() - b.double()).abs().max().item())
-    return float((a.int() - b.int()).abs().max().item())
+    differ = a != b
+    return float((a[differ].int() - b[differ].int()).abs().max().item())
 
 
 def relax_rounds(in_src, in_w, in_ok, ovl, roots):
@@ -409,6 +480,10 @@ class KernelReport:
         io = backend.io
         if "spf" in io:
             self._check_cold(*io["spf"], timed)
+        if "segment" in io:
+            args, out = io["segment"]
+            want = segment_plain(*args)
+            self.held("spf_segment_batch", list(zip(out, want)))
         if "warm" in io:
             self._check_warm(*io["warm"], timed)
         if "sub" in io:
@@ -840,19 +915,20 @@ WHATIF_ENTRIES = (
 
 
 class Recorder:
-    """Within ``with``: every call of the what-if path's kernel entry
-    points keeps its inputs and outputs (``calls[name]``), so each kernel
-    can be held against its plain version on them afterwards.  With
-    ``plain=True`` the entry points run the plain versions instead (the
-    plain path on the card)."""
+    """Within ``with``: every call of a path's kernel entry points
+    (``entries``, the what-if path's by default) keeps its inputs and
+    outputs (``calls[name]``), so each kernel can be held against its plain
+    version on them afterwards.  With ``plain=True`` the entry points run
+    the plain versions instead (the plain path on the card)."""
 
-    def __init__(self, plain=False):
+    def __init__(self, plain=False, entries=None):
         self.plain = plain
-        self.calls = {name: [] for name in WHATIF_KERNELS}
+        self.entries = WHATIF_ENTRIES if entries is None else entries
+        self.calls = {name: [] for _m, _a, name, _p in self.entries}
         self._saved = []
 
     def __enter__(self):
-        for mod, attr, name, plain_fn in WHATIF_ENTRIES:
+        for mod, attr, name, plain_fn in self.entries:
             orig = getattr(mod, attr)
             self._saved.append((mod, attr, orig))
             target = plain_fn if self.plain else orig
@@ -872,10 +948,12 @@ class Recorder:
         return False
 
 
-def whatif_run(report, label, expect, fn):
-    """One what-if request through the port: launch counts zeroed just
-    before and read just after; the run must launch exactly ``expect``."""
-    with Recorder() as rec:
+def whatif_run(report, label, expect, fn, entries=None):
+    """One request through the port (the what-if path's, or ``entries``'):
+    launch counts zeroed just before and read just after; the run must
+    launch exactly ``expect``; every recorded kernel call is then held
+    against its plain version."""
+    with Recorder(entries=entries) as rec:
         reset_launch_counts()
         t0 = time.perf_counter()
         out = fn()
@@ -888,7 +966,10 @@ def whatif_run(report, label, expect, fn):
         report.launches[name] += counts[name]
     print(f"[{label}] wall={wall:.1f}ms launches={ {k: v for k, v in counts.items() if v} }",
           flush=True)
-    hold_whatif(report, rec)
+    if entries is None:
+        hold_whatif(report, rec)
+    else:
+        hold_recorded(report, rec)
     return out, rec, wall
 
 
@@ -1165,6 +1246,308 @@ def grid_oracle_sample(rng, areas, ps, link, failure, sample=100):
           f"== scalar oracle ({len(changed)} changed)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the fleet RIB and the multi-area what-if: kernels 12-14
+# ---------------------------------------------------------------------------
+
+#: (module, attribute, kernel name, plain version) of each kernel entry
+#: point the fleet and multi-area paths call (``ops/spf.py``'s own name is
+#: the one ``multi_area_spf_tables`` reaches)
+FLEET_ENTRIES = (
+    (fleet_tables, "fleet_spf_dense", "fleet_spf_dense", spf.fleet_spf_dense_plain),
+    (fleet_tables, "spf_segment_batch", "spf_segment_batch", spf.spf_segment_batch_plain),
+    (spf, "spf_segment_batch", "spf_segment_batch", spf.spf_segment_batch_plain),
+    (fleet_tables, "fleet_select", "fleet_select", rs.fleet_select_plain),
+)
+PLAIN_OF = {name: plain_fn for _m, _a, name, plain_fn in FLEET_ENTRIES}
+DENSE_FLEET = {"fleet_spf_dense", "fleet_select"}
+SEGMENT_FLEET = {"spf_segment_batch", "fleet_select"}
+
+
+def hold_recorded(report, rec):
+    """Every recorded call of kernels 12-14 against its plain version on
+    the same inputs, exactly."""
+    for name, calls in rec.calls.items():
+        for args, kw, outs in calls:
+            report.held(name, list(zip(outs, PLAIN_OF[name](*args, **kw))))
+
+
+def _present_rows(roots, A):
+    """(flat row index, area index) of the (row, area) pairs with a root."""
+    flat = roots.reshape(-1)
+    rows = torch.nonzero(flat >= 0).squeeze(1)
+    return rows, rows % A
+
+
+def time_fleet(report, name, call):
+    """Time kernel ``name`` on one recorded call, with its bound from these
+    inputs: bytes read and written once, and synchronous rounds x edges (or
+    in-edge slots) x the (row, area) pairs solved, the lane rounds x the
+    lanes a root out-edge can seed (kernel 13: the selection chain's
+    operations per batch row)."""
+    if name in report.timing:
+        return
+    args, kw, outs = call
+    plain = PLAIN_OF[name]
+    t_bytes = nbytes(*args, *kw.values(), *outs)
+    if name == "fleet_spf_dense":
+        in_src, in_w, in_ok, in_rank, in_has, ovl, roots, D = args
+        A, V, K = in_src.shape
+        rows, area = _present_rows(roots, A)
+        planes = (in_src[area], in_w[area], in_ok[area], in_rank[area], in_has[area],
+                  ovl[area], roots.reshape(-1)[rows])
+        r_d = relax_rounds(planes[0], planes[1], planes[2], planes[5], planes[6])
+        r_l = lane_rounds(planes, outs[0].reshape(-1, V)[rows])
+        R = len(rows)
+        # lanes that can carry a bit: one per root out-edge (at most D)
+        out_deg = ((planes[0] == planes[6][:, None, None]) & (planes[3] >= 0)).sum(dim=(1, 2))
+        lanes = int(out_deg.clamp(max=D).sum())
+        ops = 2 * r_d * R * V * K + 2 * r_l * V * K * lanes
+        per_round = R * nbytes(in_src[0], in_w[0], in_ok[0])
+        launch, _ = spf.fleet_spf_dense_launcher(*args)
+    elif name == "spf_segment_batch":
+        src, dst, w, ok, ovl, roots, D = args[:7]
+        A, E = src.shape
+        rows, area = _present_rows(roots, A)
+        fail = kw.get("fail_area")
+        ok_rows = ok[None].expand(roots.shape[0], A, E)
+        if fail is not None:
+            ok_rows = ok_rows & ~spf.failed_edge_mask(kw["link_index"], fail, kw["fail_link"])
+        seg = (src[area], dst[area], w[area], ok_rows.reshape(-1, E)[rows], ovl[area],
+               roots.reshape(-1)[rows])
+        d0 = torch.full(ovl[area].shape, BIG, device=src.device)
+        dist, r_d = spf.warm_spf_distances_plain(*seg, d0, unroll=1)
+        zero = torch.zeros((len(rows), ovl.shape[1], D), dtype=torch.int8, device=src.device)
+        r_l = spf.spf_nexthop_lanes_reset_plain(*seg, dist, zero, D, unroll=1)[1]
+        r_d, r_l = int(r_d.max()), int(r_l.max())
+        R = len(rows)
+        lanes = int((seg[0] == seg[5][:, None]).sum(dim=1).clamp(max=D).sum())
+        ops = 2 * r_d * R * E + 2 * r_l * E * lanes
+        per_round = R * nbytes(src[0], w[0], ok[0])
+        launch, _ = spf.spf_segment_batch_launcher(*args, **kw)
+    else:
+        B, A, _V = args[0].shape
+        P, C = args[4].shape
+        D = args[1].shape[-1]
+        ops = B * select_ops(P, C, A, D)
+        per_round, r_d, r_l = t_bytes, 1, 0
+        launch, _ = rs.fleet_select_launcher(*args, **kw)
+    report.time(name, launch, lambda: plain(*args, **kw), t_bytes, ops, per_round, r_d + r_l)
+
+
+def fleet_world(metric_bump=0):
+    """The reference benchmark's fleet world: the headline WAN, one /24 per
+    node in sorted order, LinkState with vantage node0.  ``metric_bump``
+    raises one link (the 100th, both ways) by that much."""
+    edges = random_connected_edges(FLEET_NODES, 2 * FLEET_NODES, seed=7)
+    if metric_bump:
+        a, b, m = edges[100]
+        edges[100] = (a, b, m + metric_bump)
+    dbs = build_adj_dbs(edges)
+    ls = LinkState("0", "node0")
+    for db in dbs.values():
+        ls.update_adjacency_database(db)
+    nodes = sorted(dbs)
+    ps = PrefixState()
+    for i, node in enumerate(nodes):
+        ps.update_prefix(node, "0", PrefixEntry(f"10.{(i >> 8) & 255}.{i & 255}.0/24"))
+    return {"0": ls}, ps, nodes
+
+
+def hold_every_root(eng, areas, ps, seq, roots, summary, label):
+    """Each root's fleet RouteDb against the scalar solver's, and the
+    summary's count against the RouteDb."""
+    for node in roots:
+        db = eng.compute_for_node(node, areas, ps, seq)
+        want = SpfSolver(node, route_selection_algorithm=eng.solver.route_selection_algorithm)
+        ref = want.build_route_db(areas, ps)
+        check(route_db_summary(db) == route_db_summary(ref), f"{label}: {node} != scalar oracle")
+        check(summary[node]["num_routes"] == len(ref.unicast_routes),
+              f"{label}: {node} summary count != scalar oracle")
+
+
+def fleet_phases(report, rng, grid_areas):
+    """(d) the fleet on the reference benchmark's world, cold, decode-all,
+    then two delta generations; (e) the fleet on the 3-area world and the
+    hub world (segment form), the backend on the hub world, kernel 14
+    against kernels 1/2 on the grid; (f) the multi-area what-if on the
+    wan_multi_area class."""
+    walls = {}
+    # (d) cold
+    areas, ps, nodes = fleet_world()
+    eng = FleetRibEngine(SpfSolver("node0"))
+    check(eng.eligible(areas, ps, 1), "the fleet world is not eligible")
+    summary, rec, walls["d: fleet solve, cold"] = whatif_run(
+        report, "fleet:wan-cold", DENSE_FLEET, lambda: eng.fleet_summary(areas, ps, 1),
+        entries=FLEET_ENTRIES,
+    )
+    time_fleet(report, "fleet_spf_dense", rec.calls["fleet_spf_dense"][0])
+    time_fleet(report, "fleet_select", rec.calls["fleet_select"][0])
+    t0 = time.perf_counter()
+    dbs = [eng.compute_for_node(node, areas, ps, 1) for node in nodes]
+    walls["d: decode all"] = (time.perf_counter() - t0) * 1e3
+    check(all(db is not None for db in dbs) and eng.num_batched_solves == 1,
+          "decode-all re-solved or missed a root")
+    for node, db in zip(nodes, dbs):
+        check(summary[node]["num_routes"] == len(db.unicast_routes), f"fleet: {node} count")
+    picks = ["node0"] + [nodes[i] for i in rng.choice(len(nodes), FLEET_ORACLE_SAMPLE - 1, replace=False)]
+    hold_every_root(eng, areas, ps, 1, picks, summary, "fleet:wan")
+    plain_eng = FleetRibEngine(SpfSolver("node0"))
+    with Recorder(plain=True, entries=FLEET_ENTRIES):
+        reset_launch_counts()
+        check(plain_eng.fleet_summary(areas, ps, 1) == summary, "fleet summary != plain path")
+        check(not any(LAUNCHES.values()), "the plain path launched a kernel")
+    routes = sum(len(db.unicast_routes) for db in dbs)
+    rate = len(nodes) / ((walls["d: fleet solve, cold"] + walls["d: decode all"]) / 1e3)
+    print(f"[fleet:wan-cold] {len(nodes)} vantage RIBs ({routes} routes), decode-all "
+          f"{walls['d: decode all']:.1f} ms: {rate:.1f} vantage RIBs per second (solve + "
+          f"decode-all); {len(picks)} roots == scalar oracle; summary == plain path", flush=True)
+    # (d) two delta generations: one link raised, then restored
+    for seq, bump, label in ((2, 7, "raised"), (3, 0, "restored")):
+        areas, ps, _ = fleet_world(metric_bump=bump)
+        before = (eng.num_delta_roots_fetched, eng.num_delta_roots_skipped)
+        got, _rec, walls[f"d: delta generation, {label}"] = whatif_run(
+            report, f"fleet:wan-delta-{label}", DENSE_FLEET,
+            lambda: eng.fleet_summary(areas, ps, seq), entries=FLEET_ENTRIES,
+        )
+        check(eng.num_delta_solves == seq - 1, f"the {label} generation did not take the delta")
+        fresh = FleetRibEngine(SpfSolver("node0")).fleet_summary(areas, ps, seq)
+        check(got == fresh, f"delta summary ({label}) != a fresh engine's")
+        if bump == 0:
+            check(got == summary, "the restored generation != the first")
+        fetched = eng.num_delta_roots_fetched - before[0]
+        skipped = eng.num_delta_roots_skipped - before[1]
+        print(f"[fleet:wan-delta-{label}] roots fetched {fetched}, skipped {skipped}; summary == "
+              f"a fresh engine's", flush=True)
+
+    # (e) the 3-area world under both algorithms: most roots absent somewhere
+    for algo in (RouteComputationRules.SHORTEST_DISTANCE,
+                 RouteComputationRules.PER_AREA_SHORTEST_DISTANCE):
+        a3, ps3, me = three_area_world()
+        eng3 = FleetRibEngine(SpfSolver(me, route_selection_algorithm=algo))
+        s3, _rec, _wall = whatif_run(report, f"fleet:3-area:{algo.name}", DENSE_FLEET,
+                                     lambda: eng3.fleet_summary(a3, ps3, 1), entries=FLEET_ENTRIES)
+        hold_every_root(eng3, a3, ps3, 1, sorted(s3), s3, f"fleet:3-area:{algo.name}")
+        print(f"[fleet:3-area:{algo.name}] {len(s3)} roots == scalar oracle", flush=True)
+    # (e) the hub world: declines the dense layout
+    hub_edges = [("hub", f"leaf{i}", 1) for i in range(HUB_LEAVES)]
+    hub = LinkState("0", "hub")
+    for db in build_adj_dbs(hub_edges).values():
+        hub.update_adjacency_database(db)
+    hub_ps = PrefixState()
+    for i in range(64):
+        hub_ps.update_prefix(f"leaf{i}", "0", PrefixEntry(f"10.3.{i}.0/24"))
+    hub_areas = {"0": hub}
+    check(not csr.encode_multi_area(hub_areas, "hub").has_dense, "the hub world kept the dense layout")
+    hub_eng = FleetRibEngine(SpfSolver("hub"))
+    hs, _rec, walls["e: hub fleet solve"] = whatif_run(
+        report, "fleet:hub", SEGMENT_FLEET, lambda: hub_eng.fleet_summary(hub_areas, hub_ps, 1),
+        entries=FLEET_ENTRIES,
+    )
+    hold_every_root(hub_eng, hub_areas, hub_ps, 1, sorted(hs), hs, "fleet:hub")
+    print(f"[fleet:hub] {len(hs)} roots == scalar oracle", flush=True)
+    drive(report, KernelPath(SpfSolver("hub")), PlainPath(SpfSolver("hub")), SpfSolver("hub"),
+          hub_areas, hub_ps, "backend:hub", rng=rng, sample=None,
+          expect={"spf_segment_batch", SELECT})
+    # (e) kernel 14 at one row against kernels 1/2 on the grid
+    enc = csr.encode_multi_area(grid_areas, "node0")
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    seg = tables_from_numpy(
+        [getattr(enc, k) for k in ("src", "dst", "w", "edge_ok", "overloaded", "roots")], "cuda"
+    )
+    planes = tables_from_numpy(
+        [getattr(enc, k) for k in ("in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded", "roots")],
+        "cuda",
+    )
+    one = spf.spf_one(*seg, D)
+    cold = spf.dense_spf_one(*planes, max_degree=D)
+    report.held("spf_segment_batch", [(one[0], cold[0]), (one[1], cold[1])])
+    print("[grid] kernel 14 at one row == kernels 1/2 (dist and int8 lanes)", flush=True)
+
+    walls.update(multiarea_phase(report, rng))
+    return walls
+
+
+def multiarea_world():
+    """The wan_multi_area class at MULTIAREA_SCALE, seed 7: a /32 loopback
+    per node in its own area, and each metro's two gateways advertising
+    the metro's /24 into the backbone area "0" (an anycast pair)."""
+    area_dbs = wan_multi_area_dbs(MULTIAREA_SCALE, 7)
+    me = "m0_0"
+    areas = {}
+    for area, dbs in area_dbs.items():
+        ls = LinkState(area, me)
+        for db in dbs.values():
+            ls.update_adjacency_database(db)
+        areas[area] = ls
+    nodes = sorted({n for dbs in area_dbs.values() for n in dbs})
+    ps = PrefixState()
+    for i, node in enumerate(nodes):
+        ps.update_prefix(node, wan_area_of(node), PrefixEntry(f"10.{(i >> 8) & 255}.{i & 255}.1/32"))
+    metros = sorted({wan_area_of(n) for n in nodes} - {"0"}, key=lambda a: int(a[5:]))
+    for a in metros:
+        j = int(a[5:])
+        for gw in (f"m{j}_0", f"m{j}_8"):
+            ps.update_prefix(gw, "0", PrefixEntry(f"172.16.{j}.0/24"))
+    return areas, ps, me
+
+
+def normalized(resp):
+    return [
+        sorted((c["prefix"], c["change"], c["old_metric"], tuple(sorted(c["old_nexthops"])),
+                c["new_metric"], tuple(sorted(c["new_nexthops"])))
+               for c in f.get("changes", []))
+        for f in resp["failures"]
+    ]
+
+
+def multiarea_phase(report, rng):
+    """(f) every single-link failure of area "0" and metro0 in one batch,
+    then the set of metro0's two homing links, from the ABR m0_0."""
+    walls = {}
+    areas, ps, me = multiarea_world()
+    enc = csr.encode_multi_area(areas, me)
+    by_area = dict(zip(enc.areas, enc.topos))
+    singles = [(l.n1, l.n2) for a in ("0", "metro0") for l in by_area[a].links]
+    homing = [(l.n1, l.n2) for l in by_area["0"].links
+              if wan_area_of(l.n1) == "metro0" or wan_area_of(l.n2) == "metro0"]
+    check(len(homing) == 2, f"metro0 has {len(homing)} homing links")
+    print(f"[multiarea] {len(areas)} areas, V={enc.overloaded.shape[1]}, "
+          f"E={enc.src.shape[1]}, {len(ps.prefixes())} prefixes, {len(singles)} single failures",
+          flush=True)
+    eng = whatif_api.MultiAreaWhatIfEngine(SpfSolver(me))
+    got, rec, walls["f: multi-area sweep"] = whatif_run(
+        report, "multiarea:singles", SEGMENT_FLEET, lambda: eng.run(singles, areas, ps, 1),
+        entries=FLEET_ENTRIES,
+    )
+    sweep_call = max(rec.calls["spf_segment_batch"], key=lambda c: c[0][5].shape[0])
+    time_fleet(report, "spf_segment_batch", sweep_call)
+    got_set, _rec, walls["f: homing-link set"] = whatif_run(
+        report, "multiarea:set", SEGMENT_FLEET,
+        lambda: eng.run(homing, areas, ps, 1, simultaneous=True), entries=FLEET_ENTRIES,
+    )
+    plain_eng = whatif_api.MultiAreaWhatIfEngine(SpfSolver(me))
+    with Recorder(plain=True, entries=FLEET_ENTRIES):
+        reset_launch_counts()
+        check(plain_eng.run(singles, areas, ps, 1) == got, "multi-area answers != plain path")
+        check(plain_eng.run(homing, areas, ps, 1, simultaneous=True) == got_set,
+              "multi-area set != plain path")
+        check(not any(LAUNCHES.values()), "the plain path launched a kernel")
+    generic = whatif_api.GenericSolverWhatIfEngine(SpfSolver(me))
+    picks = [singles[i] for i in rng.choice(len(singles), MULTIAREA_GENERIC_SAMPLE, replace=False)]
+    picks += [h for h in homing if h not in picks]
+    sample = eng.run(picks, areas, ps, 1)
+    check(normalized(sample) == normalized(generic.run(picks, areas, ps, 1)),
+          "multi-area answers != GenericSolverWhatIfEngine")
+    check(normalized(got_set) == normalized(generic.run(homing, areas, ps, 1, simultaneous=True)),
+          "multi-area set != GenericSolverWhatIfEngine")
+    moved = [f["routes_changed"] for f in got["failures"]]
+    print(f"[multiarea] {len(singles)} failures, routes changed per failure: max {max(moved)}, "
+          f"total {sum(moved)}; homing set: {got_set['failures'][0]['routes_changed']}; == plain "
+          f"path; {len(picks)} failures and the set == GenericSolverWhatIfEngine", flush=True)
+    return walls
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1227,6 +1610,9 @@ def main():
     # 10-12. the link-failure what-if path
     walls = whatif_phases(report, rng, areas, ps)
 
+    # 13-15. the fleet RIB and the multi-area what-if
+    walls.update(fleet_phases(report, rng, areas))
+
     for name in KERNEL_NAMES:
         t = report.timing[name]
         bound_rounds_ms = t["per_round_bytes"] * t["rounds"] / HBM_BYTES_PER_S * 1e3
@@ -1243,7 +1629,7 @@ def main():
     g = report.gather
     print(f"gather_selection_rows (torch.index_select, drain delta tick): {g['ms']:.4f} ms per "
           f"call for {g['rows']} rows, byte bound {g['bound_ms']:.6f} ms ({smi})", flush=True)
-    print("what-if walls: " + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
+    print("what-if and fleet walls: " + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
           + f" ({smi})", flush=True)
     print(report.json_line(), flush=True)
     print(smi, flush=True)

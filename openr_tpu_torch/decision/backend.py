@@ -11,7 +11,10 @@ device (one shard).  A build runs:
      and PrefixState → [cap, C] candidate table (``decision/cand_table.py``;
      an exact prefix delta re-encodes only its rows)
   2. per-area SPF from me, kept device-resident per encoding:
-       * cold: ``multi_area_spf_tables_dense`` (two CUDA kernels)
+       * cold: ``multi_area_spf_tables_dense`` (two CUDA kernels), or for an
+         encoding that declines the dense layout (an in-degree above the
+         largest bucket) ``multi_area_spf_tables`` over the segment form
+         (kernel 14 at one batch row)
        * warm topology tick (``warm_delta``): the previous generation's
          tables seed ``ops/spf.py`` ``warm_spf_one`` (two kernels) or, for a
          pure-weakening delta, the bounded ``warm_subgraph_repair`` (one
@@ -35,10 +38,9 @@ produces and that ``TpuBackend(warm_rebuild=True)`` produces, with the
 same path counters and changed sets.
 
 Not in this backend, each raising ``NotImplementedError`` instead of
-taking a silent scalar path: KSP2_ED_ECMP prefixes, encodings without the
-dense in-edge planes (in-degree above the largest bucket), prefixes with
-more candidates than the largest candidate bucket, and disabled
-best-route selection.  Membership churn (a node or link joining or
+taking a silent scalar path: KSP2_ED_ECMP prefixes, prefixes with more
+candidates than the largest candidate bucket, and disabled best-route
+selection.  Membership churn (a node or link joining or
 leaving) re-encodes cold and solves cold: the reference's slot-stable
 encode, its health governor, device pool and multi-chip dispatch are
 later slices.
@@ -69,6 +71,7 @@ from openr_tpu_torch.ops.route_select import (
     gather_selection_rows,
     multi_area_select_delta_from_tables,
     multi_area_select_from_tables,
+    multi_area_spf_tables,
     multi_area_spf_tables_dense,
 )
 from openr_tpu_torch.ops.spf import warm_spf_one, warm_subgraph_repair
@@ -79,8 +82,12 @@ from openr_tpu_torch.types import (
     prefix_is_v4,
 )
 
-#: max-out-degree lane buckets (the D axis of the lane tables)
-DEGREE_BUCKETS = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
+#: max-out-degree lane buckets (the D axis of the lane tables).  The
+#: reference stops at 1024 and builds such LSDBs with its scalar solver;
+#: every encoding that declines the dense layout (an in-degree above 1024)
+#: has a node of out-degree above 1024, so the segment form needs the
+#: wider buckets to run on the card at all.
+DEGREE_BUCKETS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
 #: most rows a gathered selection takes (the reference's largest gathered
 #: row bucket): more changed rows than this run the full-table selection
@@ -385,19 +392,7 @@ class CudaBackend(DecisionBackend):
                 return db
 
         # ---- full build --------------------------------------------------
-        cand = tables_from_numpy(
-            (
-                dv.cand_area,
-                dv.cand_node,
-                dv.cand_ok,
-                dv.drain_metric,
-                dv.path_pref,
-                dv.source_pref,
-                dv.distance,
-                dv.cand_node_in_area,
-            ),
-            self.device,
-        )
+        cand = tables_from_numpy(dv.selection_inputs(), self.device)
         delta_ctx = self._delta_ctx_for(D, enc, dv, changed_prefixes, exact_churn)
         if delta_ctx is not None:
             db = self._delta_build(
@@ -445,6 +440,10 @@ class CudaBackend(DecisionBackend):
             in_src, in_w, in_ok, in_rank, in_has, ovl, roots, max_degree=D
         )
 
+    def _segment_tables(self, src, dst, w, edge_ok, ovl, roots, D):
+        """Cold tables of an encoding without the dense planes."""
+        return multi_area_spf_tables(src, dst, w, edge_ok, ovl, roots, max_degree=D)
+
     def _warm_tables(self, *args):
         """(dist, nh, rounds_d, rounds_l) of the full-edge warm kernels."""
         return warm_spf_one(*args)
@@ -485,15 +484,9 @@ class CudaBackend(DecisionBackend):
                 self.num_encode_patches += 1
         if enc is None:
             enc = encode_multi_area(area_link_states, me)
-        if not enc.has_dense:
-            raise NotImplementedError(
-                "an area's in-degree exceeds the dense in-edge buckets; the "
-                "segment-form cold SPF kernels are a later port slice"
-            )
-        names = (
-            "in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded",
-            "roots", "soft", "src", "dst", "w", "edge_ok",
-        )
+        names = ("overloaded", "roots", "soft", "src", "dst", "w", "edge_ok")
+        if enc.has_dense:
+            names += ("in_src", "in_w", "in_ok", "in_rank", "in_has")
         arrays = dict(
             zip(names, tables_from_numpy([getattr(enc, n) for n in names], self.device))
         )
@@ -524,11 +517,16 @@ class CudaBackend(DecisionBackend):
             # a warm-classified tick without a context, or a topology tick
             # the hint classified cold
             self.num_warm_cold_fallbacks += 1
-        if dist is None:
+        if dist is None and enc.has_dense:
             a = arrays
             dist, nh = self._spf_tables(
                 a["in_src"], a["in_w"], a["in_ok"], a["in_rank"], a["in_has"],
                 a["overloaded"], a["roots"], D,
+            )
+        elif dist is None:
+            a = arrays
+            dist, nh = self._segment_tables(
+                a["src"], a["dst"], a["w"], a["edge_ok"], a["overloaded"], a["roots"], D
             )
         self._tables = (dist, nh, arrays["overloaded"], arrays["soft"])
         self._tables_enc = enc
@@ -691,19 +689,7 @@ class CudaBackend(DecisionBackend):
         the selection kernel over it and decode; shared by the incremental
         and warm-selective branches."""
         ridx = np.asarray(rows, np.int64)
-        gathered = tables_from_numpy(
-            (
-                dv.cand_area[ridx],
-                dv.cand_node[ridx],
-                dv.cand_ok[ridx],
-                dv.drain_metric[ridx],
-                dv.path_pref[ridx],
-                dv.source_pref[ridx],
-                dv.distance[ridx],
-                dv.cand_node_in_area[ridx],
-            ),
-            self.device,
-        )
+        gathered = tables_from_numpy([a[ridx] for a in dv.selection_inputs()], self.device)
         outs = self._select(*tables, *gathered, per_area)
         use, shortest, lanes, valid = (o.cpu().numpy() for o in outs)
         self.last_rows["select"] = len(rows)

@@ -55,6 +55,14 @@ class DerivedCandidates:
     min_nexthop: np.ndarray  # [cap, C] int32 (0 = unset)
     cand_node_in_area: np.ndarray  # [cap, C, A] int32 (-1 = absent)
 
+    def selection_inputs(self):
+        """The eight columns the multi-area selection takes, in its
+        argument order."""
+        return (
+            self.cand_area, self.cand_node, self.cand_ok, self.drain_metric,
+            self.path_pref, self.source_pref, self.distance, self.cand_node_in_area,
+        )
+
 
 class CandidateTable:
     def __init__(

@@ -9,6 +9,13 @@ added / rerouted, metric) decoded to neighbour names.  The engine (base
 solve, repair plan, selection tables) is cached per LSDB generation, and
 a new generation's base solve is warm-started from the previous one.
 
+``MultiAreaWhatIfEngine`` answers them on a multi-area LSDB: every
+candidate failure set (a single link, a parallel bundle, or one
+simultaneous set) is a snapshot of one batched solve on the card
+(``ops/fleet_tables.py`` ``whatif_multi_area_tables``) whose selection is
+global across areas; the host merges the areas' routes per snapshot and
+diffs each against the unperturbed base row.
+
 ``GenericSolverWhatIfEngine`` answers the same queries with full scalar
 ``SpfSolver`` builds on the LSDB with the links removed: slow, but it
 touches no device, and it is the oracle the card's answers are held to.
@@ -22,12 +29,23 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from openr_tpu_torch.decision.backend import DEGREE_BUCKETS
+from openr_tpu_torch.decision.cand_table import CandidateTable
 from openr_tpu_torch.decision.link_state import LinkState
 from openr_tpu_torch.device import resolve_device
-from openr_tpu_torch.ops.csr import encode_link_state, encode_prefix_candidates
-from openr_tpu_torch.ops.sweep_select import SweepRouteSelector
+from openr_tpu_torch.interop import tables_from_numpy
+from openr_tpu_torch.ops.consts import BIG
+from openr_tpu_torch.ops.csr import (
+    bucket_for,
+    encode_link_state,
+    encode_multi_area,
+    encode_prefix_candidates,
+)
+from openr_tpu_torch.ops.fleet_tables import whatif_multi_area_tables
+from openr_tpu_torch.ops.route_select import multi_area_spf_tables
+from openr_tpu_torch.ops.sweep_select import HostFetch, SweepRouteSelector
 from openr_tpu_torch.ops.whatif import LinkFailureSweep
-from openr_tpu_torch.types import prefix_is_v4
+from openr_tpu_torch.types import RouteComputationRules, prefix_is_v4
 
 
 def resolve_pair_failures(pair_links: Dict, link_failures):
@@ -47,12 +65,14 @@ def resolve_pair_failures(pair_links: Dict, link_failures):
     return values, errors
 
 
-def build_pair_links(links) -> Dict:
-    """(n1, n2) → the ids of every link between the pair (parallel links
-    are distinct links)."""
+def build_pair_links(links, area_index=None) -> Dict:
+    """(n1, n2) → every link between the pair (parallel links are distinct
+    links): plain link ids, or (area_index, link id) pairs when
+    ``area_index`` is given."""
     out: Dict[frozenset, list] = {}
     for i, link in enumerate(links):
-        out.setdefault(frozenset((link.n1, link.n2)), []).append(i)
+        val = i if area_index is None else (area_index, i)
+        out.setdefault(frozenset((link.n1, link.n2)), []).append(val)
     return out
 
 
@@ -292,6 +312,230 @@ def _criticality_from_engine(sweep, selector, topo, prefixes, max_pairs: int, v4
             "risky_truncated": len(risky) > 64,
         }
     return {"links": links, "pairs": pairs_out}
+
+
+class MultiAreaWhatIfEngine:
+    """Multi-area link-failure what-if from this node's vantage.
+
+    The context (topology encode, candidate table, device tables) is cached
+    per LSDB change generation; each ``run`` solves the candidate failures
+    plus one unperturbed base row as a single batch on the card and
+    decodes only the prefixes whose merged route view changed."""
+
+    def __init__(self, solver, device=None) -> None:
+        """``device`` defaults to the first CUDA card (raises without
+        one); tests pass ``"cpu"`` for the plain path."""
+        self.solver = solver
+        self.device = resolve_device(device)
+        self._cache_key = None
+        self._state = None
+        self.num_engine_builds = 0
+        self.num_sweeps = 0
+
+    def _context(self, area_link_states, prefix_state, change_seq):
+        key = (
+            tuple((a, area_link_states[a].topology_seq) for a in sorted(area_link_states)),
+            change_seq,
+        )
+        if self._cache_key == key and self._state is not None:
+            return self._state
+        me = self.solver.my_node_name
+        enc = encode_multi_area(area_link_states, me)
+        table = CandidateTable()
+        table.full_sync(prefix_state)
+        dv = table.derived(enc)
+        link_index = np.stack([t.link_index for t in enc.topos])
+        # (n1, n2) -> [(area index, link id)]: a pair joined in several
+        # areas, or by parallel links, fails as one bundle
+        pair_links: Dict[frozenset, list] = {}
+        for ai, t in enumerate(enc.topos):
+            for pair, vals in build_pair_links(t.links, area_index=ai).items():
+                pair_links.setdefault(pair, []).extend(vals)
+        topo = tables_from_numpy(
+            (enc.src, enc.dst, enc.w, enc.edge_ok, link_index, enc.overloaded, enc.soft, enc.roots),
+            self.device,
+        )
+        cand = tables_from_numpy(dv.selection_inputs(), self.device)
+        self._state = dict(
+            enc=enc,
+            table=table,
+            dv=dv,
+            pair_links=pair_links,
+            out_edges_by_area=[t.root_out_edges(me) for t in enc.topos],
+            D=bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS),
+            topo=topo,
+            cand=cand,
+            base_dist=None,  # the on-DAG flags' base, filled on first run
+        )
+        self._cache_key = key
+        self.num_engine_builds += 1
+        return self._state
+
+    def _base_dist(self, st) -> np.ndarray:
+        """[A, V] distances from me on the unperturbed LSDB (cold segment
+        SPF, once per generation)."""
+        if st["base_dist"] is None:
+            src, dst, w, edge_ok, _li, ovl, _soft, roots = st["topo"]
+            dist, _nh = multi_area_spf_tables(src, dst, w, edge_ok, ovl, roots, st["D"])
+            (st["base_dist"],) = HostFetch((dist,)).wait()
+        return st["base_dist"]
+
+    def run(
+        self,
+        link_failures: List[Tuple[str, str]],
+        area_link_states,
+        prefix_state,
+        change_seq: int,
+        simultaneous: bool = False,
+    ) -> Dict:
+        """One batched solve over the candidate failures: per-failure route
+        changes from this node's vantage.  A pair with several links (in
+        one area or across areas) fails as a bundle; with ``simultaneous``
+        ALL listed links fail at once (one combined failure entry)."""
+        st = self._context(area_link_states, prefix_state, change_seq)
+        enc, dv, table = st["enc"], st["dv"], st["table"]
+        me = self.solver.my_node_name
+        per_area = (
+            self.solver.route_selection_algorithm
+            == RouteComputationRules.PER_AREA_SHORTEST_DISTANCE
+        )
+        pairs, errors = resolve_pair_failures(st["pair_links"], link_failures)
+        if simultaneous:
+            bad = [e for e in errors if e is not None]
+            if bad:
+                return {
+                    "eligible": True, "vantage": me, "engine": "multiarea",
+                    "simultaneous": True, "failures": bad,
+                }
+            # ONE snapshot failing the union of every listed link
+            fail_sets: List[Optional[tuple]] = [
+                tuple(hit for tup in pairs if tup is not None for hit in tup)
+            ]
+        else:
+            fail_sets = pairs
+        # one row per set, then row B: no member at all, the base snapshot
+        B = len(fail_sets)
+        S = max([len(tup) for tup in fail_sets if tup is not None] or [1])
+        fa = np.full((B + 1, S), -1, np.int32)
+        fl = np.full((B + 1, S), -1, np.int32)
+        for i, tup in enumerate(fail_sets):
+            for s, (ai, li) in enumerate(tup or ()):
+                fa[i, s], fl[i, s] = ai, li
+        src, dst, w, edge_ok, link_index, ovl, soft, roots = st["topo"]
+        fa_t, fl_t = tables_from_numpy((fa, fl), self.device)
+        outs = whatif_multi_area_tables(
+            src, dst, w, edge_ok, link_index, ovl, soft, roots, fa_t, fl_t,
+            *st["cand"], max_degree=st["D"], per_area_distance=per_area,
+        )
+        use, shortest, lanes, valid = HostFetch(outs).wait()
+        base_dist = self._base_dist(st)
+        self.num_sweeps += 1
+
+        # ---- merged route view per snapshot (SpfSolver.cpp:276-302) ----
+        B1, P, _A = valid.shape
+        m = np.where(valid, shortest, np.inf)  # [B1, P, A]
+        m_star = m.min(axis=2)  # [B1, P]
+        at_min = valid & (m == m_star[:, :, None])
+        eff_lanes = lanes & at_min[:, :, :, None]  # [B1, P, A, D]
+        merged = eff_lanes.sum(axis=(2, 3))  # nexthop count
+        req = np.max(np.where(use, dv.min_nexthop[None, :, :], 0), axis=2)  # [B1, P]
+        my_gid = table._node_gid.get(me)
+        if my_gid is None:
+            self_win = np.zeros((B1, P), bool)
+        else:
+            self_win = (use & (table.adv_gid[None, :, :] == my_gid)).any(axis=2)
+        v4_ok = self.solver.enable_v4 or self.solver.v4_over_v6_nexthop
+        include = np.asarray(
+            [p is not None and (v4_ok or not prefix_is_v4(p)) for p in table.row_prefix],
+            bool,
+        )
+        route_ok = (
+            include[None, :] & valid.any(axis=2) & ~self_win & (merged > 0) & (merged >= req)
+        )
+        base = B
+        out_edges_by_area = st["out_edges_by_area"]
+
+        def nh_names(b, p):
+            names = []
+            for ai, lane in zip(*np.nonzero(eff_lanes[b, p])):
+                oe = out_edges_by_area[ai]
+                if lane < len(oe):
+                    names.append(oe[lane][1])
+            return sorted(set(names))
+
+        def on_dag(ai, li):
+            """Some directed edge of the link lies on a shortest path from
+            me in its area."""
+            t = enc.topos[ai]
+            d = base_dist[ai]
+            transit = (~t.overloaded) | (np.arange(t.padded_nodes) == int(enc.roots[ai]))
+            for e in np.nonzero(t.link_index == li)[0]:
+                u, v = int(t.src[e]), int(t.dst[e])
+                if (
+                    t.edge_ok[e] and transit[u] and d[u] < BIG and d[v] < BIG
+                    and d[u] + t.w[e] == d[v]
+                ):
+                    return True
+            return False
+
+        def changes_for(s) -> List[dict]:
+            # validity flipped, metric moved, or the merged lane set moved
+            diff = (route_ok[s] != route_ok[base]) | (
+                route_ok[s] & route_ok[base] & (
+                    (m_star[s] != m_star[base])
+                    | (eff_lanes[s] != eff_lanes[base]).any(axis=(1, 2))
+                )
+            )
+            changes = []
+            for p in np.nonzero(diff)[0]:
+                was, now = bool(route_ok[base, p]), bool(route_ok[s, p])
+                changes.append(
+                    {
+                        "prefix": table.row_prefix[p],
+                        "change": change_kind(was, now),
+                        "old_nexthops": nh_names(base, p) if was else [],
+                        "new_nexthops": nh_names(s, p) if now else [],
+                        "old_metric": float(m_star[base, p]) if was else None,
+                        "new_metric": float(m_star[s, p]) if now else None,
+                    }
+                )
+            return changes
+
+        if simultaneous:
+            changes = changes_for(0)
+            return {
+                "eligible": True,
+                "vantage": me,
+                "engine": "multiarea",
+                "simultaneous": True,
+                "failures": [
+                    {
+                        "links": [list(f) for f in link_failures],
+                        "on_shortest_path_dag": any(on_dag(ai, li) for ai, li in fail_sets[0]),
+                        "routes_changed": len(changes),
+                        "changes": changes,
+                    }
+                ],
+            }
+        out = []
+        for s, ((n1, n2), tup) in enumerate(zip(link_failures, pairs)):
+            if tup is None:
+                out.append(errors[s])
+                continue
+            changes = changes_for(s)
+            entry = {
+                "link": [n1, n2],
+                "area": enc.areas[tup[0][0]],
+                "on_shortest_path_dag": any(on_dag(ai, li) for ai, li in tup),
+                "routes_changed": len(changes),
+                "changes": changes,
+            }
+            if len(tup) > 1:
+                # a parallel bundle (within or across areas): all failed
+                entry["links_failed"] = len(tup)
+                entry["areas"] = sorted({enc.areas[ai] for ai, _ in tup})
+            out.append(entry)
+        return {"eligible": True, "vantage": me, "engine": "multiarea", "failures": out}
 
 
 class GenericSolverWhatIfEngine:

@@ -1,5 +1,6 @@
-"""Synthetic topology generators for the port's worlds: grids and random
-connected graphs, as adjacency databases.
+"""Synthetic topology generators for the port's worlds: grids, rings,
+random connected graphs and the multi-area WAN hierarchy (the
+``wan_multi_area`` topology class), as adjacency databases.
 
 Copied from ``openr_tpu.emulation.topology`` (itself after the reference
 benchmark generators, openr/decision/tests/RoutingBenchmarkUtils.cpp:251
@@ -85,6 +86,12 @@ def build_adj_dbs(
     return dbs
 
 
+def ring_edges(n: int, prefix: str = "node") -> List[Edge]:
+    return [
+        (f"{prefix}{i}", f"{prefix}{(i + 1) % n}", 1) for i in range(n)
+    ]
+
+
 def grid_edges(n: int, prefix: str = "node") -> List[Edge]:
     """n x n grid, nodes named `{prefix}{row*n+col}`
     (RoutingBenchmarkUtils.cpp:251 createGrid)."""
@@ -127,3 +134,122 @@ def random_connected_edges(
         edges.append((nodes[i], nodes[j], rng.randint(1, 10)))
         added += 1
     return edges
+
+
+def wan_hierarchy_edges(
+    num_backbone: int = 32,
+    num_metros: int = 62,
+    metro_size: int = 16,
+    backbone_extra: int = 32,
+    seed: int = 0,
+) -> List[Edge]:
+    """WAN hierarchy: metro access rings dual-homed onto a sparse
+    backbone mesh, with ASYMMETRIC long-haul metrics (a->b and b->a
+    drawn independently — the Express-Backbone shape where forward and
+    reverse paths legitimately differ).  Deterministic per seed.
+
+    Structure: ``core{i}`` backbone = random spanning tree +
+    ``backbone_extra`` chords, metrics 10..100 per direction;
+    ``m{j}_{k}`` metro rings, metrics 1..5 symmetric; each metro homes
+    its ring node 0 and its antipode onto two distinct cores (metrics
+    5..20 per direction)."""
+    rng = random.Random(seed)
+    cores = [f"core{i}" for i in range(num_backbone)]
+    edges: List[Edge] = []
+
+    def asym(a: str, b: str, lo: int, hi: int) -> None:
+        # two explicit directed entries: build_adj_dbs pass 1 keeps both
+        edges.append((a, b, rng.randint(lo, hi)))
+        edges.append((b, a, rng.randint(lo, hi)))
+
+    for i in range(1, num_backbone):
+        asym(cores[rng.randrange(i)], cores[i], 10, 100)
+    max_chords = num_backbone * (num_backbone - 1) // 2 - (num_backbone - 1)
+    seen = {
+        (min(a, b), max(a, b))
+        for a, b, _ in edges
+    }
+    added = 0
+    while added < min(backbone_extra, max_chords):
+        i, j = rng.randrange(num_backbone), rng.randrange(num_backbone)
+        if i == j:
+            continue
+        key = (min(cores[i], cores[j]), max(cores[i], cores[j]))
+        if key in seen:
+            continue
+        seen.add(key)
+        asym(cores[i], cores[j], 10, 100)
+        added += 1
+    for m in range(num_metros):
+        ring = [f"m{m}_{k}" for k in range(metro_size)]
+        for k in range(metro_size):
+            w = rng.randint(1, 5)
+            edges.append((ring[k], ring[(k + 1) % metro_size], w))
+        # dual-homing: ring node 0 and its antipode onto distinct cores
+        c1 = rng.randrange(num_backbone)
+        c2 = (c1 + 1 + rng.randrange(num_backbone - 1)) % num_backbone
+        asym(ring[0], cores[c1], 5, 20)
+        asym(ring[metro_size // 2], cores[c2], 5, 20)
+    return edges
+
+
+_WAN_METRO_SIZE = 16
+
+
+def _wan_params(scale: int) -> Dict[str, int]:
+    backbone = max(4, scale // 32)
+    metros = max(1, (scale - backbone) // _WAN_METRO_SIZE)
+    return {
+        "backbone": backbone,
+        "metros": metros,
+        "metro_size": _WAN_METRO_SIZE,
+        "backbone_extra": backbone,
+        "nodes": backbone + metros * _WAN_METRO_SIZE,
+        # spanning tree + chords + rings + 2 homing links per metro
+        "undirected_edges": (
+            (backbone - 1)
+            + min(
+                backbone,
+                backbone * (backbone - 1) // 2 - (backbone - 1),
+            )
+            + metros * (_WAN_METRO_SIZE + 2)
+        ),
+    }
+
+
+def _build_wan(scale: int, seed: int) -> List[Edge]:
+    p = _wan_params(scale)
+    return wan_hierarchy_edges(
+        num_backbone=p["backbone"],
+        num_metros=p["metros"],
+        metro_size=p["metro_size"],
+        backbone_extra=p["backbone_extra"],
+        seed=seed,
+    )
+
+
+def wan_area_of(node: str) -> str:
+    """Area assignment for the multi-area WAN variant: the backbone is
+    area "0", each metro ring its own area (gateway ring members are
+    the ABRs — their homing links live in area "0")."""
+    if node.startswith("core"):
+        return "0"
+    return "metro" + node[1:].split("_", 1)[0]
+
+
+def wan_multi_area_dbs(
+    scale: int, seed: int
+) -> Dict[str, Dict[str, AdjacencyDatabase]]:
+    """The multi-area WAN world as per-area AdjacencyDatabase maps:
+    intra-metro ring edges land in the metro's area, backbone mesh AND
+    metro-homing links in area "0" (the gateway ring nodes appear in
+    both — the ABR model the cross-area redistribution tests want)."""
+    by_area: Dict[str, List[Edge]] = {}
+    for a, b, m in _build_wan(scale, seed):
+        area_a, area_b = wan_area_of(a), wan_area_of(b)
+        area = area_a if area_a == area_b else "0"
+        by_area.setdefault(area, []).append((a, b, m))
+    return {
+        area: build_adj_dbs(edges, area=area)
+        for area, edges in sorted(by_area.items())
+    }

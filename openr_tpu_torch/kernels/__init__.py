@@ -19,6 +19,9 @@ KERNEL_NAMES = (
     "repair_sweep",
     "select_chunk",
     "compact_deltas",
+    "fleet_spf_dense",
+    "fleet_select",
+    "spf_segment_batch",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

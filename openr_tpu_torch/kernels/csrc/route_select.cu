@@ -5,6 +5,10 @@
 //       (kernel 3 here: multi_area_select_kernel<false>)
 //   openr_tpu/ops/route_select.py:368 multi_area_select_delta_from_tables
 //       (kernel 7 here: multi_area_select_kernel<true>)
+// and the vmap of kernel 3 over vantage roots or failure snapshots in
+//   openr_tpu/ops/fleet_tables.py:27, :89, :154 (with the per-root diff
+//       of :205-210) and :217
+//       (kernel 13 here: fleet_select_kernel<false / true>)
 // (SpfSolver.cpp:161-312, 456-556; LsdbUtil.cpp:761-823), computed for
 // every prefix row p over its C candidate advertisements:
 //   1. reach: candidate ok and its node reached by SPF in its own area
@@ -59,9 +63,11 @@ __device__ __forceinline__ uint64_t keep_max(uint64_t mask, const int32_t* key,
   return out;
 }
 
-template <bool kDelta>
-__global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
-    const float* __restrict__ dist, const int8_t* __restrict__ nh,
+// The selection chain of row p; with kDiff, returns whether any output
+// differs from the previous generation's (else false).
+template <bool kDiff>
+__device__ __forceinline__ bool select_row(
+    int p, const float* __restrict__ dist, const int8_t* __restrict__ nh,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
     const int32_t* __restrict__ cand_area, const int32_t* __restrict__ cand_node,
     const uint8_t* __restrict__ cand_ok,
@@ -74,12 +80,8 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
     uint8_t* __restrict__ valid_out, const uint8_t* __restrict__ prev_use,
     const float* __restrict__ prev_shortest,
     const uint8_t* __restrict__ prev_lanes,
-    const uint8_t* __restrict__ prev_valid,
-    const uint8_t* __restrict__ node_changed,
-    uint8_t* __restrict__ changed_out, int P, int C, int A, int V, int D,
+    const uint8_t* __restrict__ prev_valid, int C, int A, int V, int D,
     int per_area, float big) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
   const size_t row = (size_t)p * C;
   const int32_t* area = cand_area + row;
 
@@ -125,7 +127,7 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
   for (int c = 0; c < C; ++c) {
     const uint8_t u = (use >> c) & 1;
     use_out[row + c] = u;
-    if (kDelta) changed |= u != prev_use[row + c];
+    if (kDiff) changed |= u != prev_use[row + c];
   }
 
   // 5. per-area min-cost winners and their lane union
@@ -164,17 +166,48 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
       }
       lanes_out[out * D + l] = hits > 0;
       num_nh += hits > 0;
-      if (kDelta) changed |= (hits > 0) != (prev_lanes[out * D + l] != 0);
+      if (kDiff) changed |= (hits > 0) != (prev_lanes[out * D + l] != 0);
     }
     const bool valid = mc != 0 && num_nh > 0;
     shortest_out[out] = shortest;
     valid_out[out] = valid;
-    if (kDelta) {
+    if (kDiff) {
       changed |= shortest != prev_shortest[out];
       changed |= valid != (prev_valid[out] != 0);
     }
   }
+  return changed;
+}
+
+template <bool kDelta>
+__global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
+    const float* __restrict__ dist, const int8_t* __restrict__ nh,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
+    const int32_t* __restrict__ cand_area, const int32_t* __restrict__ cand_node,
+    const uint8_t* __restrict__ cand_ok,
+    const int32_t* __restrict__ drain_metric,
+    const int32_t* __restrict__ path_pref,
+    const int32_t* __restrict__ source_pref,
+    const int32_t* __restrict__ distance,
+    const int32_t* __restrict__ cand_node_in_area, uint8_t* __restrict__ use_out,
+    float* __restrict__ shortest_out, uint8_t* __restrict__ lanes_out,
+    uint8_t* __restrict__ valid_out, const uint8_t* __restrict__ prev_use,
+    const float* __restrict__ prev_shortest,
+    const uint8_t* __restrict__ prev_lanes,
+    const uint8_t* __restrict__ prev_valid,
+    const uint8_t* __restrict__ node_changed,
+    uint8_t* __restrict__ changed_out, int P, int C, int A, int V, int D,
+    int per_area, float big) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  bool changed = select_row<kDelta>(
+      p, dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+      drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+      use_out, shortest_out, lanes_out, valid_out, prev_use, prev_shortest,
+      prev_lanes, prev_valid, C, A, V, D, per_area, big);
   if (!kDelta) return;
+  const size_t row = (size_t)p * C;
+  const int32_t* area = cand_area + row;
   // drain-state touches: decode wraps the winning entry from LinkState's
   // drain lookups, so such rows re-decode even with unchanged outputs
   for (int c = 0; c < C && !changed; ++c) {
@@ -186,6 +219,47 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
     }
   }
   changed_out[p] = changed;
+}
+
+// Kernel 13: the chain for every (batch row b, prefix row p); row b reads
+// its own tables dist [b, A, V] and nh [b, A, V, D] and writes its own
+// outputs, the candidate tables are shared.  With kDiff, changed[b] (zeroed
+// before the launch) is set when any output of the row's P rows differs
+// from prev_* [b, ...]: a block vote, then one store per block.
+template <bool kDiff>
+__global__ void __launch_bounds__(kThreads) fleet_select_kernel(
+    const float* __restrict__ dist, const int8_t* __restrict__ nh,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
+    const int32_t* __restrict__ cand_area, const int32_t* __restrict__ cand_node,
+    const uint8_t* __restrict__ cand_ok,
+    const int32_t* __restrict__ drain_metric,
+    const int32_t* __restrict__ path_pref,
+    const int32_t* __restrict__ source_pref,
+    const int32_t* __restrict__ distance,
+    const int32_t* __restrict__ cand_node_in_area, uint8_t* __restrict__ use_out,
+    float* __restrict__ shortest_out, uint8_t* __restrict__ lanes_out,
+    uint8_t* __restrict__ valid_out, const uint8_t* __restrict__ prev_use,
+    const float* __restrict__ prev_shortest,
+    const uint8_t* __restrict__ prev_lanes,
+    const uint8_t* __restrict__ prev_valid, uint8_t* __restrict__ changed_out,
+    int blocks_per_row, int P, int C, int A, int V, int D, int per_area,
+    float big) {
+  const int b = blockIdx.x / blocks_per_row;
+  const int p = (blockIdx.x - b * blocks_per_row) * blockDim.x + threadIdx.x;
+  const size_t sel = (size_t)b * P;  // this row's first output row
+  const size_t tables = (size_t)b * A * V;
+  bool changed = false;
+  if (p < P)
+    changed = select_row<kDiff>(
+        p, dist + tables, nh + tables * D, overloaded, soft, cand_area,
+        cand_node, cand_ok, drain_metric, path_pref, source_pref, distance,
+        cand_node_in_area, use_out + sel * C, shortest_out + sel * A,
+        lanes_out + sel * A * D, valid_out + sel * A,
+        kDiff ? prev_use + sel * C : nullptr,
+        kDiff ? prev_shortest + sel * A : nullptr,
+        kDiff ? prev_lanes + sel * A * D : nullptr,
+        kDiff ? prev_valid + sel * A : nullptr, C, A, V, D, per_area, big);
+  if (kDiff && __syncthreads_or(changed) && threadIdx.x == 0) changed_out[b] = 1;
 }
 
 template <bool kDelta>
@@ -248,4 +322,36 @@ extern "C" int openr_multi_area_select_delta(
       path_pref, source_pref, distance, cand_node_in_area, use, shortest,
       lanes, valid, prev_use, prev_shortest, prev_lanes, prev_valid,
       node_changed, changed, P, C, A, V, D, per_area, big, stream);
+}
+
+extern "C" int openr_fleet_select(
+    const void* dist, const void* nh, const void* overloaded, const void* soft,
+    const void* cand_area, const void* cand_node, const void* cand_ok,
+    const void* drain_metric, const void* path_pref, const void* source_pref,
+    const void* distance, const void* cand_node_in_area, void* use,
+    void* shortest, void* lanes, void* valid, const void* prev_use,
+    const void* prev_shortest, const void* prev_lanes, const void* prev_valid,
+    void* changed, int B, int P, int C, int A, int V, int D, int per_area,
+    float big, void* stream) {
+  if (C > 64) return (int)cudaErrorInvalidValue;
+  const bool diff = prev_use != nullptr;
+  if (diff) {
+    cudaError_t err = cudaMemsetAsync(changed, 0, (size_t)B, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (B == 0 || P == 0) return (int)cudaSuccess;
+  const int per_row = (P + kThreads - 1) / kThreads;
+  const auto kernel = diff ? fleet_select_kernel<true> : fleet_select_kernel<false>;
+  kernel<<<B * per_row, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
+      (const int32_t*)soft, (const int32_t*)cand_area,
+      (const int32_t*)cand_node, (const uint8_t*)cand_ok,
+      (const int32_t*)drain_metric, (const int32_t*)path_pref,
+      (const int32_t*)source_pref, (const int32_t*)distance,
+      (const int32_t*)cand_node_in_area, (uint8_t*)use, (float*)shortest,
+      (uint8_t*)lanes, (uint8_t*)valid, (const uint8_t*)prev_use,
+      (const float*)prev_shortest, (const uint8_t*)prev_lanes,
+      (const uint8_t*)prev_valid, (uint8_t*)changed, per_row, P, C, A, V, D,
+      per_area, big);
+  return (int)cudaGetLastError();
 }

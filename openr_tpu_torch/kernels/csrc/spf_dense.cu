@@ -5,7 +5,9 @@
 //   openr_tpu/ops/spf.py:291 dense_spf_distances      (kernel 1 here)
 //   openr_tpu/ops/spf.py:331 dense_spf_nexthop_lanes  (kernel 2 here)
 // vmapped over areas by openr_tpu/ops/route_select.py:171
-// multi_area_spf_tables_dense.
+// multi_area_spf_tables_dense, and both again over a batch of vantage
+// roots by openr_tpu/ops/fleet_tables.py:89 fleet_multi_area_tables_dense
+// (and :154, its generation-delta twin)              (kernel 12 here).
 //
 // Both are fixed points over the dense in-edge matrix [A, V, K]
 // (slot (v, k) = k-th directed edge INTO v):
@@ -33,6 +35,19 @@
 // in-edge planes (L2-resident at these sizes) and the loop runs for the
 // hop diameter; with A = 1 the whole solve runs on 1 of the card's 132
 // SMs.  Spreading one area over several blocks is later work.
+//
+// Kernel 12 (fleet_spf_dense) runs both fixed points in ONE launch for
+// every (vantage root, area) pair: one block of 256 threads per pair, so
+// a 1,024-root fleet fills the card.  The distances stay in shared
+// memory; the edge classes too (no scratch plane), and the lane rounds
+// run only over the lanes a seed can reach (1 + the highest rank of a
+// root out-edge on the DAG): every other lane of a present vertex is 0
+// from the start and never changes, because a propagating edge's source
+// is reached and not the root, so its own lanes hold 0 or 1, never -128.
+// A root of -1 (the vantage is absent from the area) writes dist BIG and
+// lanes 0 over its whole slice without solving: the reference masks the
+// slice after the fact (fleet_tables.py:130-131), so 0 overwrites the
+// -128 fill there.
 //
 // Traps: BIG + BIG overflows to +inf in f32, and padding slots carry
 // w = +inf.  min/compare must treat inf exactly, so this file is never
@@ -170,6 +185,113 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kBatchThreads = 256;
+
+__global__ void __launch_bounds__(kBatchThreads) fleet_spf_dense_kernel(
+    const int32_t* __restrict__ in_src, const float* __restrict__ in_w,
+    const uint8_t* __restrict__ in_ok, const int32_t* __restrict__ in_rank,
+    const uint8_t* __restrict__ in_has,
+    const uint8_t* __restrict__ overloaded,
+    const int32_t* __restrict__ roots, float* __restrict__ dist_out,
+    int8_t* nh, int A, int V, int K, int D, float big) {
+  extern __shared__ float d[];  // [V] distances, then [V, K] edge classes
+  uint8_t* cls = reinterpret_cast<uint8_t*>(d + V);
+  __shared__ int lanes_used;
+  const int r = blockIdx.x;  // batch row * A + area
+  const int a = r % A;
+  const int root = roots[r];
+  float* dist = dist_out + (size_t)r * V;
+  int8_t* lanes = nh + (size_t)r * V * D;
+  const int VD = V * D;
+  if (root < 0) {
+    for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = big;
+    for (int i = threadIdx.x; i < VD; i += blockDim.x) lanes[i] = 0;
+    return;
+  }
+  const size_t plane = (size_t)a * V * K;
+  const int32_t* src = in_src + plane;
+  const float* w = in_w + plane;
+  const uint8_t* ok = in_ok + plane;
+  const int32_t* rank = in_rank + plane;
+  const uint8_t* has = in_has + (size_t)a * V;
+  const uint8_t* ovl = overloaded + (size_t)a * V;
+
+  // 1. distances: kernel 1's in-place rounds
+  for (int v = threadIdx.x; v < V; v += blockDim.x) d[v] = v == root ? 0.f : big;
+  if (threadIdx.x == 0) lanes_used = 0;
+  __syncthreads();
+  for (int round = 0; round < V; ++round) {
+    int changed = 0;
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      const float cur = d[v];
+      float best = cur;
+      const size_t row = (size_t)v * K;
+      for (int k = 0; k < K; ++k) {
+        const int s = src[row + k];
+        const bool usable = ok[row + k] && can_transit(ovl, s, root);
+        best = fminf(best, d[s] + (usable ? w[row + k] : big));
+      }
+      if (best < cur) {
+        d[v] = best;
+        changed = 1;
+      }
+    }
+    if (!__syncthreads_or(changed)) break;
+  }
+  for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = d[v];
+
+  // 2. edge classes, and the lanes a seed can reach
+  const int VK = V * K;
+  for (int e = threadIdx.x; e < VK; e += blockDim.x) {
+    const int v = e / K;
+    const int s = src[e];
+    const bool usable = ok[e] && can_transit(ovl, s, root);
+    const float dv = d[v];
+    const bool on_dag = usable && (d[s] + w[e] == dv) && (dv < big);
+    cls[e] = on_dag ? (s == root ? kSeed : kPropagate) : kOffDag;
+    if (on_dag && s == root) atomicMax(&lanes_used, rank[e] + 1);
+  }
+  __syncthreads();
+  const int L = lanes_used < D ? lanes_used : D;
+  for (int i = threadIdx.x; i < VD; i += blockDim.x) {
+    const int v = i / D;
+    const int l = i - v * D;
+    int8_t x = -128;
+    if (has[v]) {
+      x = 0;
+      for (int k = 0; l < L && k < K; ++k) {
+        const size_t e = (size_t)v * K + k;
+        if (cls[e] == kSeed && rank[e] == l) x = 1;
+      }
+    }
+    lanes[i] = x;
+  }
+  __syncthreads();
+
+  // 3. OR-propagation over the live lanes: kernel 2's in-place rounds
+  const int VL = V * L;
+  for (int round = 0; round < V; ++round) {
+    int changed = 0;
+    for (int i = threadIdx.x; i < VL; i += blockDim.x) {
+      const int v = i / L;
+      if (!has[v]) continue;
+      const int l = i - v * L;
+      int contrib = -128;
+      for (int k = 0; k < K; ++k) {
+        const size_t e = (size_t)v * K + k;
+        const int x = cls[e] == kPropagate ? (int)lanes[(size_t)src[e] * D + l] : 0;
+        contrib = x > contrib ? x : contrib;
+      }
+      const size_t at = (size_t)v * D + l;
+      if (contrib > lanes[at]) {
+        lanes[at] = (int8_t)contrib;
+        changed = 1;
+      }
+    }
+    if (!__syncthreads_or(changed)) break;
+  }
+}
+
 }  // namespace
 
 extern "C" int openr_dense_spf_distances(const void* in_src, const void* in_w,
@@ -205,5 +327,27 @@ extern "C" int openr_dense_spf_nexthop_lanes(
       (const int32_t*)in_rank, (const uint8_t*)in_has,
       (const uint8_t*)overloaded, (const int32_t*)roots, (const float*)dist,
       (uint8_t*)edge_class, (int8_t*)nh, V, K, D, big);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int openr_fleet_spf_dense(const void* in_src, const void* in_w,
+                                     const void* in_ok, const void* in_rank,
+                                     const void* in_has,
+                                     const void* overloaded,
+                                     const void* roots, void* dist, void* nh,
+                                     int B, int A, int V, int K, int D,
+                                     float big, void* stream) {
+  if (B == 0 || A == 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)V * sizeof(float) + (size_t)V * K;
+  cudaError_t err = cudaFuncSetAttribute(
+      fleet_spf_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fleet_spf_dense_kernel<<<B * A, kBatchThreads, smem,
+                           (cudaStream_t)stream>>>(
+      (const int32_t*)in_src, (const float*)in_w, (const uint8_t*)in_ok,
+      (const int32_t*)in_rank, (const uint8_t*)in_has,
+      (const uint8_t*)overloaded, (const int32_t*)roots, (float*)dist,
+      (int8_t*)nh, A, V, K, D, big);
   return (int)cudaGetLastError();
 }

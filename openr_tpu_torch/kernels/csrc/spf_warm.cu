@@ -7,7 +7,13 @@
 //   openr_tpu/ops/spf.py:548 warm_subgraph_repair_one  (kernel 6 here)
 // vmapped over areas by openr_tpu/ops/route_select.py:200
 // warm_multi_area_spf_tables (kernels 4 + 5, through spf.py:636
-// warm_spf_one) and :235 warm_multi_area_subgraph_tables (kernel 6).
+// warm_spf_one) and :235 warm_multi_area_subgraph_tables (kernel 6), and
+// the cold segment-form twins
+//   openr_tpu/ops/spf.py:50 spf_distances, :106 spf_nexthop_lanes
+//   (:160 spf_one; route_select.py:148 multi_area_spf_tables)
+// batched over vantage roots and failure sets by
+//   openr_tpu/ops/fleet_tables.py:27 fleet_multi_area_tables and
+//   :217 whatif_multi_area_tables                     (kernel 14 here).
 //
 // All three read the SEGMENT form of the topology: directed edges sorted
 // by dst, so vertex v's in-edges are the run [off[v], off[v+1]) (the
@@ -52,6 +58,22 @@
 // [off[v], seg_end[v]).  The skipped tail holds disabled edges alone,
 // which contribute nothing (BIG to a distance, 0 to a lane); the run's
 // emptiness, which decides the -128 fill, is still read from off[].
+//
+// Kernel 14 (spf_segment_batch) is the cold solve of 4 then 5 for every
+// (batch row, area) pair in one launch, one block of 256 threads each:
+// distances from BIG (the root at 0), then the lanes.  The reference
+// OR-accumulates its cold lanes from the seed; the reset update reaches
+// the same tables, because on the DAG both fixed points are the unique
+// one above the seed.  Per row it takes the row's own root (-1: the
+// vantage is absent from the area, and the block writes dist BIG, lanes
+// 0 without solving) and, optionally, a failed set of (area, link) pairs:
+// an edge is masked iff some member has this area, the edge's link id and
+// a link id >= 0, so a -1 pad masks nothing, not even a padding edge
+// (whose link id is also -1).  The block keeps in shared memory its
+// distances, its run ends, its edge classes and the lane rank of every
+// edge (a block scan: the rank among the root's out-edges in edge order,
+// -1 off the root), so nothing scales with the batch but the outputs;
+// the lane rounds run only over lanes a root out-edge can seed.
 //
 // What bounds it: latency, not bytes.  Each round re-reads the area's
 // edge arrays (L2-resident at these sizes) and the loop runs for the
@@ -155,19 +177,21 @@ __device__ void classify_edges(uint8_t* cls, const float* d,
 }
 
 // Reset-semantics lane fixed point over the selected vertices, in place
-// in nh [V, D]; returns the number of rounds run.
+// in nh [V, D], over its first L lanes (L = D but in kernel 14); returns
+// the number of rounds run.
 __device__ int propagate_lanes(int8_t* nh, const uint8_t* cls,
                                const int32_t* off, const int32_t* seg_end,
                                const int32_t* src, const int32_t* lane_rank,
-                               const uint8_t* only, int V, int D) {
+                               const uint8_t* only, int V, int L, int D) {
   int rounds = 0;
-  const int VD = V * D;
+  const int VL = V * L;
   for (int round = 0; round < V; ++round) {
     int changed = 0;
-    for (int i = threadIdx.x; i < VD; i += blockDim.x) {
-      const int v = i / D;
+    for (int i = threadIdx.x; i < VL; i += blockDim.x) {
+      const int v = i / L;
       if (only && !only[v]) continue;
-      const int l = i - v * D;
+      const int l = i - v * L;
+      const size_t at = (size_t)v * D + l;
       const int e0 = off[v];
       // an empty run keeps the reference's segment_max identity, -128;
       // otherwise non-DAG edges contribute 0, so the value starts at 0
@@ -181,8 +205,8 @@ __device__ int propagate_lanes(int8_t* nh, const uint8_t* cls,
           x = y > x ? y : x;
         }
       }
-      if (x != nh[i]) {
-        nh[i] = (int8_t)x;
+      if (x != nh[at]) {
+        nh[at] = (int8_t)x;
         changed = 1;
       }
     }
@@ -248,7 +272,7 @@ __global__ void __launch_bounds__(kThreads) spf_nexthop_lanes_reset_kernel(
   __syncthreads();
   const int rounds = propagate_lanes(nh + lanes_at, edge_class + edges_at, off,
                                      end, src + edges_at, root_rank + edges_at,
-                                     nullptr, V, D);
+                                     nullptr, V, D, D);
   if (threadIdx.x == 0) rounds_out[a] = rounds;
 }
 
@@ -284,11 +308,121 @@ __global__ void __launch_bounds__(kThreads) warm_subgraph_repair_kernel(
   __syncthreads();
   const int rl = propagate_lanes(nh + lanes_at, edge_class + edges_at, off,
                                  end, src_sub + edges_at, rank_sub + edges_at,
-                                 only, V, D);
+                                 only, V, D, D);
   if (threadIdx.x == 0) {
     rounds_d[a] = rd;
     rounds_l[a] = rl;
   }
+}
+
+// full edge list minus a failed set: kernel 14's usability (the transit
+// rule of FullEdges, and no edge of a failed link of this area)
+struct MaskedEdges {
+  const uint8_t* edge_ok;
+  const uint8_t* overloaded;
+  const int32_t* link_index;
+  const int32_t* failed;  // this area's failed link ids (all >= 0)
+  int num_failed;
+  int root;
+  __device__ bool usable(int e, int s) const {
+    if (!edge_ok[e] || (overloaded[s] && s != root)) return false;
+    for (int k = 0; k < num_failed; ++k)
+      if (link_index[e] == failed[k]) return false;
+    return true;
+  }
+};
+
+// rank[e] = e's rank among the root's out-edges in edge order (its lane),
+// -1 on every other edge; counts holds blockDim.x + 1 ints of scratch.
+// Returns the number of root out-edges; ends with a barrier.
+__device__ int root_lane_ranks(int32_t* rank, int32_t* counts,
+                               const int32_t* src, int root, int E) {
+  const int T = blockDim.x;
+  const int chunk = (E + T - 1) / T;
+  const int lo = min(E, (int)threadIdx.x * chunk);
+  const int hi = min(E, lo + chunk);
+  int c = 0;
+  for (int e = lo; e < hi; ++e) c += src[e] == root;
+  counts[threadIdx.x] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int t = 0; t < T; ++t) {
+      const int n = counts[t];
+      counts[t] = run;
+      run += n;
+    }
+    counts[T] = run;
+  }
+  __syncthreads();
+  int next = counts[threadIdx.x];
+  for (int e = lo; e < hi; ++e) rank[e] = src[e] == root ? next++ : -1;
+  __syncthreads();
+  return counts[T];
+}
+
+constexpr int kBatchThreads = 256;
+
+__global__ void __launch_bounds__(kBatchThreads) spf_segment_batch_kernel(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
+    const uint8_t* __restrict__ overloaded,
+    const int32_t* __restrict__ link_index,
+    const int32_t* __restrict__ roots, const int32_t* __restrict__ fail_area,
+    const int32_t* __restrict__ fail_link,
+    const int32_t* __restrict__ seg_off, float* __restrict__ dist_out,
+    int8_t* nh, int A, int V, int E, int D, int S, float big) {
+  // shared: run ends [V], lane ranks [E], scan counts [T + 1], failed
+  // links [S], distances [V], edge classes [E]
+  extern __shared__ int32_t shared_ints[];
+  int32_t* end = shared_ints;
+  int32_t* rank = end + V;
+  int32_t* counts = rank + E;
+  int32_t* failed = counts + blockDim.x + 1;
+  float* d = reinterpret_cast<float*>(failed + S);
+  uint8_t* cls = reinterpret_cast<uint8_t*>(d + V);
+  __shared__ int num_failed;
+  const int r = blockIdx.x;  // batch row * A + area
+  const int b = r / A;
+  const int a = r - b * A;
+  const int root = roots[r];
+  float* dist = dist_out + (size_t)r * V;
+  int8_t* lanes = nh + (size_t)r * V * D;
+  const int VD = V * D;
+  if (root < 0) {
+    for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = big;
+    for (int i = threadIdx.x; i < VD; i += blockDim.x) lanes[i] = 0;
+    return;
+  }
+  const size_t edges_at = (size_t)a * E;
+  const int32_t* off = seg_off + (size_t)a * (V + 1);
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int s = 0; s < S; ++s) {
+      const int fl = fail_link[(size_t)b * S + s];
+      if (fail_area[(size_t)b * S + s] == a && fl >= 0) failed[n++] = fl;
+    }
+    num_failed = n;
+  }
+  const int root_out = root_lane_ranks(rank, counts, src + edges_at, root, E);
+  for (int v = threadIdx.x; v < V; v += blockDim.x) d[v] = v == root ? 0.f : big;
+  enabled_run_ends(end, off, dst + edges_at, edge_ok + edges_at, V, E);
+  const MaskedEdges edges{edge_ok + edges_at, overloaded + (size_t)a * V,
+                          link_index ? link_index + edges_at : nullptr,
+                          failed, link_index ? num_failed : 0, root};
+  relax_distances(d, off, end, src + edges_at, w + edges_at, edges, nullptr,
+                  V, big);
+  for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = d[v];
+  classify_edges(cls, d, off, end, src + edges_at, w + edges_at, rank, edges,
+                 nullptr, V, big);
+  // an empty run holds -128; every lane no root out-edge can seed stays 0
+  for (int i = threadIdx.x; i < VD; i += blockDim.x) {
+    const int v = i / D;
+    lanes[i] = off[v] < off[v + 1] ? 0 : -128;
+  }
+  __syncthreads();
+  propagate_lanes(lanes, cls, off, end, src + edges_at, rank, nullptr, V,
+                  root_out < D ? root_out : D, D);
 }
 
 template <class Kernel>
@@ -352,5 +486,26 @@ extern "C" int openr_warm_subgraph_repair(
       (const int32_t*)seg_off, (int32_t*)seg_end, (uint8_t*)edge_class,
       (float*)dist, (int8_t*)nh, (int32_t*)rounds_d, (int32_t*)rounds_l, V,
       Es, D, big);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int openr_spf_segment_batch(
+    const void* src, const void* dst, const void* w, const void* edge_ok,
+    const void* overloaded, const void* link_index, const void* roots,
+    const void* fail_area, const void* fail_link, const void* seg_off,
+    void* dist, void* nh, int B, int A, int V, int E, int D, int S,
+    float big, void* stream) {
+  if (B == 0 || A == 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)(V + E + kBatchThreads + 1 + S) * 4 +
+                      (size_t)V * sizeof(float) + (size_t)E;
+  cudaError_t err = allow_smem(spf_segment_batch_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  spf_segment_batch_kernel<<<B * A, kBatchThreads, smem,
+                             (cudaStream_t)stream>>>(
+      (const int32_t*)src, (const int32_t*)dst, (const float*)w,
+      (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
+      (const int32_t*)link_index, (const int32_t*)roots,
+      (const int32_t*)fail_area, (const int32_t*)fail_link,
+      (const int32_t*)seg_off, (float*)dist, (int8_t*)nh, A, V, E, D, S, big);
   return (int)cudaGetLastError();
 }

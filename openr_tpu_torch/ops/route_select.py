@@ -1,8 +1,11 @@
 """Per-area SPF tables and multi-area best-route selection — the
 counterpart of ``openr_tpu/ops/route_select.py``'s
-``multi_area_spf_tables_dense``, ``multi_area_select_from_tables``,
-``multi_area_select_delta_from_tables``, ``gather_selection_rows`` and the
-single-area chain ``select_routes_one`` (the what-if sweep's selection)
+``multi_area_spf_tables``, ``multi_area_spf_tables_dense``,
+``multi_area_select_from_tables``, ``multi_area_select_delta_from_tables``,
+``gather_selection_rows`` and the single-area chain ``select_routes_one``
+(the what-if sweep's selection), plus the selection batched over vantage
+roots or failure snapshots (``fleet_select``, the vmap the reference's
+``ops/fleet_tables.py`` runs)
 (its warm table builders, ``warm_multi_area_spf_tables`` and
 ``warm_multi_area_subgraph_tables``, are ``ops/spf.py``'s
 ``warm_spf_one`` and ``warm_subgraph_repair``: one call over all areas).
@@ -46,7 +49,7 @@ from openr_tpu_torch.kernels.build import (
     stream,
 )
 from openr_tpu_torch.ops.consts import BIG
-from openr_tpu_torch.ops.spf import dense_spf_one
+from openr_tpu_torch.ops.spf import dense_spf_one, spf_one
 
 I32_MIN = -(2**31)
 I32_MAX = 2**31 - 1
@@ -133,6 +136,22 @@ def multi_area_spf_tables_dense(
     )
 
 
+def multi_area_spf_tables(
+    src,  # [A, E] per-area dst-sorted edge lists (padded to common buckets)
+    dst,  # [A, E]
+    w,  # [A, E]
+    edge_ok,  # [A, E]
+    overloaded,  # [A, V]
+    roots,  # [A] my node id in each area
+    max_degree: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-area SPF from me over the segment form (encodings that decline
+    the dense layout, and the multi-area what-if's base) → (dist [A, V]
+    f32, nh [A, V, D] int8), bit-equal to the dense tables where both
+    exist."""
+    return spf_one(src, dst, w, edge_ok, overloaded, roots, max_degree)
+
+
 def multi_area_select_from_tables_plain(
     dist,  # [A, V] SPF distances from me, per area
     nh,  # [A, V, D] first-hop lane sets from me, per area
@@ -203,22 +222,23 @@ def multi_area_select_from_tables_plain(
     return use, shortest, lanes, valid
 
 
-def _select_operands(
+def _check_select(
     dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
     path_pref, source_pref, distance, cand_node_in_area,
 ):
-    """Check the selection inputs and allocate the four outputs; returns
-    ((P, C, A, V, D), the input pointers, the output tensors)."""
+    """Check the selection inputs (dist [..., A, V] and nh [..., A, V, D]
+    with any leading batch axes); returns (P, C, A, V, D)."""
     dev = dist.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called on {dev}")
-    A, V = dist.shape
-    D = nh.shape[2]
+    A, V = dist.shape[-2:]
+    D = nh.shape[-1]
     P, C = cand_area.shape
     if C > MAX_KERNEL_CANDIDATES:
         raise ValueError(f"{C} candidates exceed the kernel's {MAX_KERNEL_CANDIDATES}")
-    check_tensor("dist", dist, torch.float32, (A, V), dev)
-    check_tensor("nh", nh, torch.int8, (A, V, D), dev)
+    lead = tuple(dist.shape[:-2])
+    check_tensor("dist", dist, torch.float32, (*lead, A, V), dev)
+    check_tensor("nh", nh, torch.int8, (*lead, A, V, D), dev)
     check_tensor("overloaded", overloaded, torch.bool, (A, V), dev)
     check_tensor("soft", soft, torch.int32, (A, V), dev)
     for name, t in (("cand_area", cand_area), ("cand_node", cand_node),
@@ -227,6 +247,22 @@ def _select_operands(
         check_tensor(name, t, torch.int32, (P, C), dev)
     check_tensor("cand_ok", cand_ok, torch.bool, (P, C), dev)
     check_tensor("cand_node_in_area", cand_node_in_area, torch.int32, (P, C, A), dev)
+    return P, C, A, V, D
+
+
+def _select_operands(
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+    path_pref, source_pref, distance, cand_node_in_area,
+):
+    """Check the selection inputs and allocate the four outputs; returns
+    ((P, C, A, V, D), the input pointers, the output tensors)."""
+    if dist.dim() != 2:
+        raise ValueError(f"dist must be [A, V], got {tuple(dist.shape)}")
+    P, C, A, V, D = _check_select(
+        dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+        drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+    )
+    dev = dist.device
     outs = (
         torch.empty((P, C), dtype=torch.bool, device=dev),
         torch.empty((P, A), dtype=torch.float32, device=dev),
@@ -389,3 +425,98 @@ def gather_selection_rows(use, shortest, lanes, valid, idx):
     """Compaction of the changed selection rows ``idx`` [G] (a plain row
     gather, on whatever device the outputs are)."""
     return tuple(torch.index_select(a, 0, idx) for a in (use, shortest, lanes, valid))
+
+
+# ---------------------------------------------------------------------------
+# selection batched over vantage roots or failure snapshots (kernel 13)
+# ---------------------------------------------------------------------------
+
+
+def fleet_select_plain(
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+    path_pref, source_pref, distance, cand_node_in_area, per_area_distance: bool,
+    prev_use=None, prev_shortest=None, prev_lanes=None, prev_valid=None,
+):
+    """The selection of :func:`multi_area_select_from_tables` for every
+    batch row b of dist [B, A, V] / nh [B, A, V, D], the candidate tables
+    shared (the reference's vmap, one row at a time).  Returns (use
+    [B, P, C], shortest [B, P, A], lanes [B, P, A, D], valid [B, P, A]),
+    plus changed [B] when the previous generation's ``prev_*`` [B, ...]
+    are given: some output of the row's P rows differs."""
+    cand = (cand_area, cand_node, cand_ok, drain_metric, path_pref,
+            source_pref, distance, cand_node_in_area)
+    rows = [
+        multi_area_select_from_tables_plain(
+            dist[b], nh[b], overloaded, soft, *cand, per_area_distance
+        )
+        for b in range(dist.shape[0])
+    ]
+    outs = tuple(torch.stack(parts) for parts in zip(*rows))
+    if prev_use is None:
+        return outs
+    changed = torch.zeros(dist.shape[0], dtype=torch.bool, device=dist.device)
+    for now, prev in zip(outs, (prev_use, prev_shortest, prev_lanes, prev_valid)):
+        changed |= (now != prev).flatten(1).any(dim=1)
+    return (*outs, changed)
+
+
+def fleet_select_launcher(
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
+    path_pref, source_pref, distance, cand_node_in_area, per_area_distance: bool,
+    prev_use=None, prev_shortest=None, prev_lanes=None, prev_valid=None,
+) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """As :func:`multi_area_select_from_tables_launcher`, for kernel 13:
+    ``(launch, (use, shortest, lanes, valid))``, and ``changed`` [B] last
+    when ``prev_*`` are given."""
+    if dist.dim() != 3:
+        raise ValueError(f"dist must be [B, A, V], got {tuple(dist.shape)}")
+    B = dist.shape[0]
+    P, C, A, V, D = _check_select(
+        dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+        drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+    )
+    dev = dist.device
+    outs = (
+        torch.empty((B, P, C), dtype=torch.bool, device=dev),
+        torch.empty((B, P, A), dtype=torch.float32, device=dev),
+        torch.empty((B, P, A, D), dtype=torch.bool, device=dev),
+        torch.empty((B, P, A), dtype=torch.bool, device=dev),
+    )
+    prev = (None, None, None, None)
+    changed = None
+    if prev_use is not None:
+        prev = (prev_use, prev_shortest, prev_lanes, prev_valid)
+        for name, t, like in zip(("prev_use", "prev_shortest", "prev_lanes", "prev_valid"),
+                                 prev, outs):
+            check_tensor(name, t, like.dtype, like.shape, dev)
+        changed = torch.empty((B,), dtype=torch.bool, device=dev)
+    fn = function(
+        "route_select",
+        "openr_fleet_select",
+        [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    ins = (dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+           drain_metric, path_pref, source_pref, distance, cand_node_in_area)
+    args = (
+        *(ptr(t) for t in ins), *(ptr(o) for o in outs),
+        *(None if t is None else ptr(t) for t in (*prev, changed)),
+        B, P, C, A, V, D, int(bool(per_area_distance)), BIG, stream(dev),
+    )
+
+    def launch() -> None:
+        if B == 0:
+            return
+        check_launch("fleet_select", fn(*args))
+        LAUNCHES["fleet_select"] += 1
+
+    return launch, outs if changed is None else (*outs, changed)
+
+
+def fleet_select(*args, **kwargs):
+    """Kernel 13 for CUDA tensors, the plain version for CPU tensors (see
+    :func:`fleet_select_plain`)."""
+    if args[0].device.type == "cpu":
+        return fleet_select_plain(*args, **kwargs)
+    launch, outs = fleet_select_launcher(*args, **kwargs)
+    launch()
+    return outs

@@ -1,7 +1,10 @@
-"""Dense SPF tables: masked Bellman-Ford distances and all-shortest-path
+"""SPF tables: masked Bellman-Ford distances and all-shortest-path
 first-hop lane sets over the dense in-edge matrix — the counterpart of
 ``openr_tpu/ops/spf.py``'s ``dense_spf_distances`` /
-``dense_spf_nexthop_lanes`` / ``dense_spf_one``.
+``dense_spf_nexthop_lanes`` / ``dense_spf_one`` — and, in the sections
+below, the warm-start tables, the segment-form cold tables
+(``spf_distances`` / ``spf_nexthop_lanes`` / ``spf_one``), their batches
+over vantage roots and failure sets, and the what-if sweep.
 
 Every function takes a leading area axis (the reference vmaps its
 single-area kernels over areas): ``in_src/in_w/in_ok/in_rank [A, V, K]``,
@@ -135,7 +138,9 @@ def dense_spf_nexthop_lanes_plain(
 MAX_KERNEL_NODES = 232448 // 4
 
 
-def _check_planes(in_src, in_w, in_ok, overloaded, roots):
+def _check_planes(in_src, in_w, in_ok, overloaded, roots, batch=None):
+    """Check the dense planes and ``roots`` ([A], or [batch, A] when
+    ``batch`` is given); returns (A, V, K, device)."""
     if in_src.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on {in_src.device}")
     A, V, K = in_src.shape
@@ -146,7 +151,7 @@ def _check_planes(in_src, in_w, in_ok, overloaded, roots):
     check_tensor("in_w", in_w, torch.float32, (A, V, K), dev)
     check_tensor("in_ok", in_ok, torch.bool, (A, V, K), dev)
     check_tensor("overloaded", overloaded, torch.bool, (A, V), dev)
-    check_tensor("roots", roots, torch.int32, (A,), dev)
+    check_tensor("roots", roots, torch.int32, (A,) if batch is None else (batch, A), dev)
     return A, V, K, dev
 
 
@@ -458,7 +463,9 @@ def root_lane_rank(src, roots):
     return torch.where(is_root_out, rank, torch.full_like(rank, -1)).contiguous()
 
 
-def _check_segments(src, dst, w, edge_ok, overloaded, roots):
+def _check_segments(src, dst, w, edge_ok, overloaded, roots, batch=None):
+    """Check the edge lists and ``roots`` ([A], or [batch, A] when
+    ``batch`` is given); returns (A, V, E, device)."""
     if src.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on {src.device}")
     A, V = overloaded.shape
@@ -471,7 +478,7 @@ def _check_segments(src, dst, w, edge_ok, overloaded, roots):
     check_tensor("w", w, torch.float32, (A, E), dev)
     check_tensor("edge_ok", edge_ok, torch.bool, (A, E), dev)
     check_tensor("overloaded", overloaded, torch.bool, (A, V), dev)
-    check_tensor("roots", roots, torch.int32, (A,), dev)
+    check_tensor("roots", roots, torch.int32, (A,) if batch is None else (batch, A), dev)
     return A, V, E, dev
 
 
@@ -668,6 +675,261 @@ def warm_spf_one(
         src, dst, w, edge_ok, overloaded, roots, dist, nh0, max_degree
     )
     return dist, nh, rounds_d, rounds_l
+
+
+# ---------------------------------------------------------------------------
+# Cold segment-form SPF — the counterpart of the reference's
+# ``spf_distances``, ``spf_nexthop_lanes`` and ``spf_one`` (over the
+# dst-sorted edge lists ``[R, E]``, one row per area), and their batch over
+# vantage roots and failure sets, kernel 14 (``spf_segment_batch``,
+# ``kernels/csrc/spf_warm.cu``).  Lanes OR-accumulate from the seed (the
+# root's shortest-path out-edges, by rank in edge order); a vertex whose
+# run in the padded dst list is empty keeps int8 -128.
+#
+# And the dense form batched over vantage roots, kernel 12
+# (``fleet_spf_dense``, ``kernels/csrc/spf_dense.cu``): kernels 1 and 2 for
+# every (root, area) pair in one launch.
+#
+# In a batch, ``roots [B, A]`` holds each row's root per area; -1 means
+# the vantage is absent from the area and its slice reads dist BIG and
+# lanes 0 (the reference masks the slice after solving from root 0).
+# ---------------------------------------------------------------------------
+
+#: elements the plain batched versions materialise per row chunk
+PLAIN_CHUNK_ELEMENTS = 1 << 26
+
+
+def spf_distances_plain(src, dst, w, edge_ok, overloaded, roots):
+    """[R, V] f32 shortest distances from each row's root over the
+    segment form, BIG where unreachable."""
+    R, V = overloaded.shape
+    d0 = torch.full((R, V), BIG, dtype=torch.float32, device=w.device)
+    return warm_spf_distances_plain(src, dst, w, edge_ok, overloaded, roots, d0)[0]
+
+
+def spf_nexthop_lanes_plain(src, dst, w, edge_ok, overloaded, roots, dist, max_degree: int):
+    """[R, V, D] int8 first-hop lane sets, OR-accumulated along the
+    shortest-path DAG from the seed, as the reference's loop."""
+    R, V = overloaded.shape
+    D = max_degree
+    sp = shortest_path_dag(src, dst, w, edge_ok, overloaded, roots, dist)
+    is_root_out = src.long() == roots.long()[:, None]
+    rank = torch.cumsum(is_root_out.to(torch.int32), dim=1) - 1
+    lanes = torch.arange(D, device=src.device)
+    seed = (is_root_out[..., None] & (rank[..., None] == lanes)).to(torch.int8)
+    seed_mask = (sp & is_root_out)[..., None].to(torch.int8)
+    nh = segment_reduce(seed * seed_mask, dst, V, "amax", INT8_MIN)
+    prop = (sp & ~is_root_out)[..., None].to(torch.int8)
+    i = 0
+    while True:
+        new = nh
+        for _ in range(WARM_UNROLL):
+            # int8 arithmetic as the reference's: -128 * 1 = -128, -128 * 0 = 0
+            contrib = segment_reduce(gather_rows(new, src) * prop, dst, V, "amax", INT8_MIN)
+            new = torch.maximum(contrib, new)
+        changed = bool((new != nh).any())
+        nh = new
+        i += WARM_UNROLL
+        if not changed or i >= V:
+            return nh
+
+
+def _row_chunks(rows: int, per_row: int):
+    step = max(1, PLAIN_CHUNK_ELEMENTS // max(per_row, 1))
+    for r0 in range(0, rows, step):
+        yield r0, min(rows, r0 + step)
+
+
+def _absent_masked(dist, nh, roots):
+    """Rows whose root is -1 read dist BIG and lanes 0 (in place: both are
+    the caller's fresh tables)."""
+    absent = roots.reshape(-1) < 0
+    dist[absent] = BIG
+    nh[absent] = 0
+    return dist, nh
+
+
+def failed_edge_mask(link_index, fail_area, fail_link):
+    """[B, A, E] bool: the edges of each row's failed set, the reference's
+    rule (fleet_tables.py:260-267): some member with this area, the edge's
+    link id and a link id >= 0 (a -1 pad masks nothing)."""
+    A = link_index.shape[0]
+    areas = torch.arange(A, dtype=torch.int32, device=link_index.device)
+    fa = fail_area[:, :, None, None]
+    fl = fail_link[:, :, None, None]
+    hit = (areas[None, None, :, None] == fa) & (link_index[None, None] == fl) & (fl >= 0)
+    return hit.any(dim=1)
+
+
+def spf_segment_batch_plain(
+    src, dst, w, edge_ok, overloaded, roots, max_degree: int,
+    link_index=None, fail_area=None, fail_link=None,
+):
+    """(dist [B, A, V] f32, nh [B, A, V, D] int8): the segment-form cold
+    tables of every (row, area) pair, from ``roots`` [B, A] (-1 absent),
+    with row b's failed set ``fail_area/fail_link`` [B, S] masked from the
+    edge lists when given."""
+    B, A = roots.shape
+    E = src.shape[1]
+    V = overloaded.shape[1]
+    D = max_degree
+    ok = edge_ok[None].expand(B, A, E)
+    if fail_area is not None:
+        ok = ok & ~failed_edge_mask(link_index, fail_area, fail_link)
+    ok = ok.reshape(B * A, E)
+    flat_roots = roots.reshape(B * A)
+    dists, lanes = [], []
+    for r0, r1 in _row_chunks(B * A, E * D):
+        area = torch.arange(r0, r1, device=src.device) % A
+        rr = flat_roots[r0:r1].clamp(min=0)
+        args = (src[area], dst[area], w[area], ok[r0:r1], overloaded[area], rr)
+        dist = spf_distances_plain(*args)
+        dists.append(dist)
+        lanes.append(spf_nexthop_lanes_plain(*args, dist, D))
+    dist, nh = _absent_masked(torch.cat(dists), torch.cat(lanes), roots)
+    return dist.reshape(B, A, V), nh.reshape(B, A, V, D)
+
+
+def fleet_spf_dense_plain(in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max_degree: int):
+    """(dist [B, A, V] f32, nh [B, A, V, D] int8): the dense cold tables of
+    every (row, area) pair, from ``roots`` [B, A] (-1 absent)."""
+    B, A = roots.shape
+    _A, V, K = in_src.shape
+    D = max_degree
+    flat_roots = roots.reshape(B * A)
+    dists, lanes = [], []
+    for r0, r1 in _row_chunks(B * A, V * K * D):
+        area = torch.arange(r0, r1, device=in_src.device) % A
+        rr = flat_roots[r0:r1].clamp(min=0)
+        planes = (in_src[area], in_w[area], in_ok[area])
+        dist = dense_spf_distances_plain(*planes, overloaded[area], rr)
+        dists.append(dist)
+        lanes.append(dense_spf_nexthop_lanes_plain(
+            *planes, in_rank[area], in_has[area], overloaded[area], rr, dist, D
+        ))
+    dist, nh = _absent_masked(torch.cat(dists), torch.cat(lanes), roots)
+    return dist.reshape(B, A, V), nh.reshape(B, A, V, D)
+
+
+#: the kernels' shared-memory budget per block (bytes)
+MAX_SHARED_BYTES = 232448
+#: threads per block of kernels 12 and 14
+BATCH_THREADS = 256
+
+
+def spf_segment_batch_launcher(
+    src, dst, w, edge_ok, overloaded, roots, max_degree: int,
+    link_index=None, fail_area=None, fail_link=None,
+):
+    """Check the inputs, derive the segment offsets, allocate the outputs
+    and bind kernel 14 once.  Returns ``(launch, (dist, nh))``: each
+    ``launch()`` enqueues the kernel (no synchronize) and counts one
+    launch."""
+    B = roots.shape[0]
+    A, V, E, dev = _check_segments(src, dst, w, edge_ok, overloaded, roots, batch=B)
+    D = int(max_degree)
+    if D < 1:
+        raise ValueError(f"max_degree {D} must be >= 1")
+    S = 0
+    if fail_area is not None:
+        S = fail_area.shape[1]
+        check_tensor("link_index", link_index, torch.int32, (A, E), dev)
+        check_tensor("fail_area", fail_area, torch.int32, (B, S), dev)
+        check_tensor("fail_link", fail_link, torch.int32, (B, S), dev)
+    smem = 4 * (V + E + BATCH_THREADS + 1 + S) + 4 * V + E
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"{V} nodes and {E} edges exceed the kernel's shared-memory bound")
+    seg_off = segment_offsets(dst, V)
+    dist = torch.empty((B, A, V), dtype=torch.float32, device=dev)
+    nh = torch.empty((B, A, V, D), dtype=torch.int8, device=dev)
+    fn = function(
+        "spf_warm",
+        "openr_spf_segment_batch",
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    sets = (ptr(link_index), ptr(fail_area), ptr(fail_link)) if S else (None, None, None)
+    args = (
+        ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), sets[0],
+        ptr(roots), sets[1], sets[2], ptr(seg_off), ptr(dist), ptr(nh), B, A,
+        V, E, D, S, BIG, stream(dev),
+    )
+
+    # the default argument keeps the derived layout alive
+    def launch(_held=seg_off) -> None:
+        if B == 0 or A == 0:
+            return
+        check_launch("spf_segment_batch", fn(*args))
+        LAUNCHES["spf_segment_batch"] += 1
+
+    return launch, (dist, nh)
+
+
+def spf_segment_batch(
+    src, dst, w, edge_ok, overloaded, roots, max_degree: int,
+    link_index=None, fail_area=None, fail_link=None,
+):
+    """(dist [B, A, V], nh [B, A, V, D]) of every (row, area) pair; kernel 14
+    for CUDA tensors, the plain version for CPU tensors."""
+    args = (src, dst, w, edge_ok, overloaded, roots, max_degree, link_index,
+            fail_area, fail_link)
+    if src.device.type == "cpu":
+        return spf_segment_batch_plain(*args)
+    return _launched(spf_segment_batch_launcher, *args)
+
+
+def spf_one(src, dst, w, edge_ok, overloaded, roots, max_degree: int):
+    """(dist [A, V], nh [A, V, D]) over the segment form from each area's
+    root: kernel 14 at one batch row for CUDA tensors, the plain versions
+    for CPU tensors."""
+    if src.device.type == "cpu":
+        dist = spf_distances_plain(src, dst, w, edge_ok, overloaded, roots)
+        return dist, spf_nexthop_lanes_plain(src, dst, w, edge_ok, overloaded, roots, dist, max_degree)
+    dist, nh = spf_segment_batch(src, dst, w, edge_ok, overloaded, roots[None], max_degree)
+    return dist[0], nh[0]
+
+
+def fleet_spf_dense_launcher(in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max_degree: int):
+    """Like :func:`spf_segment_batch_launcher`, for kernel 12:
+    ``(launch, (dist, nh))``."""
+    B = roots.shape[0]
+    A, V, K, dev = _check_planes(in_src, in_w, in_ok, overloaded, roots, batch=B)
+    check_tensor("in_rank", in_rank, torch.int32, (A, V, K), dev)
+    check_tensor("in_has", in_has, torch.bool, (A, V), dev)
+    D = int(max_degree)
+    if D < 1:
+        raise ValueError(f"max_degree {D} must be >= 1")
+    if 4 * V + V * K > MAX_SHARED_BYTES:
+        raise ValueError(f"{V} nodes x {K} in-edge slots exceed the kernel's shared-memory bound")
+    dist = torch.empty((B, A, V), dtype=torch.float32, device=dev)
+    nh = torch.empty((B, A, V, D), dtype=torch.int8, device=dev)
+    fn = function(
+        "spf_dense",
+        "openr_fleet_spf_dense",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    args = (
+        ptr(in_src), ptr(in_w), ptr(in_ok), ptr(in_rank), ptr(in_has),
+        ptr(overloaded), ptr(roots), ptr(dist), ptr(nh), B, A, V, K, D, BIG,
+        stream(dev),
+    )
+
+    def launch() -> None:
+        if B == 0 or A == 0:
+            return
+        check_launch("fleet_spf_dense", fn(*args))
+        LAUNCHES["fleet_spf_dense"] += 1
+
+    return launch, (dist, nh)
+
+
+def fleet_spf_dense(in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max_degree: int):
+    """(dist [B, A, V], nh [B, A, V, D]) of every (root row, area) pair over
+    the dense planes; kernel 12 for CUDA tensors, the plain version for CPU
+    tensors."""
+    args = (in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max_degree)
+    if in_src.device.type == "cpu":
+        return fleet_spf_dense_plain(*args)
+    return _launched(fleet_spf_dense_launcher, *args)
 
 
 # ---------------------------------------------------------------------------

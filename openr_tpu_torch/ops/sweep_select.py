@@ -480,7 +480,7 @@ class SweepRouteSelector:
                 r0 += b
             comp_args = (*bufs, *tables_from_numpy((row_id,), dev))
             cap = min(self._cap, R * P)
-            comp = _Fetch(compact_deltas(*comp_args, cap))
+            comp = HostFetch(compact_deltas(*comp_args, cap))
         # the base tuple is captured NOW: a later start() against a
         # rebuilt engine replaces self._base, and these deltas were diffed
         # against this one
@@ -492,10 +492,12 @@ class SweepRouteSelector:
         return self.start(sweep_result).finish()
 
 
-class _Fetch:
-    """The compaction buffers on their way to the host: non-blocking
-    copies into pinned host tensors and an event recorded after them (on
-    the CPU the tensors are already the host copies)."""
+class HostFetch:
+    """Device tensors on their way to the host (the sweep's compaction
+    buffers, the fleet's and the multi-area what-if's tables): non-blocking
+    copies into pinned host tensors and an event recorded after them, so
+    ``wait()`` is one blocking wait for all of them (on the CPU the tensors
+    are already the host copies)."""
 
     def __init__(self, tensors) -> None:
         dev = tensors[0].device
@@ -528,7 +530,7 @@ class PendingDeltas:
         self._snap_row = snap_row
         self._base = base  # (valid, metric, lanes) captured at start()
         self._comp_args = comp_args
-        self._comp: Optional[_Fetch] = comp
+        self._comp: Optional[HostFetch] = comp
         self._cap = cap
         self._P = P
         self._done = False
@@ -564,7 +566,7 @@ class PendingDeltas:
                     cap = min(bucket_for(count, DELTA_BUCKETS), total_rows)
                 sel._cap = max(sel._cap, cap)
                 fetch_groups += 1
-                cnt, crow, cpref, cvalid, cmetric, clanes = _Fetch(
+                cnt, crow, cpref, cvalid, cmetric, clanes = HostFetch(
                     compact_deltas(*self._comp_args, cap)
                 ).wait()
                 count = int(cnt[0])

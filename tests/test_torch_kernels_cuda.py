@@ -10,6 +10,8 @@ machine that has none:
 Tolerance: exact equality on every output.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -475,3 +477,152 @@ def test_whatif_engine_on_card_equals_plain_path_and_generic(card):
     assert wa._whatif_engine_criticality(on_card, areas, ps, 1, max_pairs=300) == (
         wa._whatif_engine_criticality(plain, areas, ps, 1, max_pairs=300)
     )
+
+
+# -- the fleet and multi-area what-if kernels: 12 (fleet_spf_dense), 13
+# (fleet_select) and 14 (spf_segment_batch) ---------------------------------
+
+SEGMENT = ("src", "dst", "w", "edge_ok", "overloaded")
+
+
+def _fleet_roots(enc):
+    names = sorted(set().union(*[set(t.node_ids) for t in enc.topos]))
+    return np.asarray([[t.node_ids.get(n, -1) for t in enc.topos] for n in names], np.int32)
+
+
+@pytest.mark.parametrize("world", ["grid", "multiarea_isolated"])
+def test_fleet_spf_kernels_equal_plain_and_each_other(card, world):
+    """Kernels 12 and 14 over every vantage root (-1 where absent) equal
+    their plain versions and each other; kernel 14 at one row equals
+    kernels 1 and 2 (the segment form is bit-equal to the dense one)."""
+    areas, me = _areas(world)
+    enc = csr.encode_multi_area(areas, me)
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    (roots,) = tables_from_numpy((_fleet_roots(enc),), card)
+    dense = tables_from_numpy([getattr(enc, f) for f in FIELDS[:-1]], card)
+    seg = tables_from_numpy([getattr(enc, f) for f in SEGMENT], card)
+    reset_launch_counts()
+    got12 = spf.fleet_spf_dense(*dense, roots, D)
+    got14 = spf.spf_segment_batch(*seg, roots, D)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fleet_spf_dense"] == 1 and LAUNCHES["spf_segment_batch"] == 1
+    want12 = spf.fleet_spf_dense_plain(*dense, roots, D)
+    want14 = spf.spf_segment_batch_plain(*seg, roots, D)
+    for got, want in ((got12, want12), (got14, want14), (got14, want12)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if world == "multiarea_isolated":
+        assert bool((roots < 0).any()) and bool((got12[1] == -128).any())
+    (me_roots,) = tables_from_numpy((enc.roots,), card)
+    one = spf.spf_one(*seg, me_roots, D)
+    cold = spf.dense_spf_one(*dense, me_roots, max_degree=D)
+    assert torch.equal(one[0], cold[0]) and torch.equal(one[1], cold[1])
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_segment_batch_with_failed_sets_equals_plain(card, S):
+    areas, me = _areas("multiarea_isolated")
+    enc = csr.encode_multi_area(areas, me)
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    rng = np.random.default_rng(S)
+    B = 200
+    fa = rng.integers(-1, enc.num_areas, (B, S)).astype(np.int32)
+    fl = rng.integers(-1, max(len(t.links) for t in enc.topos), (B, S)).astype(np.int32)
+    fa[-1], fl[-1] = -1, -1  # the base row
+    link_index = np.stack([t.link_index for t in enc.topos])
+    seg = tables_from_numpy([getattr(enc, f) for f in SEGMENT], card)
+    li, fa_t, fl_t = tables_from_numpy((link_index, fa, fl), card)
+    (roots,) = tables_from_numpy((np.repeat(enc.roots[None], B, axis=0),), card)
+    got = spf.spf_segment_batch(*seg, roots, D, link_index=li, fail_area=fa_t, fail_link=fl_t)
+    want = spf.spf_segment_batch_plain(*seg, roots, D, link_index=li, fail_area=fa_t,
+                                       fail_link=fl_t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert any(not torch.equal(got[1][b], got[1][-1]) for b in range(B - 1))
+
+
+@pytest.mark.parametrize("diff", [False, True])
+@pytest.mark.parametrize("per_area", [False, True])
+def test_fleet_select_kernel_equals_plain(card, per_area, diff):
+    B = 5
+    rows = [_select_inputs(seed, P=1000) for seed in range(B)]
+    dist = np.stack([r[0] for r in rows])
+    nh = np.stack([r[1] for r in rows])
+    args = tables_from_numpy((dist, nh, *rows[0][2:]), card)
+    kw = {}
+    if diff:
+        base = rs.fleet_select_plain(*args, per_area)
+        prev = [t.clone() for t in base]
+        prev[0][1, 7, 0] = ~prev[0][1, 7, 0]
+        prev[1][3, 999, 2] = -1.0
+        kw = dict(zip(("prev_use", "prev_shortest", "prev_lanes", "prev_valid"), prev))
+    reset_launch_counts()
+    got = rs.fleet_select(*args, per_area, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fleet_select"] == 1
+    want = rs.fleet_select_plain(*args, per_area, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if diff:
+        assert got[4].tolist() == [False, True, False, True, False]
+
+
+def test_fleet_and_multiarea_engines_on_card_equal_plain_path(card):
+    from openr_tpu_torch.decision import whatif_api as wa
+    from openr_tpu_torch.decision.fleet import FleetRibEngine
+
+    areas, me = _areas("multiarea_isolated")
+    ps = PrefixState()
+    for i in range(30):
+        ps.update_prefix(f"a{i}", "1", PrefixEntry(f"10.1.{i}.0/24"))
+    for i in range(20):
+        ps.update_prefix(f"b{i}", "2", PrefixEntry(f"10.2.{i}.0/24"))
+    on_card = FleetRibEngine(SpfSolver(me), device=card)
+    plain = FleetRibEngine(SpfSolver(me), device="cpu")
+    reset_launch_counts()
+    summary = on_card.fleet_summary(areas, ps, 1)
+    torch.cuda.synchronize()
+    assert {n for n, c in LAUNCHES.items() if c} == {"fleet_spf_dense", "fleet_select"}
+    assert summary == plain.fleet_summary(areas, ps, 1)
+    for node in ("a0", "b3", me):
+        assert route_db_summary(on_card.compute_for_node(node, areas, ps, 1)) == (
+            route_db_summary(SpfSolver(node).build_route_db(areas, ps)))
+    # a second generation: the delta on the card
+    db = areas["1"].get_adjacency_databases()["a5"]
+    adjs = [dataclasses.replace(a, metric=9) for a in db.adjacencies]
+    areas["1"].update_adjacency_database(dataclasses.replace(db, adjacencies=adjs))
+    s2 = on_card.fleet_summary(areas, ps, 2)
+    assert on_card.num_delta_solves == 1
+    assert s2 == FleetRibEngine(SpfSolver(me), device="cpu").fleet_summary(areas, ps, 2)
+
+    links = [(l.n1, l.n2) for t in csr.encode_multi_area(areas, me).topos for l in t.links][:40]
+    eng = wa.MultiAreaWhatIfEngine(SpfSolver(me), device=card)
+    reset_launch_counts()
+    got = eng.run(links, areas, ps, 2)
+    torch.cuda.synchronize()
+    assert {n for n, c in LAUNCHES.items() if c} == {"spf_segment_batch", "fleet_select"}
+    assert got == wa.MultiAreaWhatIfEngine(SpfSolver(me), device="cpu").run(links, areas, ps, 2)
+    generic = wa.GenericSolverWhatIfEngine(SpfSolver(me)).run(links[:6], areas, ps, 2)
+
+    def changes(resp):
+        return [sorted((c["prefix"], c["old_metric"], tuple(sorted(c["old_nexthops"])),
+                        c["new_metric"], tuple(sorted(c["new_nexthops"])))
+                       for c in f.get("changes", [])) for f in resp["failures"]]
+
+    assert changes(eng.run(links[:6], areas, ps, 2)) == changes(generic)
+
+
+def test_backend_on_card_builds_a_segment_encoding(card):
+    """The hub world declines the dense layout: kernel 14 at one row and
+    the selection kernel build it, equal to the scalar solver."""
+    edges = [("hub", f"leaf{i}", 1) for i in range(csr.IN_DEGREE_BUCKETS[-1] + 1)]
+    ls = LinkState("0", "hub")
+    for db in build_adj_dbs(edges).values():
+        ls.update_adjacency_database(db)
+    ps = PrefixState()
+    for i in range(64):
+        ps.update_prefix(f"leaf{i}", "0", PrefixEntry(f"10.3.{i}.0/24"))
+    backend = CudaBackend(SpfSolver("hub"), device=card)
+    reset_launch_counts()
+    got = backend.build_route_db({"0": ls}, ps)
+    torch.cuda.synchronize()
+    assert {n for n, c in LAUNCHES.items() if c} == {"spf_segment_batch", "multi_area_select_from_tables"}
+    assert route_db_summary(got) == route_db_summary(SpfSolver("hub").build_route_db({"0": ls}, ps))
