@@ -59,6 +59,25 @@ and then the fleet RIB and the multi-area what-if (kernels 12-14):
      link failure of area "0" and metro0 in one batch (203 rows and the
      base row), then metro0's two homing links as one simultaneous set
 
+and then KSP2_ED_ECMP on a backbone (kernel 15) and the shapes whose
+block state exceeds shared memory (kernel 12, whose blocks always keep
+their state in a global scratch, and kernel 14's global-state path):
+
+ 16. the wan_hierarchy class at 8,192 nodes, seed 7 (V = 16,384,
+     E = 32,768), vantage core0, node labels on every node and a KSP2 /32
+     loopback on all but the last two (every second one also SR-MPLS): a
+     cold build (kernel 15 at one row per destination), prefix churn that
+     adds the last two nodes' loopbacks and withdraws one (kernel 15 at
+     two rows), a ``warm_delta`` weakening of a backbone link (the k-path
+     memo clears: kernel 15 at every destination again), then
+     ``DeviceBuildWhatIfEngine`` on 4 seeded backbone links over 64 seeded
+     loopbacks
+ 17. ``FleetRibEngine`` on the fattree_multipod class at 2,048 (2,064
+     roots, V = 4,096, K = 64: kernels 12 and 13),
+     ``CudaBackend`` on a hub of 5,000 leaves (V = 16,384, the segment
+     form: kernel 14's global path at one row), and kernel 14 at 8 rows of
+     1-3-link failed sets on the backbone
+
 The CUDA kernels are built from ``openr_tpu_torch/kernels/csrc`` at first
 use.  Every build checks, with exact equality:
   * each kernel against its plain PyTorch version on the card, on the
@@ -91,8 +110,17 @@ against the scalar ``SpfSolver(node).build_route_db`` (16 sampled roots
 of the WAN, every root of the 3-area and hub worlds) and the summary
 against the plain path; each delta generation's summary against a fresh
 engine's; the multi-area answers against the plain path and against
-``GenericSolverWhatIfEngine`` on sampled failures and the set.  Any
-mismatch or exception exits non-zero.
+``GenericSolverWhatIfEngine`` on sampled failures and the set.  The KSP2
+and bound phases check, exactly: every kernel-15 call against its plain
+version; each KSP2 RouteDb against the plain path (on its own LinkStates,
+so no k-path memo is shared) and 32 seeded prefixes against the scalar
+solver on a third copy; the device-build what-if against
+``GenericSolverWhatIfEngine``; the fat-tree fleet's summary against the
+plain path and 16 roots against the scalar solver; the large hub's
+RouteDb against the plain path and the scalar solver; kernel 14's rows and
+its global path (also at the (f) shape, beside the shared path) against
+their plain versions.  Any mismatch or exception
+exits non-zero.
 
 Prints the kernel and phase times with the card's name and power limit,
 a ``{"kernels": [...]}`` line, and last
@@ -112,6 +140,7 @@ import time
 import numpy as np
 import torch
 
+from openr_tpu_torch.decision import ksp2 as ksp2_mod
 from openr_tpu_torch.decision import whatif_api
 from openr_tpu_torch.decision.backend import DEGREE_BUCKETS, CudaBackend
 from openr_tpu_torch.decision.fleet import FleetRibEngine
@@ -120,6 +149,8 @@ from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.decision.rib import DecisionRouteDb, route_db_summary
 from openr_tpu_torch.decision.spf_solver import SpfSolver
 from openr_tpu_torch.emulation.topology import (
+    _build_fattree,
+    _build_wan,
     build_adj_dbs,
     grid_edges,
     random_connected_edges,
@@ -133,7 +164,13 @@ from openr_tpu_torch.ops import route_select as rs
 from openr_tpu_torch.ops import whatif as whatif_ops
 from openr_tpu_torch.ops.bits import unpack_bits_last
 from openr_tpu_torch.ops.consts import BIG
-from openr_tpu_torch.types import PrefixEntry, PrefixMetrics, RouteComputationRules
+from openr_tpu_torch.types import (
+    PrefixEntry,
+    PrefixForwardingAlgorithm,
+    PrefixForwardingType,
+    PrefixMetrics,
+    RouteComputationRules,
+)
 
 #: the main path's world: grid_edges(64), 4096 nodes, 100 prefixes each
 GRID_SIDE = 64
@@ -209,6 +246,10 @@ SOURCES = {
         "openr_tpu_torch/kernels/csrc/spf_warm.cu",
         "openr_tpu/ops/fleet_tables.py:217",
     ),
+    "spf_distances_masked": (
+        "openr_tpu_torch/kernels/csrc/spf_warm.cu",
+        "openr_tpu/ops/spf.py:226",
+    ),
 }
 
 #: the what-if phases: the reference benchmark's headline world
@@ -235,6 +276,27 @@ HUB_LEAVES = csr.IN_DEGREE_BUCKETS[-1] + 1
 #: scalar solver
 MULTIAREA_SCALE = 1024
 MULTIAREA_GENERIC_SAMPLE = 8
+
+#: phase (g), KSP2 on a backbone: the wan_hierarchy class at this scale,
+#: seed 7 (8,192 nodes, V = 16,384, E = 32,768), vantage core0; prefixes
+#: held against the scalar solver per build; the what-if's backbone links
+#: and the KSP2 prefixes its answers cover (the scalar engine it is held
+#: against runs a host Dijkstra per destination and failure)
+KSP2_SCALE = 8192
+KSP2_ORACLE_SAMPLE = 32
+KSP2_WHATIF_LINKS = 4
+KSP2_WHATIF_PREFIXES = 64
+#: phase (h), shapes past the shared-memory bound: the fattree_multipod
+#: class at this scale (2,064 nodes, V = 4,096, K = 64), its roots held
+#: against the scalar solver, the hub world's leaves (V = 16,384, segment
+#: form) and kernel 14's rows on the (g) world
+FATTREE_SCALE = 2048
+FATTREE_ORACLE_SAMPLE = 16
+HUB_LEAVES_LARGE = 5000
+SEGMENT_ROWS = 8
+#: launches and spans per timing at the shapes past the bound
+LARGE_LAUNCHES = 5
+LARGE_SPANS = 3
 
 
 class CheckFailed(Exception):
@@ -334,38 +396,38 @@ def smi_line():
     return out[0]
 
 
-def per_launch_ms(fn):
-    """Median over TIMED_SPANS of (device ms, host-issue ms) per call of
-    ``fn``: CUDA events around TIMED_LAUNCHES back-to-back calls, divided
+def per_launch_ms(fn, launches=TIMED_LAUNCHES, spans=TIMED_SPANS):
+    """Median over ``spans`` of (device ms, host-issue ms) per call of
+    ``fn``: CUDA events around ``launches`` back-to-back calls, divided
     by the count.  Given a pre-bound kernel launch (no checks, allocation
     or binding between launches) the device figure is the kernel's own
     time unless the host issue time per launch reaches it."""
     fn()  # warm-up
     torch.cuda.synchronize()
     dev, host = [], []
-    for _ in range(TIMED_SPANS):
+    for _ in range(spans):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         t0 = time.perf_counter()
-        for _ in range(TIMED_LAUNCHES):
+        for _ in range(launches):
             fn()
         issued = time.perf_counter() - t0
         end.record()
         torch.cuda.synchronize()
-        dev.append(start.elapsed_time(end) / TIMED_LAUNCHES)
-        host.append(issued * 1e3 / TIMED_LAUNCHES)
+        dev.append(start.elapsed_time(end) / launches)
+        host.append(issued * 1e3 / launches)
     return statistics.median(dev), statistics.median(host)
 
 
-def plain_ms(fn):
+def plain_ms(fn, spans=TIMED_SPANS):
     """Median CUDA-event ms of one call of a plain version (its host
     work and synchronizes included: that is what the plain version
     costs)."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMED_SPANS):
+    for _ in range(spans):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -463,15 +525,25 @@ class KernelReport:
         self.err[name] = max(self.err[name], e)
 
     def time(self, name, launch, plain_fn, t_bytes, ops, per_round_bytes, rounds,
-             library_fn=None):
-        if name in self.timing:
+             library_fn=None, key=None, launches=TIMED_LAUNCHES, spans=TIMED_SPANS):
+        """Time kernel ``name`` (under ``key``, default the name: the
+        kernels line reads the names, the other keys are the timings of a
+        kernel's other path or shape)."""
+        key = key or name
+        if key in self.timing:
             return
-        dev_ms, host_ms = per_launch_ms(launch)
-        self.timing[name] = dict(
-            ms=dev_ms, host_issue_ms=host_ms, plain_ms=plain_ms(plain_fn),
+        dev_ms, host_ms = per_launch_ms(launch, launches, spans)
+        self.timing[key] = dict(
+            ms=dev_ms, host_issue_ms=host_ms, plain_ms=plain_ms(plain_fn, spans),
             bytes=t_bytes, ops=ops, per_round_bytes=per_round_bytes, rounds=rounds,
             library_ms=None if library_fn is None else plain_ms(library_fn),
         )
+
+    def bound_ms(self, key):
+        t = self.timing[key]
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = t["ops"] / F32_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
     def kernel_checks(self, backend, timed):
         """Hold each kernel the last build ran against its plain version
@@ -647,8 +719,7 @@ class KernelReport:
         rows = []
         for name in KERNEL_NAMES:
             t = self.timing[name]
-            t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = t["ops"] / F32_OPS_PER_S * 1e3
+            bound, bound_by = self.bound_ms(name)
             source, replaces = SOURCES[name]
             rows.append(
                 {
@@ -660,8 +731,8 @@ class KernelReport:
                     "max_abs_err": self.err[name],
                     "ms": t["ms"],
                     "plain_ms": t["plain_ms"],
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bound_ms": bound,
+                    "bound_by": bound_by,
                     "library_ms": t["library_ms"],
                 }
             )
@@ -1279,13 +1350,17 @@ def _present_rows(roots, A):
     return rows, rows % A
 
 
-def time_fleet(report, name, call):
+def time_fleet(report, name, call, key=None, force_global=False, launches=TIMED_LAUNCHES,
+               spans=TIMED_SPANS):
     """Time kernel ``name`` on one recorded call, with its bound from these
     inputs: bytes read and written once, and synchronous rounds x edges (or
     in-edge slots) x the (row, area) pairs solved, the lane rounds x the
     lanes a root out-edge can seed (kernel 13: the selection chain's
-    operations per batch row)."""
-    if name in report.timing:
+    operations per batch row).  ``force_global`` binds kernel 12 or 14 on
+    its global-state path (a shared-memory budget of 0 while the launch is
+    bound) and first holds its outputs against the recorded ones.
+    ``key``, ``launches`` and ``spans`` as in ``KernelReport.time``."""
+    if (key or name) in report.timing:
         return
     args, kw, outs = call
     plain = PLAIN_OF[name]
@@ -1304,7 +1379,7 @@ def time_fleet(report, name, call):
         lanes = int(out_deg.clamp(max=D).sum())
         ops = 2 * r_d * R * V * K + 2 * r_l * V * K * lanes
         per_round = R * nbytes(in_src[0], in_w[0], in_ok[0])
-        launch, _ = spf.fleet_spf_dense_launcher(*args)
+        launcher = spf.fleet_spf_dense_launcher
     elif name == "spf_segment_batch":
         src, dst, w, ok, ovl, roots, D = args[:7]
         A, E = src.shape
@@ -1324,15 +1399,26 @@ def time_fleet(report, name, call):
         lanes = int((seg[0] == seg[5][:, None]).sum(dim=1).clamp(max=D).sum())
         ops = 2 * r_d * R * E + 2 * r_l * E * lanes
         per_round = R * nbytes(src[0], w[0], ok[0])
-        launch, _ = spf.spf_segment_batch_launcher(*args, **kw)
+        launcher = spf.spf_segment_batch_launcher
     else:
         B, A, _V = args[0].shape
         P, C = args[4].shape
         D = args[1].shape[-1]
         ops = B * select_ops(P, C, A, D)
         per_round, r_d, r_l = t_bytes, 1, 0
-        launch, _ = rs.fleet_select_launcher(*args, **kw)
-    report.time(name, launch, lambda: plain(*args, **kw), t_bytes, ops, per_round, r_d + r_l)
+        launcher = rs.fleet_select_launcher
+    budget = spf.MAX_SHARED_BYTES
+    if force_global:
+        spf.MAX_SHARED_BYTES = 0
+    try:
+        launch, got = launcher(*args, **kw)
+    finally:
+        spf.MAX_SHARED_BYTES = budget
+    if force_global:
+        launch()
+        report.held(name, list(zip(got, outs)))
+    report.time(name, launch, lambda: plain(*args, **kw), t_bytes, ops, per_round, r_d + r_l,
+                key=key, launches=launches, spans=spans)
 
 
 def fleet_world(metric_bump=0):
@@ -1522,6 +1608,8 @@ def multiarea_phase(report, rng):
     )
     sweep_call = max(rec.calls["spf_segment_batch"], key=lambda c: c[0][5].shape[0])
     time_fleet(report, "spf_segment_batch", sweep_call)
+    time_fleet(report, "spf_segment_batch", sweep_call,
+               key="spf_segment_batch global path, (f) shape", force_global=True)
     got_set, _rec, walls["f: homing-link set"] = whatif_run(
         report, "multiarea:set", SEGMENT_FLEET,
         lambda: eng.run(homing, areas, ps, 1, simultaneous=True), entries=FLEET_ENTRIES,
@@ -1545,6 +1633,321 @@ def multiarea_phase(report, rng):
     print(f"[multiarea] {len(singles)} failures, routes changed per failure: max {max(moved)}, "
           f"total {sum(moved)}; homing set: {got_set['failures'][0]['routes_changed']}; == plain "
           f"path; {len(picks)} failures and the set == GenericSolverWhatIfEngine", flush=True)
+    return walls
+
+
+# ---------------------------------------------------------------------------
+# (g) KSP2_ED_ECMP on a backbone: kernel 15; (h) the shapes past the
+# shared-memory bound: kernel 12 and kernel 14's global-state path
+# ---------------------------------------------------------------------------
+
+#: the KSP2 engine's entry point of kernel 15 (decision/ksp2.py's own name)
+KSP2_ENTRIES = (
+    (ksp2_mod, "batched_spf_distances_masked_sets", "spf_distances_masked",
+     spf.batched_spf_distances_masked_sets_plain),
+)
+PLAIN_OF["spf_distances_masked"] = spf.batched_spf_distances_masked_sets_plain
+KSP2_COLD = COLD | {SELECT, "spf_distances_masked"}
+
+
+def backbone_dbs():
+    """The wan_hierarchy class at KSP2_SCALE, seed 7, with node labels as
+    tests/test_ksp2_device.py sets them: (adjacency databases, node names)."""
+    edges = _build_wan(KSP2_SCALE, 7)
+    nodes = sorted({n for e in edges for n in e[:2]})
+    labels = {n: 100 + i for i, n in enumerate(nodes)}
+    return build_adj_dbs(edges, node_labels=labels), nodes
+
+
+def backbone_copy(dbs):
+    ls = LinkState("0", "core0")
+    for db in dbs.values():
+        ls.update_adjacency_database(db)
+    return {"0": ls}
+
+
+def loopback(i):
+    """Node i's KSP2 /32 loopback; every second node's also SR-MPLS."""
+    ftype = PrefixForwardingType.SR_MPLS if i % 2 else PrefixForwardingType.IP
+    return PrefixEntry(f"10.{100 + (i >> 8)}.{i & 255}.1/32",
+                       forwarding_algorithm=PrefixForwardingAlgorithm.KSP2_ED_ECMP,
+                       forwarding_type=ftype)
+
+
+def masked_enabled_edges(ok, li, failed):
+    """Sum over kernel 15's rows of the edges each row may relax (usable
+    and not of its failed links): the least work of any solver, one
+    relaxation per enabled edge per row."""
+    total = 0
+    for r0, r1 in spf._row_chunks(failed.shape[0], 4 * ok.shape[0]):
+        total += int((ok[None] & spf.failed_links_mask(li, failed[r0:r1])).sum())
+    return total
+
+
+def time_masked(report, call):
+    """Time kernel 15 on one recorded call, with its bound: inputs read
+    and the [B, V] output written once, and one relaxation per enabled
+    edge per row (however many rounds the kernel takes)."""
+    args, _kw, outs = call
+    src, dst, w, ok, li, failed, ovl, roots = args
+    edges = masked_enabled_edges(ok, li, failed)
+    launch, _ = spf.spf_distances_masked_launcher(src, dst, w, ok, ovl, roots, None, li, failed)
+    report.time("spf_distances_masked", launch, lambda: PLAIN_OF["spf_distances_masked"](*args),
+                nbytes(*args, outs), 2 * edges, nbytes(src, w, ok, li), 1)
+    t = report.timing["spf_distances_masked"]
+    cut = int(((outs < BIG).sum(dim=1) == 1).sum())
+    print(f"[ksp2] kernel 15 at B={failed.shape[0]}, S={failed.shape[1]}: {t['ms']:.4f} ms per "
+          f"launch, plain {t['plain_ms']:.2f} ms; {edges / failed.shape[0]:.1f} enabled edges per "
+          f"row; {cut} rows cut off at the root", flush=True)
+
+
+def drive_ksp2(report, kernel_be, plain_be, areas, ps, label, rng, expect, rows, hints=None,
+               timed=False):
+    """One request through the port's main path on the KSP2 world: launch
+    counts zeroed just before and read just after; ``expect`` the exact
+    kernels and ``rows`` the rows of each kernel-15 launch; every kernel
+    the build ran held against its plain version on its inputs; the
+    RouteDb against the plain path on its own LinkStates
+    (``areas["plain"]``) and a seeded sample against the scalar solver on
+    a third copy (``areas["oracle"]``), so no k-path memo is shared.
+    ``expect`` may be a function of the backend, read after the build
+    (the warm path the planner chose)."""
+    hints = hints or {}
+    with Recorder(entries=KSP2_ENTRIES) as rec:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        db = kernel_be.build_route_db(areas["kernel"], ps, **hints)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(LAUNCHES)
+    if callable(expect):
+        expect = expect(kernel_be)
+    launched = {name for name, n in counts.items() if n}
+    check(launched == set(expect), f"{label}: launched {sorted(launched)}, expected {sorted(expect)}")
+    got_rows = [c[0][5].shape[0] for c in rec.calls["spf_distances_masked"]]
+    check(got_rows == rows, f"{label}: kernel-15 rows {got_rows}, expected {rows}")
+    for name in KERNEL_NAMES:
+        report.launches[name] += counts[name]
+    phases = " ".join(f"{k}={v:.1f}ms" for k, v in kernel_be.last_phase_ms.items())
+    print(f"[{label}] build wall={wall:.1f}ms {phases} launches="
+          f"{ {k: v for k, v in counts.items() if v} } kernel-15 rows={got_rows} "
+          f"routes={len(db.unicast_routes)}", flush=True)
+    report.kernel_checks(kernel_be, False)
+    if "warm" in kernel_be.io or "sub" in kernel_be.io:
+        warm_tables_equal_cold(kernel_be)
+    hold_recorded(report, rec)
+    if timed:
+        time_masked(report, rec.calls["spf_distances_masked"][0])
+    with Recorder(plain=True, entries=KSP2_ENTRIES):
+        reset_launch_counts()
+        plain_db = plain_be.build_route_db(areas["plain"], ps, **hints)
+        check(not LAUNCHES["spf_distances_masked"], "the plain path launched kernel 15")
+    plain_be.take_last_changed_prefixes()
+    check(route_db_summary(plain_db) == route_db_summary(db), f"{label}: RouteDb != plain path")
+    prefixes = sorted(ps.prefixes())
+    picks = [prefixes[i] for i in rng.choice(len(prefixes), KSP2_ORACLE_SAMPLE, replace=False)]
+    sample_oracle(db, SpfSolver("core0"), areas["oracle"], ps, picks, label)
+    stacks = sum(nh.mpls_action is not None for p in picks if p in db.unicast_routes
+                 for nh in db.unicast_routes[p].nexthops)
+    print(f"[{label}] kernels == plain, RouteDb == plain path, {len(picks)} prefixes == scalar "
+          f"oracle ({stacks} SR-MPLS push stacks among their nexthops)", flush=True)
+    return wall
+
+
+def ksp2_phase(report, rng):
+    """(g) KSP2_ED_ECMP on the backbone WAN: a cold build, prefix churn
+    with two new destinations, a warm_delta weakening of a backbone link
+    (the topology change clears the k-path memo: every destination solves
+    again), then ``DeviceBuildWhatIfEngine`` on seeded backbone links.
+    Returns (walls, the world's encoding)."""
+    walls = {}
+    t0 = time.perf_counter()
+    dbs, nodes = backbone_dbs()
+    areas = {k: backbone_copy(dbs) for k in ("kernel", "plain", "oracle")}
+    # every node advertises its loopback but the last two by name, which
+    # join on the churn tick: a prefix-only tick adds a KSP2 destination
+    # only where the node had none
+    ps = PrefixState()
+    for i, node in enumerate(nodes[:-2]):
+        ps.update_prefix(node, "0", loopback(i))
+    enc = csr.encode_multi_area(areas["kernel"], "core0")
+    check(enc.has_dense, "the backbone declined the dense layout")
+    dests = len(nodes) - 3  # the advertisers but core0
+    print(f"[ksp2] backbone: {len(nodes)} nodes, {enc.topos[0].num_edges // 2} links, "
+          f"V={enc.overloaded.shape[1]}, E={enc.src.shape[1]}, K={enc.in_src.shape[2]}, "
+          f"{len(ps.prefixes())} KSP2 loopbacks, built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    kernel_be = KernelPath(SpfSolver("core0"))
+    plain_be = PlainPath(SpfSolver("core0"))
+    walls["g: KSP2 cold build"] = drive_ksp2(
+        report, kernel_be, plain_be, areas, ps, "ksp2:cold", rng, KSP2_COLD, [dests],
+        hints=dict(force_full=True), timed=True)
+
+    # prefix churn: the two late nodes' loopbacks, one withdrawal
+    changed = set()
+    for i in (len(nodes) - 2, len(nodes) - 1):
+        changed |= ps.update_prefix(nodes[i], "0", loopback(i))
+    gone = int(rng.integers(1, len(nodes) - 2))
+    changed |= ps.delete_prefix(nodes[gone], "0", loopback(gone).prefix)
+    before = kernel_be.num_incremental_builds
+    walls["g: KSP2 prefix churn"] = drive_ksp2(
+        report, kernel_be, plain_be, areas, ps, "ksp2:churn", rng,
+        {SELECT, "spf_distances_masked"}, [2], hints=dict(changed_prefixes=changed))
+    check(kernel_be.num_incremental_builds == before + 1, "the churn tick did not patch")
+
+    # warm_delta: one backbone link (not core0's) weakened both ways: the
+    # warm kernels (4 and 5, or the bounded repair 6, as the planner
+    # decides); KSP2 prefixes are live, so the warm-selective branch
+    # declines and every row is selected and decoded again
+    core = sorted((l.n1, l.n2) for l in enc.topos[0].links
+                  if l.n1.startswith("core") and l.n2.startswith("core") and "core0" not in (l.n1, l.n2))
+    a, b = core[int(rng.integers(len(core)))]
+    metric = next(x.metric for x in dbs[a].adjacencies if x.other_node_name == b)
+    for copy in areas.values():
+        set_metric(copy, dbs, a, b, metric + 5)
+        set_metric(copy, dbs, b, a, metric + 5)
+    before = (kernel_be.num_warm_builds, kernel_be.num_warm_subgraph_builds,
+              kernel_be.num_warm_selective_builds)
+
+    def warm_expect(be):
+        sub = be.num_warm_subgraph_builds > before[1]
+        warm = {"warm_subgraph_repair"} if sub else {"warm_spf_distances", "spf_nexthop_lanes_reset"}
+        return warm | {SELECT, "spf_distances_masked"}
+
+    walls["g: KSP2 warm_delta weakening"] = drive_ksp2(
+        report, kernel_be, plain_be, areas, ps, f"ksp2:weaken:{a}-{b}", rng, warm_expect,
+        [dests + 1], hints=dict(changed_prefixes=set(), force_full=True, warm_delta=True))
+    check(kernel_be.num_warm_builds == before[0] + 1, "the weakening did not solve warm")
+    check(kernel_be.num_warm_selective_builds == before[2], "the warm-selective branch ran")
+
+    # the device-build what-if over a seeded sample of the loopbacks, on
+    # seeded backbone links of their destinations' first paths (so the
+    # failures move routes)
+    wps = PrefixState()
+    owners = {p: next(iter(e)) for p, e in ps.prefixes().items()}
+    held = sorted(owners)
+    on_paths = []
+    for i in rng.choice(len(held), KSP2_WHATIF_PREFIXES, replace=False):
+        node, area = owners[held[i]]
+        wps.update_prefix(node, area, ps.prefixes()[held[i]][(node, area)])
+        for path in areas["kernel"]["0"].get_kth_paths("core0", node, 1)[:1]:
+            on_paths += [(l.n1, l.n2) for l in path if (l.n1, l.n2) in core and (l.n1, l.n2) not in on_paths]
+    check(on_paths, "no backbone link on the sampled destinations' first paths")
+    links = [on_paths[i] for i in rng.choice(
+        len(on_paths), min(KSP2_WHATIF_LINKS, len(on_paths)), replace=False)]
+    eng = whatif_api.DeviceBuildWhatIfEngine(SpfSolver("core0"))
+    got, _rec, walls["g: device-build what-if"] = whatif_run(
+        report, "ksp2:whatif", KSP2_COLD, lambda: eng.run(links, areas["kernel"], wps, 1),
+        entries=KSP2_ENTRIES)
+    generic = whatif_api.GenericSolverWhatIfEngine(SpfSolver("core0"))
+    want = generic.run(links, areas["oracle"], wps, 1)
+    check(got["failures"] == want["failures"], "device-build answers != GenericSolverWhatIfEngine")
+    moved = [f["routes_changed"] for f in got["failures"]]
+    check(any(moved), "the what-if's failures moved no route")
+    print(f"[ksp2:whatif] {len(links)} backbone links, {KSP2_WHATIF_PREFIXES} KSP2 prefixes: "
+          f"routes changed {moved}; {eng.num_builds} device builds == GenericSolverWhatIfEngine",
+          flush=True)
+    return walls, enc
+
+
+def fattree_world():
+    """The fattree_multipod class at FATTREE_SCALE: one SHORTEST_DISTANCE
+    /24 per rack, LinkState with vantage rsw0_0."""
+    dbs = build_adj_dbs(_build_fattree(FATTREE_SCALE, 0))
+    ls = LinkState("0", "rsw0_0")
+    for db in dbs.values():
+        ls.update_adjacency_database(db)
+    nodes = sorted(dbs)
+    ps = PrefixState()
+    for i, node in enumerate(n for n in nodes if n.startswith("rsw")):
+        ps.update_prefix(node, "0", PrefixEntry(f"10.{(i >> 8) & 255}.{i & 255}.0/24"))
+    return {"0": ls}, ps, nodes
+
+
+def c4_phase(report, rng, backbone_enc):
+    """(h) the shapes whose block state exceeds shared memory: the fleet
+    on the fat-tree (kernels 12 and 13), ``CudaBackend`` on
+    the hub world at HUB_LEAVES_LARGE leaves (kernel 14's global path at
+    one row), kernel 14 at SEGMENT_ROWS rows with failed sets on the (g)
+    world."""
+    walls = {}
+    large = dict(launches=LARGE_LAUNCHES, spans=LARGE_SPANS)
+    areas, ps, nodes = fattree_world()
+    enc = csr.encode_multi_area(areas, "rsw0_0")
+    V, K = enc.overloaded.shape[1], enc.in_src.shape[2]
+    check(spf.fleet_dense_state_bytes(V, K) > spf.MAX_SHARED_BYTES,
+          "the fat-tree's kernel-12 block state fits shared memory")
+    print(f"[c4] fat-tree: {len(nodes)} nodes, V={V}, K={K}, D="
+          f"{csr.bucket_for(enc.max_out_degree(), DEGREE_BUCKETS)}, {len(ps.prefixes())} prefixes; "
+          f"kernel 12 block state {spf.fleet_dense_state_bytes(V, K)} B", flush=True)
+    eng = FleetRibEngine(SpfSolver("rsw0_0"))
+    check(eng.eligible(areas, ps, 1), "the fat-tree is not eligible")
+    summary, rec, walls["h: fat-tree fleet solve"] = whatif_run(
+        report, "fleet:fattree", DENSE_FLEET, lambda: eng.fleet_summary(areas, ps, 1),
+        entries=FLEET_ENTRIES)
+    call = max(rec.calls["fleet_spf_dense"], key=lambda c: c[0][6].shape[0])
+    time_fleet(report, "fleet_spf_dense", call, key="fleet_spf_dense, fat-tree",
+               **large)
+    picks = [nodes[i] for i in rng.choice(len(nodes), FATTREE_ORACLE_SAMPLE, replace=False)]
+    hold_every_root(eng, areas, ps, 1, picks, summary, "fleet:fattree")
+    with Recorder(plain=True, entries=FLEET_ENTRIES):
+        reset_launch_counts()
+        check(FleetRibEngine(SpfSolver("rsw0_0")).fleet_summary(areas, ps, 1) == summary,
+              "fat-tree fleet summary != plain path")
+        check(not any(LAUNCHES.values()), "the plain path launched a kernel")
+    print(f"[fleet:fattree] {len(summary)} roots: {len(picks)} == scalar oracle, summary == "
+          f"plain path", flush=True)
+
+    hub_edges = [("hub", f"leaf{i}", 1) for i in range(HUB_LEAVES_LARGE)]
+    hub = LinkState("0", "hub")
+    for db in build_adj_dbs(hub_edges).values():
+        hub.update_adjacency_database(db)
+    hub_ps = PrefixState()
+    for i in range(64):
+        hub_ps.update_prefix(f"leaf{i}", "0", PrefixEntry(f"10.3.{i}.0/24"))
+    hub_enc = csr.encode_multi_area({"0": hub}, "hub")
+    V, E = hub_enc.overloaded.shape[1], hub_enc.src.shape[1]
+    check(not hub_enc.has_dense and spf.segment_batch_state_bytes(V, E, 0) > spf.MAX_SHARED_BYTES,
+          "the large hub fits kernel 14's shared path")
+    print(f"[c4] hub: {HUB_LEAVES_LARGE} leaves, V={V}, E={E}; kernel 14 block state "
+          f"{spf.segment_batch_state_bytes(V, E, 0)} B", flush=True)
+    kernel_be = KernelPath(SpfSolver("hub"))
+    t0 = time.perf_counter()
+    drive(report, kernel_be, PlainPath(SpfSolver("hub")), SpfSolver("hub"), {"0": hub}, hub_ps,
+          "backend:hub-large", rng=rng, sample=None, expect={"spf_segment_batch", SELECT})
+    walls["h: hub backend build (checks included)"] = (time.perf_counter() - t0) * 1e3
+    args, out = kernel_be.io["segment"]
+    src, dst, w, ok, ovl, roots, D = args
+    time_fleet(report, "spf_segment_batch", (args[:5] + (roots[None], D), {}, out),
+               key="spf_segment_batch global path, hub", **large)
+
+    # kernel 14 on the (g) world's segment arrays, SEGMENT_ROWS rows of
+    # 1-3-link failed sets
+    topo = backbone_enc.topos[0]
+    seg = tables_from_numpy([getattr(backbone_enc, k) for k in
+                             ("src", "dst", "w", "edge_ok", "overloaded")], "cuda")
+    D = csr.bucket_for(max(backbone_enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    B, S = SEGMENT_ROWS, 3
+    fl = np.full((B, S), -1, np.int32)
+    for r in range(B):
+        k = 1 + r % 3
+        fl[r, :k] = rng.choice(len(topo.links), k, replace=False)
+    picks = rng.choice(topo.num_nodes, B, replace=False).astype(np.int32)
+    roots, li, fa, fl = tables_from_numpy(
+        (picks[:, None], topo.link_index[None], np.where(fl >= 0, 0, -1).astype(np.int32), fl),
+        "cuda")
+    kw = dict(link_index=li, fail_area=fa, fail_link=fl)
+    with Recorder(entries=FLEET_ENTRIES) as rec:
+        reset_launch_counts()
+        spf.spf_segment_batch(*seg, roots, D, **kw)
+        torch.cuda.synchronize()
+        check(LAUNCHES["spf_segment_batch"] == 1, "kernel 14 did not launch on the (g) rows")
+        report.launches["spf_segment_batch"] += 1
+    hold_recorded(report, rec)
+    time_fleet(report, "spf_segment_batch", rec.calls["spf_segment_batch"][0],
+               key="spf_segment_batch global path, (g) rows", **large)
+    print(f"[c4] kernel 14 at {B} rows with 1-3-link failed sets on the backbone (V="
+          f"{backbone_enc.overloaded.shape[1]}, E={backbone_enc.src.shape[1]}) == plain", flush=True)
     return walls
 
 
@@ -1613,6 +2016,11 @@ def main():
     # 13-15. the fleet RIB and the multi-area what-if
     walls.update(fleet_phases(report, rng, areas))
 
+    # 16-17. KSP2 on the backbone; the shapes past the shared-memory bound
+    ksp2_walls, backbone_enc = ksp2_phase(report, rng)
+    walls.update(ksp2_walls)
+    walls.update(c4_phase(report, rng, backbone_enc))
+
     for name in KERNEL_NAMES:
         t = report.timing[name]
         bound_rounds_ms = t["per_round_bytes"] * t["rounds"] / HBM_BYTES_PER_S * 1e3
@@ -1621,6 +2029,13 @@ def main():
               f"plain {t['plain_ms']:.4f} ms, launches {report.launches[name]}, "
               f"rounds {t['rounds']}, bytes-per-round x rounds bound {bound_rounds_ms:.5f} ms "
               f"({smi})", flush=True)
+    for key, t in report.timing.items():
+        if key in KERNEL_NAMES:
+            continue
+        bound, bound_by = report.bound_ms(key)
+        print(f"kernel {key}: {t['ms']:.4f} ms per launch (host issue {t['host_issue_ms']:.4f}), "
+              f"plain {t['plain_ms']:.4f} ms, bound {bound:.5f} ms ({bound_by}), rounds "
+              f"{t['rounds']} ({smi})", flush=True)
     print(f"kernel spf_nexthop_lanes_reset from an all-zero seed (undrain tick's input): "
           f"{report.zero_seed_ms:.4f} ms per launch ({smi})", flush=True)
     t = report.timing["compact_deltas"]

@@ -37,13 +37,22 @@ versions.  Every path must produce the RouteDb the scalar ``SpfSolver``
 produces and that ``TpuBackend(warm_rebuild=True)`` produces, with the
 same path counters and changed sets.
 
+KSP2_ED_ECMP prefixes (classified by the forwarding algorithm of the MIN
+selection winner) are collected during the decode with their per-area
+destinations; one ``Ksp2DeviceEngine.seed`` per area solves the k = 2
+re-solves of every destination the LinkState k-path memo lacks as one
+batch on the card (kernel 15) and traces the paths on the host, then the
+scalar KSP2 chain (``SpfSolver.create_route_for_prefix``) builds those
+routes from the seeded memo.  Their routes read the whole topology, so
+while any KSP2 prefix is live the delta and warm-selective branches
+decline; a full decode re-derives that.
+
 Not in this backend, each raising ``NotImplementedError`` instead of
-taking a silent scalar path: KSP2_ED_ECMP prefixes, prefixes with more
-candidates than the largest candidate bucket, and disabled best-route
-selection.  Membership churn (a node or link joining or
-leaving) re-encodes cold and solves cold: the reference's slot-stable
-encode, its health governor, device pool and multi-chip dispatch are
-later slices.
+taking a silent scalar path: prefixes with more candidates than the
+largest candidate bucket, and disabled best-route selection.  Membership
+churn (a node or link joining or leaving) re-encodes cold and solves
+cold: the reference's slot-stable encode, its health governor, device
+pool and multi-chip dispatch are later slices.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.decision.cand_table import CandidateTable
+from openr_tpu_torch.decision.ksp2 import Ksp2DeviceEngine
 from openr_tpu_torch.decision.link_state import INF, LinkState
 from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.decision.rib import DecisionRouteDb, RibUnicastEntry
@@ -97,7 +107,10 @@ MAX_GATHERED_ROWS = 262144
 #: the compacted gather stops paying for itself — fetch the full outputs
 DELTA_FETCH_MAX_FRACTION = 0.5
 
-#: the phases every build records in ``last_phase_ms`` (plus "total")
+#: the phases every build records in ``last_phase_ms`` (plus "total");
+#: a build that met KSP2 prefixes also records "ksp2", carved out of
+#: "decode": the seed (kernel 15 and its fetch), the path trace and the
+#: scalar KSP2 route chain
 PHASES = ("encode", "spf", "select", "decode")
 
 
@@ -217,6 +230,12 @@ class CudaBackend(DecisionBackend):
         #: the previous full build's device-resident selection outputs,
         #: the next full build's delta base
         self._prev_sel: Optional[dict] = None
+        #: KSP2 seeding engines per (area, topology_seq), reset with every
+        #: new encoding; and whether the last full decode met a live KSP2
+        #: prefix (the delta and warm-selective branches then decline)
+        self._ksp2_engines: Dict[tuple, Ksp2DeviceEngine] = {}
+        self._ksp2_present = False
+        self._ksp2_ms = 0.0
         self.num_device_builds = 0
         self.num_encode_hits = 0
         self.num_encode_patches = 0
@@ -264,6 +283,7 @@ class CudaBackend(DecisionBackend):
         delta_class = (
             "structural" if structural_delta else ("perturbation" if warm_delta else None)
         )
+        self._ksp2_ms = 0.0
         try:
             db = self._build(
                 area_link_states, prefix_state, changed_prefixes, force_full, delta_class
@@ -276,6 +296,9 @@ class CudaBackend(DecisionBackend):
             raise
         if db is not None:
             self._last_db = db if cache_result else None
+        if self._ksp2_ms:
+            self.last_phase_ms["decode"] -= self._ksp2_ms
+            self.last_phase_ms["ksp2"] = self._ksp2_ms
         return db
 
     def take_last_changed_prefixes(self) -> Optional[Set[str]]:
@@ -361,6 +384,7 @@ class CudaBackend(DecisionBackend):
             and self._warm_changed_nodes is not None
             and patch_base is not None
             and prev_enc is self._warm_base_enc
+            and not self._ksp2_present
             and not solver.enable_node_segment_label
         ):
             affected = self._warm_affected_rows(dv)
@@ -408,6 +432,9 @@ class CudaBackend(DecisionBackend):
         clock.lap("select")
         self._retain_prev_sel(outs, D, enc, dv)
         use, shortest, lanes, valid = (o.cpu().numpy() for o in outs)
+        # a full decode re-derives KSP2 presence from scratch
+        # (_decode_rows raises the flag on discovery)
+        self._ksp2_present = False
         winners = np.nonzero(use.any(axis=1))[0]
         row_items = [
             (int(r), table.row_prefix[r])
@@ -484,6 +511,7 @@ class CudaBackend(DecisionBackend):
                 self.num_encode_patches += 1
         if enc is None:
             enc = encode_multi_area(area_link_states, me)
+        self._ksp2_engines = {}
         names = ("overloaded", "roots", "soft", "src", "dst", "w", "edge_ok")
         if enc.has_dense:
             names += ("in_src", "in_w", "in_ok", "in_rank", "in_has")
@@ -492,6 +520,16 @@ class CudaBackend(DecisionBackend):
         )
         self._enc_cache = (key, [area_link_states[a] for a in areas], enc, arrays)
         return enc, arrays
+
+    def _ksp2_engine(self, area: str, link_state, topo) -> Ksp2DeviceEngine:
+        key = (area, link_state.topology_seq)
+        eng = self._ksp2_engines.get(key)
+        if eng is None or eng.link_state is not link_state or eng.topo is not topo:
+            eng = Ksp2DeviceEngine(
+                link_state, topo, self.solver.my_node_name, device=self.device
+            )
+            self._ksp2_engines[key] = eng
+        return eng
 
     # -- SPF tables, cold or warm ------------------------------------------
 
@@ -710,12 +748,14 @@ class CudaBackend(DecisionBackend):
         build's device-resident outputs, a layout-shared encoding chain
         (same symbol tables and root-out lane order), an exact prefix
         delta (entry content the candidate columns don't encode can only
-        move with churn), identical static routes and no MPLS label pass."""
+        move with churn), identical static routes, no live KSP2 prefixes
+        (their routes read the whole topology) and no MPLS label pass."""
         prev = self._prev_sel
         if (
             prev is None
             or self._last_db is None
             or not exact_churn
+            or self._ksp2_present
             or self.solver.enable_node_segment_label
         ):
             return None
@@ -870,6 +910,10 @@ class CudaBackend(DecisionBackend):
         drain_cache: Dict[Tuple[str, str], bool] = {}
 
         results: Dict[str, Optional[RibUnicastEntry]] = {}
+        # KSP2 prefixes, deferred until every area's k-path memo is seeded
+        # as one device batch
+        ksp2_prefixes: List[str] = []
+        ksp2_dests: Dict[str, list] = {}
         for i, prefix in row_items:
             c0 = u_starts[i]
             c1 = u_starts[i + 1]
@@ -887,10 +931,10 @@ class CudaBackend(DecisionBackend):
                 entries[best].forwarding_algorithm
                 == PrefixForwardingAlgorithm.KSP2_ED_ECMP
             ):
-                raise NotImplementedError(
-                    f"prefix {prefix} selects KSP2_ED_ECMP; the KSP2 "
-                    "device engine is a later port slice"
-                )
+                ksp2_prefixes.append(prefix)
+                for k in sorted(range(c0, c1), key=lambda k: (names_w[k], areas_w[k])):
+                    ksp2_dests.setdefault(areas_w[k], []).append(names_w[k])
+                continue
             is_v4 = prefix_is_v4(prefix)
             if is_v4 and not v4_ok:
                 results[prefix] = None
@@ -930,6 +974,19 @@ class CudaBackend(DecisionBackend):
                 igp_cost=shortest_metric,
                 local_prefix_considered=local_considered,
             )
+        if ksp2_prefixes:
+            t0 = time.perf_counter()
+            self._ksp2_present = True
+            for a, dests in sorted(ksp2_dests.items()):
+                ai = enc.areas.index(a)
+                self._ksp2_engine(a, area_link_states[a], enc.topos[ai]).seed(dests)
+            for prefix in ksp2_prefixes:
+                # the scalar KSP2 chain over the device-seeded k-path memo:
+                # no host Dijkstra runs
+                results[prefix] = self.solver.create_route_for_prefix(
+                    prefix, area_link_states, prefix_state
+                )
+            self._ksp2_ms += (time.perf_counter() - t0) * 1e3
         return results
 
     def _merged_nexthops(

@@ -19,6 +19,9 @@ diffs each against the unperturbed base row.
 ``GenericSolverWhatIfEngine`` answers the same queries with full scalar
 ``SpfSolver`` builds on the LSDB with the links removed: slow, but it
 touches no device, and it is the oracle the card's answers are held to.
+``DeviceBuildWhatIfEngine`` is the same rebuild-and-diff with each build
+on a dedicated ``CudaBackend``: the what-if surface for LSDBs the sweep
+kernels do not cover, such as KSP2_ED_ECMP prefixes.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from openr_tpu_torch.decision.backend import DEGREE_BUCKETS
+from openr_tpu_torch.decision.backend import DEGREE_BUCKETS, CudaBackend
 from openr_tpu_torch.decision.cand_table import CandidateTable
 from openr_tpu_torch.decision.link_state import LinkState
 from openr_tpu_torch.device import resolve_device
@@ -544,12 +547,18 @@ class GenericSolverWhatIfEngine:
     route databases.  One scalar build per failure (or per simultaneous
     set); it touches no device."""
 
+    engine_label = "generic-solver"
+
     def __init__(self, solver) -> None:
         self.solver = solver
         self.num_builds = 0
         self._cache_key = None
         self._base_view = None
         self._pair_links: Dict = {}
+
+    def _build(self, states, prefix_state):
+        """One full route build; subclasses swap the compute engine."""
+        return self.solver.build_route_db(states, prefix_state)
 
     @staticmethod
     def _pairs_map(area_link_states) -> Dict:
@@ -602,7 +611,7 @@ class GenericSolverWhatIfEngine:
             tuple((a, area_link_states[a].topology_seq) for a in sorted(area_link_states)),
         )
         if self._cache_key != key:
-            base = self.solver.build_route_db(area_link_states, prefix_state)
+            base = self._build(area_link_states, prefix_state)
             self.num_builds += 1
             if base is None:
                 return None  # no vantage in the LSDB yet: ineligible
@@ -638,20 +647,20 @@ class GenericSolverWhatIfEngine:
         def solve_without(drop_pairs) -> List[dict]:
             mod = self._states_without(area_link_states, drop_pairs)
             self.num_builds += 1
-            return diff_against(self.solver.build_route_db(mod, prefix_state))
+            return diff_against(self._build(mod, prefix_state))
 
         if simultaneous:
             bad = [e for e in errors if e is not None]
             if bad:
                 return {
-                    "eligible": True, "vantage": me, "engine": "generic-solver",
+                    "eligible": True, "vantage": me, "engine": self.engine_label,
                     "simultaneous": True, "failures": bad,
                 }
             changes = solve_without({frozenset(p) for p in link_failures})
             return {
                 "eligible": True,
                 "vantage": me,
-                "engine": "generic-solver",
+                "engine": self.engine_label,
                 "simultaneous": True,
                 "failures": [
                     {
@@ -678,4 +687,29 @@ class GenericSolverWhatIfEngine:
             if len(hit) > 1:
                 entry["links_failed"] = len(hit)
             out.append(entry)
-        return {"eligible": True, "vantage": me, "engine": "generic-solver", "failures": out}
+        return {"eligible": True, "vantage": me, "engine": self.engine_label, "failures": out}
+
+
+class DeviceBuildWhatIfEngine(GenericSolverWhatIfEngine):
+    """What-if for LSDBs outside the sweep kernels' algebra (KSP2_ED_ECMP
+    prefixes) served by device full builds instead of the scalar solver:
+    the generic engine's rebuild-and-diff, with each build on a dedicated
+    ``CudaBackend`` (SPF and selection on the card, KSP2 prefixes through
+    the device KSP2 engine), the compute path of the daemon's own route
+    builds.  The dedicated backend keeps what-if builds on modified
+    topologies out of the daemon backend's caches.
+
+    A build the backend does not implement (disabled best-route selection,
+    another selection algorithm, a candidate row wider than the largest
+    bucket) raises ``NotImplementedError``; it does not run scalar."""
+
+    engine_label = "device-build"
+
+    def __init__(self, solver, device=None) -> None:
+        super().__init__(solver)
+        self._backend = CudaBackend(solver, device=device)
+
+    def _build(self, states, prefix_state):
+        return self._backend.build_route_db(
+            states, prefix_state, force_full=True, cache_result=False
+        )

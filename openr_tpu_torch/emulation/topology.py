@@ -1,6 +1,8 @@
 """Synthetic topology generators for the port's worlds: grids, rings,
-random connected graphs and the multi-area WAN hierarchy (the
-``wan_multi_area`` topology class), as adjacency databases.
+3-tier fabrics, random connected graphs, the multi-pod fat-tree (the
+``fattree_multipod`` topology class) and the WAN hierarchy (the
+``wan_hierarchy`` class and its ``wan_multi_area`` split), as adjacency
+databases.
 
 Copied from ``openr_tpu.emulation.topology`` (itself after the reference
 benchmark generators, openr/decision/tests/RoutingBenchmarkUtils.cpp:251
@@ -106,6 +108,62 @@ def grid_edges(n: int, prefix: str = "node") -> List[Edge]:
     return edges
 
 
+def fabric_edges(
+    num_pods: int = 2,
+    rsws_per_pod: int = 4,
+    fsws_per_pod: int = 2,
+    num_ssws: int = 4,
+) -> List[Edge]:
+    """3-tier fat-tree fabric: rack (rsw) - fabric (fsw) - spine (ssw)
+    (RoutingBenchmarkUtils.cpp:422)."""
+    edges: List[Edge] = []
+    for p in range(num_pods):
+        fsws = [f"fsw{p}_{f}" for f in range(fsws_per_pod)]
+        for r in range(rsws_per_pod):
+            rsw = f"rsw{p}_{r}"
+            for fsw in fsws:
+                edges.append((rsw, fsw, 1))
+        for fi, fsw in enumerate(fsws):
+            # each fsw uplinks to a disjoint slice of spines
+            for s in range(num_ssws):
+                if s % fsws_per_pod == fi:
+                    edges.append((fsw, f"ssw{s}", 1))
+    return edges
+
+
+def multipod_fattree_edges(
+    num_pods: int = 4,
+    rsws_per_pod: int = 24,
+    fsws_per_pod: int = 4,
+    ssws_per_pod: int = 4,
+    num_spines: int = 16,
+) -> List[Edge]:
+    """Multi-pod fat-tree: each pod is an instance of the 3-tier fabric
+    (rack rsw → fabric fsw → pod-spine ssw, rsw-fsw and fsw-ssw full
+    bipartite inside the pod), pods joined by a super-spine layer —
+    every pod-spine ``ssw{p}_{s}`` uplinks to the super-spines ``k``
+    with ``k % ssws_per_pod == s``, so pods share the spine plane on
+    disjoint slices (the PAPER's DC-fabric shape at multi-pod scale).
+    Uniform metric 1: path diversity comes from structure, so ECMP
+    lanes stress the selection kernels."""
+    edges: List[Edge] = []
+    for p in range(num_pods):
+        fsws = [f"fsw{p}_{f}" for f in range(fsws_per_pod)]
+        ssws = [f"ssw{p}_{s}" for s in range(ssws_per_pod)]
+        for r in range(rsws_per_pod):
+            rsw = f"rsw{p}_{r}"
+            for fsw in fsws:
+                edges.append((rsw, fsw, 1))
+        for fsw in fsws:
+            for ssw in ssws:
+                edges.append((fsw, ssw, 1))
+        for s, ssw in enumerate(ssws):
+            for k in range(num_spines):
+                if k % ssws_per_pod == s:
+                    edges.append((ssw, f"spine{k}", 1))
+    return edges
+
+
 def random_connected_edges(
     n: int, extra_edges: int, seed: int = 0, prefix: str = "node"
 ) -> List[Edge]:
@@ -193,6 +251,29 @@ def wan_hierarchy_edges(
     return edges
 
 
+_FATTREE_RSWS, _FATTREE_FSWS, _FATTREE_SSWS = 24, 4, 4
+_FATTREE_POD = _FATTREE_RSWS + _FATTREE_FSWS + _FATTREE_SSWS  # 32/pod
+_FATTREE_SPINES = 16
+
+
+def _fattree_params(scale: int) -> Dict[str, int]:
+    pods = max(2, round((scale - _FATTREE_SPINES) / _FATTREE_POD))
+    per_pod_edges = (
+        _FATTREE_RSWS * _FATTREE_FSWS  # rack <-> fabric, full bipartite
+        + _FATTREE_FSWS * _FATTREE_SSWS  # fabric <-> pod-spine
+        + _FATTREE_SPINES  # pod-spine slices cover every super-spine once
+    )
+    return {
+        "pods": pods,
+        "rsws_per_pod": _FATTREE_RSWS,
+        "fsws_per_pod": _FATTREE_FSWS,
+        "ssws_per_pod": _FATTREE_SSWS,
+        "spines": _FATTREE_SPINES,
+        "nodes": pods * _FATTREE_POD + _FATTREE_SPINES,
+        "undirected_edges": pods * per_pod_edges,
+    }
+
+
 _WAN_METRO_SIZE = 16
 
 
@@ -215,6 +296,17 @@ def _wan_params(scale: int) -> Dict[str, int]:
             + metros * (_WAN_METRO_SIZE + 2)
         ),
     }
+
+
+def _build_fattree(scale: int, seed: int) -> List[Edge]:
+    del seed  # structural class: uniform-metric fabric, seed-invariant
+    return multipod_fattree_edges(
+        num_pods=_fattree_params(scale)["pods"],
+        rsws_per_pod=_FATTREE_RSWS,
+        fsws_per_pod=_FATTREE_FSWS,
+        ssws_per_pod=_FATTREE_SSWS,
+        num_spines=_FATTREE_SPINES,
+    )
 
 
 def _build_wan(scale: int, seed: int) -> List[Edge]:

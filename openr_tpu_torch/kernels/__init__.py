@@ -22,6 +22,7 @@ KERNEL_NAMES = (
     "fleet_spf_dense",
     "fleet_select",
     "spf_segment_batch",
+    "spf_distances_masked",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

@@ -37,9 +37,7 @@
 // SMs.  Spreading one area over several blocks is later work.
 //
 // Kernel 12 (fleet_spf_dense) runs both fixed points in ONE launch for
-// every (vantage root, area) pair: one block of 256 threads per pair, so
-// a 1,024-root fleet fills the card.  The distances stay in shared
-// memory; the edge classes too (no scratch plane), and the lane rounds
+// every (vantage root, area) pair, 256 threads per pair.  The lane rounds
 // run only over the lanes a seed can reach (1 + the highest rank of a
 // root out-edge on the DAG): every other lane of a present vertex is 0
 // from the start and never changes, because a propagating edge's source
@@ -47,7 +45,18 @@
 // A root of -1 (the vantage is absent from the area) writes dist BIG and
 // lanes 0 over its whole slice without solving: the reference masks the
 // slice after the fact (fleet_tables.py:130-131), so 0 overwrites the
-// -128 fill there.
+// -128 fill there.  A block's state (distances and edge classes, 4V + V*K
+// bytes) lives in its own slice of a global scratch, and a fixed grid of
+// resident blocks walks the pairs in a grid-stride loop, so the scratch
+// scales with the grid and not with B * A, and no shape is refused for
+// its state (a 64-pod fat-tree, V = 4,096, K = 64, needs 278,528 bytes a
+// block, more than shared memory holds).  The state is block-private and
+// read back after the barriers that already order it; it and the in-edge
+// planes every pair of an area shares (3.4 MB for that fat-tree) stay in
+// L1/L2.  Keeping the state in shared memory where it fits was measured
+// and dropped: 4.94 against 3.98 ms at the 1,024-root fleet (the carve-out
+// leaves less L1 for the planes and fewer blocks resident), 0.0123
+// against 0.0138 ms on a 3-area world of 33 roots (an H100; PERF.md).
 //
 // Traps: BIG + BIG overflows to +inf in f32, and padding slots carry
 // w = +inf.  min/compare must treat inf exactly, so this file is never
@@ -187,22 +196,21 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kBatchThreads = 256;
 
-__global__ void __launch_bounds__(kBatchThreads) fleet_spf_dense_kernel(
+// Kernel 12's work on one (row, area) pair r = batch row * A + area, with
+// the block's state at d ([V] distances) and cls ([V, K] edge classes).
+__device__ __forceinline__ void fleet_pair(
+    float* d, uint8_t* cls, int& lanes_used, int r,
     const int32_t* __restrict__ in_src, const float* __restrict__ in_w,
     const uint8_t* __restrict__ in_ok, const int32_t* __restrict__ in_rank,
     const uint8_t* __restrict__ in_has,
     const uint8_t* __restrict__ overloaded,
     const int32_t* __restrict__ roots, float* __restrict__ dist_out,
     int8_t* nh, int A, int V, int K, int D, float big) {
-  extern __shared__ float d[];  // [V] distances, then [V, K] edge classes
-  uint8_t* cls = reinterpret_cast<uint8_t*>(d + V);
-  __shared__ int lanes_used;
-  const int r = blockIdx.x;  // batch row * A + area
-  const int a = r % A;
+  const int VD = V * D;
+  const int a = r % A;  // r = batch row * A + area
   const int root = roots[r];
   float* dist = dist_out + (size_t)r * V;
   int8_t* lanes = nh + (size_t)r * V * D;
-  const int VD = V * D;
   if (root < 0) {
     for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = big;
     for (int i = threadIdx.x; i < VD; i += blockDim.x) lanes[i] = 0;
@@ -292,6 +300,27 @@ __global__ void __launch_bounds__(kBatchThreads) fleet_spf_dense_kernel(
   }
 }
 
+// Kernel 12 over rows = B * A pairs: block b keeps its state in its slice
+// of `scratch` (state_floats each) and walks pairs b, b + grid, ...
+__global__ void __launch_bounds__(kBatchThreads) fleet_spf_dense_kernel(
+    const int32_t* __restrict__ in_src, const float* __restrict__ in_w,
+    const uint8_t* __restrict__ in_ok, const int32_t* __restrict__ in_rank,
+    const uint8_t* __restrict__ in_has,
+    const uint8_t* __restrict__ overloaded,
+    const int32_t* __restrict__ roots, float* __restrict__ dist_out,
+    int8_t* nh, float* scratch, size_t state_floats, int rows, int A, int V,
+    int K, int D, float big) {
+  __shared__ int lanes_used;
+  float* d = scratch + blockIdx.x * state_floats;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    fleet_pair(d, reinterpret_cast<uint8_t*>(d + V), lanes_used, r, in_src,
+               in_w, in_ok, in_rank, in_has, overloaded, roots, dist_out, nh,
+               A, V, K, D, big);
+    // the next pair rewrites the state this one's threads may still read
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" int openr_dense_spf_distances(const void* in_src, const void* in_w,
@@ -335,19 +364,17 @@ extern "C" int openr_fleet_spf_dense(const void* in_src, const void* in_w,
                                      const void* in_has,
                                      const void* overloaded,
                                      const void* roots, void* dist, void* nh,
-                                     int B, int A, int V, int K, int D,
-                                     float big, void* stream) {
+                                     void* scratch, int grid, int B, int A,
+                                     int V, int K, int D, float big,
+                                     void* stream) {
   if (B == 0 || A == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)V * sizeof(float) + (size_t)V * K;
-  cudaError_t err = cudaFuncSetAttribute(
-      fleet_spf_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fleet_spf_dense_kernel<<<B * A, kBatchThreads, smem,
-                           (cudaStream_t)stream>>>(
+  // grid slices of scratch, each rounded up to whole 16-byte words
+  const size_t state = (size_t)V * sizeof(float) + (size_t)V * K;
+  const size_t state_floats = (state + 15) / 16 * 4;
+  fleet_spf_dense_kernel<<<grid, kBatchThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in_src, (const float*)in_w, (const uint8_t*)in_ok,
       (const int32_t*)in_rank, (const uint8_t*)in_has,
       (const uint8_t*)overloaded, (const int32_t*)roots, (float*)dist,
-      (int8_t*)nh, A, V, K, D, big);
+      (int8_t*)nh, (float*)scratch, state_floats, B * A, A, V, K, D, big);
   return (int)cudaGetLastError();
 }

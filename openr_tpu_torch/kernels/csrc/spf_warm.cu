@@ -13,7 +13,10 @@
 //   (:160 spf_one; route_select.py:148 multi_area_spf_tables)
 // batched over vantage roots and failure sets by
 //   openr_tpu/ops/fleet_tables.py:27 fleet_multi_area_tables and
-//   :217 whatif_multi_area_tables                     (kernel 14 here).
+//   :217 whatif_multi_area_tables                     (kernel 14 here),
+// and the KSP2_ED_ECMP k-th-path re-solve
+//   openr_tpu/ops/spf.py:226 batched_spf_distances_masked (kernel 15 here)
+// called by openr_tpu/decision/ksp2.py:94 Ksp2DeviceEngine._device_resolve.
 //
 // All three read the SEGMENT form of the topology: directed edges sorted
 // by dst, so vertex v's in-edges are the run [off[v], off[v+1]) (the
@@ -72,8 +75,35 @@
 // (whose link id is also -1).  The block keeps in shared memory its
 // distances, its run ends, its edge classes and the lane rank of every
 // edge (a block scan: the rank among the root's out-edges in edge order,
-// -1 off the root), so nothing scales with the batch but the outputs;
-// the lane rounds run only over lanes a root out-edge can seed.
+// -1 off the root), so nothing scales with the batch but the outputs.
+// The seed edges set their lanes before the rounds, which then run only
+// over lanes a root out-edge can seed and only over vertices with a
+// propagating in-edge: the others hold their fixed point already (a hub's
+// leaves, a bucket's padding vertices).
+// That state is 4(V + E + 257 + S) + 4V + E bytes.  Where it fits the
+// block's 232,448 bytes of shared memory, one block runs each pair (the
+// shared path).  Past that (a 16,384-node bucket with 32,768 edges needs
+// 295,940) the same code runs with each block's state in its own slice of
+// a global scratch (the global path): a fixed grid of resident blocks
+// walks the pairs in a grid-stride loop, so the scratch scales with the
+// grid and not with B * A.  The state is block-private and read back
+// after the barriers that already order it, and the edge arrays every
+// row shares stay in L2, so both paths compute the same tables.
+//
+// Kernel 15 (spf_distances_masked) is kernel 14's distance phase alone,
+// one block of 1,024 threads per row: the KSP2 re-solve from the root
+// with the links of paths 1..k-1 masked.  The row's distances (64 KB at
+// V = 16,384) and one bit per edge of its mask stay in shared memory, so
+// two blocks fill an SM's threads; the edge arrays, the segment offsets
+// and run ends and the list of vertices with a usable in-edge (derived
+// once per launch, shared by every row) are read from global memory and
+// stay in L2.  The rounds sweep only that list: the other vertices'
+// distances cannot change, and half of a node bucket is padding.  The
+// mask comes from the row's [E] bool row, or from its failed link ids
+// through a CSR of link id -> edges, so a [B, E] mask never needs to
+// exist.  A row whose root is cut off ends after its first round.  What
+// bounds it: the rounds' L2 reads, 40-50 synchronous rounds per row on
+// the backbone (PERF.md).
 //
 // What bounds it: latency, not bytes.  Each round re-reads the area's
 // edge arrays (L2-resident at these sizes) and the loop runs for the
@@ -127,17 +157,21 @@ __device__ void enabled_run_ends(int32_t* seg_end, const int32_t* off,
   __syncthreads();
 }
 
-// Relax the selected vertices (all when `only` is null) to the fixed
-// point; returns the number of rounds run.
+// Relax the selected vertices (all when `only` is null; the `count`
+// vertices of `list` when it is given) to the fixed point; returns the
+// number of rounds run.
 template <class Edges>
 __device__ int relax_distances(float* d, const int32_t* off,
                                const int32_t* seg_end, const int32_t* src,
                                const float* w, Edges edges,
-                               const uint8_t* only, int V, float big) {
+                               const uint8_t* only, int V, float big,
+                               const int32_t* list = nullptr, int count = 0) {
   int rounds = 0;
+  const int n = list ? count : V;
   for (int round = 0; round < V; ++round) {
     int changed = 0;
-    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int v = list ? list[i] : i;
       if (only && !only[v]) continue;
       const float cur = d[v];
       float best = cur;
@@ -176,21 +210,24 @@ __device__ void classify_edges(uint8_t* cls, const float* d,
   }
 }
 
-// Reset-semantics lane fixed point over the selected vertices, in place
-// in nh [V, D], over its first L lanes (L = D but in kernel 14); returns
-// the number of rounds run.
+// Reset-semantics lane fixed point over the selected vertices (all when
+// `only` is null; the `count` vertices of `list` when it is given), in
+// place in nh [V, D], over its first L lanes (L = D but in kernel 14);
+// returns the number of rounds run.
 __device__ int propagate_lanes(int8_t* nh, const uint8_t* cls,
                                const int32_t* off, const int32_t* seg_end,
                                const int32_t* src, const int32_t* lane_rank,
-                               const uint8_t* only, int V, int L, int D) {
+                               const uint8_t* only, int V, int L, int D,
+                               const int32_t* list = nullptr, int count = 0) {
   int rounds = 0;
-  const int VL = V * L;
+  const int n = (list ? count : V) * L;
   for (int round = 0; round < V; ++round) {
     int changed = 0;
-    for (int i = threadIdx.x; i < VL; i += blockDim.x) {
-      const int v = i / L;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int j = i / L;
+      const int v = list ? list[j] : j;
       if (only && !only[v]) continue;
-      const int l = i - v * L;
+      const int l = i - j * L;
       const size_t at = (size_t)v * D + l;
       const int e0 = off[v];
       // an empty run keeps the reference's segment_max identity, -128;
@@ -332,63 +369,71 @@ struct MaskedEdges {
   }
 };
 
-// rank[e] = e's rank among the root's out-edges in edge order (its lane),
-// -1 on every other edge; counts holds blockDim.x + 1 ints of scratch.
-// Returns the number of root out-edges; ends with a barrier.
-__device__ int root_lane_ranks(int32_t* rank, int32_t* counts,
-                               const int32_t* src, int root, int E) {
+// Visits every i < n in index order, calling emit(i, rank) with i's rank
+// among the i that satisfy pred (-1 where pred is false): a block scan
+// over contiguous chunks.  counts holds blockDim.x + 1 ints of scratch.
+// Returns the number that satisfy pred; ends with a barrier.
+template <class Pred, class Emit>
+__device__ int block_ranks(int32_t* counts, int n, Pred pred, Emit emit) {
   const int T = blockDim.x;
-  const int chunk = (E + T - 1) / T;
-  const int lo = min(E, (int)threadIdx.x * chunk);
-  const int hi = min(E, lo + chunk);
+  const int chunk = (n + T - 1) / T;
+  const int lo = min(n, (int)threadIdx.x * chunk);
+  const int hi = min(n, lo + chunk);
   int c = 0;
-  for (int e = lo; e < hi; ++e) c += src[e] == root;
+  for (int i = lo; i < hi; ++i) c += pred(i);
   counts[threadIdx.x] = c;
   __syncthreads();
   if (threadIdx.x == 0) {
     int run = 0;
     for (int t = 0; t < T; ++t) {
-      const int n = counts[t];
+      const int k = counts[t];
       counts[t] = run;
-      run += n;
+      run += k;
     }
     counts[T] = run;
   }
   __syncthreads();
   int next = counts[threadIdx.x];
-  for (int e = lo; e < hi; ++e) rank[e] = src[e] == root ? next++ : -1;
+  for (int i = lo; i < hi; ++i) emit(i, pred(i) ? next++ : -1);
   __syncthreads();
   return counts[T];
 }
 
 constexpr int kBatchThreads = 256;
 
-__global__ void __launch_bounds__(kBatchThreads) spf_segment_batch_kernel(
-    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
-    const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
+// Kernel 14's per-block state, carved from `base` (dynamic shared memory,
+// or the block's slice of a global scratch): run ends [V], lane ranks [E],
+// scan counts [T + 1], failed links [S], distances [V], edge classes [E].
+__host__ __device__ inline size_t segment_batch_state_bytes(int V, int E,
+                                                            int S) {
+  return (size_t)(V + E + kBatchThreads + 1 + S) * 4 +
+         (size_t)V * sizeof(float) + (size_t)E;
+}
+
+// Kernel 14's work on one (row, area) pair r = batch row * A + area, with
+// the block's state carved from `state` (segment_batch_state_bytes).
+__device__ __forceinline__ void segment_pair(
+    int32_t* state, int& num_failed, int r, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ dst, const float* __restrict__ w,
+    const uint8_t* __restrict__ edge_ok,
     const uint8_t* __restrict__ overloaded,
     const int32_t* __restrict__ link_index,
     const int32_t* __restrict__ roots, const int32_t* __restrict__ fail_area,
     const int32_t* __restrict__ fail_link,
     const int32_t* __restrict__ seg_off, float* __restrict__ dist_out,
     int8_t* nh, int A, int V, int E, int D, int S, float big) {
-  // shared: run ends [V], lane ranks [E], scan counts [T + 1], failed
-  // links [S], distances [V], edge classes [E]
-  extern __shared__ int32_t shared_ints[];
-  int32_t* end = shared_ints;
+  int32_t* end = state;
   int32_t* rank = end + V;
   int32_t* counts = rank + E;
   int32_t* failed = counts + blockDim.x + 1;
   float* d = reinterpret_cast<float*>(failed + S);
   uint8_t* cls = reinterpret_cast<uint8_t*>(d + V);
-  __shared__ int num_failed;
-  const int r = blockIdx.x;  // batch row * A + area
-  const int b = r / A;
+  const int VD = V * D;
+  const int b = r / A;  // r = batch row * A + area
   const int a = r - b * A;
   const int root = roots[r];
   float* dist = dist_out + (size_t)r * V;
   int8_t* lanes = nh + (size_t)r * V * D;
-  const int VD = V * D;
   if (root < 0) {
     for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = big;
     for (int i = threadIdx.x; i < VD; i += blockDim.x) lanes[i] = 0;
@@ -404,25 +449,163 @@ __global__ void __launch_bounds__(kBatchThreads) spf_segment_batch_kernel(
     }
     num_failed = n;
   }
-  const int root_out = root_lane_ranks(rank, counts, src + edges_at, root, E);
-  for (int v = threadIdx.x; v < V; v += blockDim.x) d[v] = v == root ? 0.f : big;
+  // rank[e] = e's rank among the root's out-edges in edge order (its
+  // lane), -1 on every other edge
+  const int32_t* esrc = src + edges_at;
+  const int root_out = block_ranks(
+      counts, E, [&](int e) { return esrc[e] == root; },
+      [&](int e, int k) { rank[e] = k; });
+  for (int v = threadIdx.x; v < V; v += blockDim.x)
+    d[v] = v == root ? 0.f : big;
   enabled_run_ends(end, off, dst + edges_at, edge_ok + edges_at, V, E);
   const MaskedEdges edges{edge_ok + edges_at, overloaded + (size_t)a * V,
                           link_index ? link_index + edges_at : nullptr,
                           failed, link_index ? num_failed : 0, root};
-  relax_distances(d, off, end, src + edges_at, w + edges_at, edges, nullptr,
-                  V, big);
+  relax_distances(d, off, end, src + edges_at, w + edges_at, edges,
+                  nullptr, V, big);
   for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = d[v];
-  classify_edges(cls, d, off, end, src + edges_at, w + edges_at, rank, edges,
-                 nullptr, V, big);
+  classify_edges(cls, d, off, end, src + edges_at, w + edges_at, rank,
+                 edges, nullptr, V, big);
   // an empty run holds -128; every lane no root out-edge can seed stays 0
-  for (int i = threadIdx.x; i < VD; i += blockDim.x) {
-    const int v = i / D;
-    lanes[i] = off[v] < off[v + 1] ? 0 : -128;
+  // (16 lanes a store where whole rows of D lanes fill 16-byte words)
+  if (D % 16 == 0) {
+    uint4* words = reinterpret_cast<uint4*>(lanes);
+    for (int i = threadIdx.x; i < VD / 16; i += blockDim.x) {
+      const int v = i / (D / 16);
+      const uint32_t x = off[v] < off[v + 1] ? 0u : 0x80808080u;
+      words[i] = make_uint4(x, x, x, x);
+    }
+  } else {
+    for (int i = threadIdx.x; i < VD; i += blockDim.x) {
+      const int v = i / D;
+      lanes[i] = off[v] < off[v + 1] ? 0 : -128;
+    }
   }
   __syncthreads();
-  propagate_lanes(lanes, cls, off, end, src + edges_at, rank, nullptr, V,
-                  root_out < D ? root_out : D, D);
+  // each seed edge sets its lane, so a vertex without a propagating
+  // in-edge holds its fixed point already and the rounds sweep only the
+  // others (kept in d's place: the distances are written out and
+  // classified)
+  const int L = root_out < D ? root_out : D;
+  for (int v = threadIdx.x; v < V; v += blockDim.x)
+    for (int e = off[v]; e < end[v]; ++e)
+      if (cls[e] == kSeed && rank[e] < L) lanes[(size_t)v * D + rank[e]] = 1;
+  int32_t* moving = reinterpret_cast<int32_t*>(d);
+  const int num_moving = block_ranks(
+      counts, V,
+      [&](int v) {
+        for (int e = off[v]; e < end[v]; ++e)
+          if (cls[e] == kPropagate) return true;
+        return false;
+      },
+      [&](int v, int k) {
+        if (k >= 0) moving[k] = v;
+      });
+  propagate_lanes(lanes, cls, off, end, esrc, rank, nullptr, V, L, D, moving,
+                  num_moving);
+}
+
+// Kernel 14 over rows = B * A pairs.  The shared path (kGlobal false) runs
+// one block per pair with its state in dynamic shared memory; the global
+// path keeps each block's state in its slice of `scratch` (state_ints
+// each) and walks the pairs in a grid-stride loop over a fixed grid, so
+// the scratch scales with the resident blocks and not with B * A.
+template <bool kGlobal>
+__global__ void __launch_bounds__(kBatchThreads) spf_segment_batch_kernel(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
+    const uint8_t* __restrict__ overloaded,
+    const int32_t* __restrict__ link_index,
+    const int32_t* __restrict__ roots, const int32_t* __restrict__ fail_area,
+    const int32_t* __restrict__ fail_link,
+    const int32_t* __restrict__ seg_off, float* __restrict__ dist_out,
+    int8_t* nh, int32_t* scratch, size_t state_ints, int rows, int A, int V,
+    int E, int D, int S, float big) {
+  __shared__ int num_failed;
+  if constexpr (!kGlobal) {
+    extern __shared__ int32_t shared_ints[];
+    segment_pair(shared_ints, num_failed, blockIdx.x, src, dst, w, edge_ok,
+                 overloaded, link_index, roots, fail_area, fail_link, seg_off,
+                 dist_out, nh, A, V, E, D, S, big);
+  } else {
+    int32_t* state = scratch + blockIdx.x * state_ints;
+    for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+      segment_pair(state, num_failed, r, src, dst, w, edge_ok, overloaded,
+                   link_index, roots, fail_area, fail_link, seg_off, dist_out,
+                   nh, A, V, E, D, S, big);
+      // the next pair rewrites the state this one's threads may still read
+      __syncthreads();
+    }
+  }
+}
+
+// kernel 15's usability: the transit rule of FullEdges, and the row's bit
+// of the edge in `enabled` (one bit per edge, in shared memory)
+struct BitMaskedEdges {
+  const uint8_t* edge_ok;
+  const uint8_t* overloaded;
+  const uint32_t* enabled;
+  int root;
+  __device__ bool usable(int e, int s) const {
+    return edge_ok[e] && ((enabled[e >> 5] >> (e & 31)) & 1u) &&
+           (!overloaded[s] || s == root);
+  }
+};
+
+constexpr int kMaskedThreads = 1024;
+
+// Kernel 15: distances only, one block per row b, from roots[b] over the
+// one shared edge list with row b's edges masked: either by its row of
+// edge_enabled [B, E], or by its failed link ids fail_link [B, S] (-1
+// pads), whose edges the link CSR (link_off [L + 1], link_edges) lists.
+// Shared memory: the row's distances [V] and its edge bits [E / 32].
+__global__ void __launch_bounds__(kMaskedThreads) spf_distances_masked_kernel(
+    const int32_t* __restrict__ src, const float* __restrict__ w,
+    const uint8_t* __restrict__ edge_ok,
+    const uint8_t* __restrict__ overloaded,
+    const int32_t* __restrict__ roots,
+    const uint8_t* __restrict__ edge_enabled,
+    const int32_t* __restrict__ fail_link,
+    const int32_t* __restrict__ link_off,
+    const int32_t* __restrict__ link_edges,
+    const int32_t* __restrict__ seg_off, const int32_t* __restrict__ seg_end,
+    const int32_t* __restrict__ live, int num_live,
+    float* __restrict__ dist_out, int V, int E, int S, int L, float big) {
+  extern __shared__ float d[];
+  uint32_t* enabled = reinterpret_cast<uint32_t*>(d + V);
+  const int b = blockIdx.x;
+  const int root = roots[b];
+  const int words = (E + 31) / 32;
+  if (edge_enabled) {
+    const uint8_t* row = edge_enabled + (size_t)b * E;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      uint32_t word = 0;
+      for (int j = 0, e = i * 32; j < 32 && e < E; ++j, ++e)
+        word |= (uint32_t)(row[e] != 0) << j;
+      enabled[i] = word;
+    }
+  } else {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) enabled[i] = ~0u;
+    __syncthreads();
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      const int f = fail_link[(size_t)b * S + s];
+      if (f < 0 || f >= L) continue;  // a -1 pad masks nothing
+      for (int k = link_off[f]; k < link_off[f + 1]; ++k) {
+        const int e = link_edges[k];
+        atomicAnd(&enabled[e >> 5], ~(1u << (e & 31)));
+      }
+    }
+  }
+  for (int v = threadIdx.x; v < V; v += blockDim.x)
+    d[v] = v == root ? 0.f : big;
+  __syncthreads();
+  // a row whose root has every out-edge masked changes nothing in its
+  // first round, and the vote ends it there
+  const BitMaskedEdges edges{edge_ok, overloaded, enabled, root};
+  relax_distances(d, seg_off, seg_end, src, w, edges, nullptr, V, big, live,
+                  num_live);
+  for (int v = threadIdx.x; v < V; v += blockDim.x)
+    dist_out[(size_t)b * V + v] = d[v];
 }
 
 template <class Kernel>
@@ -493,19 +676,55 @@ extern "C" int openr_spf_segment_batch(
     const void* src, const void* dst, const void* w, const void* edge_ok,
     const void* overloaded, const void* link_index, const void* roots,
     const void* fail_area, const void* fail_link, const void* seg_off,
-    void* dist, void* nh, int B, int A, int V, int E, int D, int S,
-    float big, void* stream) {
+    void* dist, void* nh, void* scratch, int grid, int B, int A, int V,
+    int E, int D, int S, float big, void* stream) {
   if (B == 0 || A == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)(V + E + kBatchThreads + 1 + S) * 4 +
-                      (size_t)V * sizeof(float) + (size_t)E;
-  cudaError_t err = allow_smem(spf_segment_batch_kernel, smem);
+  const int rows = B * A;
+  const size_t state = segment_batch_state_bytes(V, E, S);
+  if (scratch) {
+    // the global-state path: each block's state in its slice of scratch
+    // (grid slices, each rounded up to whole 16-byte words)
+    const size_t state_ints = (state + 15) / 16 * 4;
+    spf_segment_batch_kernel<true>
+        <<<grid, kBatchThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)src, (const int32_t*)dst, (const float*)w,
+            (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
+            (const int32_t*)link_index, (const int32_t*)roots,
+            (const int32_t*)fail_area, (const int32_t*)fail_link,
+            (const int32_t*)seg_off, (float*)dist, (int8_t*)nh,
+            (int32_t*)scratch, state_ints, rows, A, V, E, D, S, big);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t err = allow_smem(spf_segment_batch_kernel<false>, state);
   if (err != cudaSuccess) return (int)err;
-  spf_segment_batch_kernel<<<B * A, kBatchThreads, smem,
-                             (cudaStream_t)stream>>>(
-      (const int32_t*)src, (const int32_t*)dst, (const float*)w,
-      (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
-      (const int32_t*)link_index, (const int32_t*)roots,
-      (const int32_t*)fail_area, (const int32_t*)fail_link,
-      (const int32_t*)seg_off, (float*)dist, (int8_t*)nh, A, V, E, D, S, big);
+  spf_segment_batch_kernel<false>
+      <<<rows, kBatchThreads, state, (cudaStream_t)stream>>>(
+          (const int32_t*)src, (const int32_t*)dst, (const float*)w,
+          (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
+          (const int32_t*)link_index, (const int32_t*)roots,
+          (const int32_t*)fail_area, (const int32_t*)fail_link,
+          (const int32_t*)seg_off, (float*)dist, (int8_t*)nh, nullptr, 0,
+          rows, A, V, E, D, S, big);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int openr_spf_distances_masked(
+    const void* src, const void* w, const void* edge_ok,
+    const void* overloaded, const void* roots, const void* edge_enabled,
+    const void* fail_link, const void* link_off, const void* link_edges,
+    const void* seg_off, const void* seg_end, const void* live, int num_live,
+    void* dist, int B, int V, int E, int S, int L, float big, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)V * sizeof(float) + (size_t)(E + 31) / 32 * 4;
+  cudaError_t err = allow_smem(spf_distances_masked_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  spf_distances_masked_kernel<<<B, kMaskedThreads, smem,
+                                (cudaStream_t)stream>>>(
+      (const int32_t*)src, (const float*)w, (const uint8_t*)edge_ok,
+      (const uint8_t*)overloaded, (const int32_t*)roots,
+      (const uint8_t*)edge_enabled, (const int32_t*)fail_link,
+      (const int32_t*)link_off, (const int32_t*)link_edges,
+      (const int32_t*)seg_off, (const int32_t*)seg_end, (const int32_t*)live,
+      num_live, (float*)dist, V, E, S, L, big);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,191 @@
+"""Time the batched SPF kernels on one card, to compare two checkouts in one
+call (parent, change, change, parent):
+
+  * ``fleet``: kernel 12 (``fleet_spf_dense``) and kernel 14
+    (``spf_segment_batch``) over the fleet world of ``chip_smoke.py``'s
+    phase (d), the reference benchmark's 1,024-node WAN
+    (``random_connected_edges(1024, 2048, seed=7)``), every node a root,
+    and kernel 12 over the topology of phase (e)'s 3-area world, every
+    node a root (-1 in the areas it is absent from); kernel 14 on the
+    path the shape takes and again with ``spf.MAX_SHARED_BYTES`` lowered
+    to 0 while the launch is bound (its global-state path; null where the
+    checkout refuses the shape);
+  * ``hub``: kernel 14 at one row on phase (h)'s hub of 5,000 leaves
+    (V = 16,384, D = 8,192: the global-state path; null where the
+    checkout refuses the shape);
+  * ``masked``: kernel 15 (``spf_distances_masked``), where the checkout
+    has it, at phase (g)'s inputs: the wan_hierarchy class at 8,192
+    nodes, seed 7, one row per destination of core0, each row's failed
+    set the links of its destination's first paths (what the KSP2 engine
+    sends).
+
+Run from the root of the checkout to time, naming the groups (default:
+all three)::
+
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [masked]
+
+Prints one JSON line: the card's name and power limit, and per kernel and
+path the ms per launch (CUDA events around 50 back-to-back launches of a
+pre-bound launch, median of 5 spans; 3 launches at the hub row).
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from openr_tpu_torch.decision.backend import DEGREE_BUCKETS
+from openr_tpu_torch.decision.link_state import LinkState
+from openr_tpu_torch.emulation import topology
+from openr_tpu_torch.interop import tables_from_numpy
+from openr_tpu_torch.kernels import build
+from openr_tpu_torch.ops import csr, spf
+
+LAUNCHES = 50
+SPANS = 5
+
+
+def launch_ms(launch, launches: int = LAUNCHES) -> float:
+    launch()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(SPANS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end) / launches)
+    return statistics.median(spans)
+
+
+def link_state(edges, root: str, area: str = "0", **drains) -> LinkState:
+    ls = LinkState(area, root)
+    for db in topology.build_adj_dbs(edges, area=area, **drains).values():
+        ls.update_adjacency_database(db)
+    return ls
+
+
+def fleet_roots(enc) -> np.ndarray:
+    """[B, A] int32: every node a root, -1 in the areas it is absent from."""
+    names = sorted(set().union(*[set(t.node_ids) for t in enc.topos]))
+    return np.asarray([[t.node_ids.get(n, -1) for t in enc.topos] for n in names], np.int32)
+
+
+def timed(make, launches: int = LAUNCHES):
+    """ms per launch of the launch ``make()`` binds; None where the
+    checkout refuses the shape (ValueError)."""
+    try:
+        launch, _ = make()
+    except ValueError:
+        return None
+    return launch_ms(launch, launches)
+
+
+def both_paths(make, label: str, out: dict) -> None:
+    """Time the launch ``make()`` binds on the path the shape takes, then
+    with a shared-memory budget of 0."""
+    out[f"{label}, default path"] = timed(make)
+    saved = spf.MAX_SHARED_BYTES
+    spf.MAX_SHARED_BYTES = 0
+    try:
+        out[f"{label}, budget 0"] = timed(make)
+    finally:
+        spf.MAX_SHARED_BYTES = saved
+
+
+def encoded(areas: dict, me: str, dev):
+    enc = csr.encode_multi_area(areas, me)
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    (roots,) = tables_from_numpy((fleet_roots(enc),), dev)
+    return enc, D, roots
+
+
+def fleet_kernels(dev) -> dict:
+    out = {}
+    enc, D, r = encoded(
+        {"0": link_state(topology.random_connected_edges(1024, 2048, seed=7), "node0")}, "node0", dev
+    )
+    dense = tables_from_numpy(
+        [getattr(enc, k) for k in ("in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded")], dev
+    )
+    seg = tables_from_numpy([getattr(enc, k) for k in ("src", "dst", "w", "edge_ok", "overloaded")], dev)
+    out["fleet_spf_dense (d)"] = timed(lambda: spf.fleet_spf_dense_launcher(*dense, r, D))
+    both_paths(lambda: spf.spf_segment_batch_launcher(*seg, r, D), "spf_segment_batch (d)", out)
+    # phase (e)'s 3-area world (its prefixes do not reach kernel 12)
+    ring = [(f"b{i}", f"b{(i + 1) % 6}", 1) for i in range(6)]
+    areas = {
+        "1": link_state(topology.grid_edges(4, prefix="a") + [("a0", "me", 1)], "me", "1",
+                        overloaded=["a5"]),
+        "2": link_state(ring + [("b0", "me", 2), ("b3", "me", 5)], "me", "2",
+                        soft_drained={"b2": 40}),
+        "3": link_state(topology.random_connected_edges(10, 6, seed=7, prefix="c") + [("c0", "me", 1)],
+                        "me", "3"),
+    }
+    enc, D, r = encoded(areas, "me", dev)
+    dense = tables_from_numpy(
+        [getattr(enc, k) for k in ("in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded")], dev
+    )
+    out["fleet_spf_dense (e)"] = timed(lambda: spf.fleet_spf_dense_launcher(*dense, r, D))
+    return out
+
+
+def hub_kernel(dev) -> dict:
+    hub = link_state([("hub", f"leaf{i}", 1) for i in range(5000)], "hub")
+    enc = csr.encode_multi_area({"0": hub}, "hub")
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    seg = tables_from_numpy([getattr(enc, k) for k in ("src", "dst", "w", "edge_ok", "overloaded")], dev)
+    (roots,) = tables_from_numpy((enc.roots[None],), dev)
+    return {"spf_segment_batch, hub row": timed(lambda: spf.spf_segment_batch_launcher(*seg, roots, D), 3),
+            "hub D": D}
+
+
+def masked_kernel(dev) -> dict:
+    ls = link_state(topology._build_wan(8192, 7), "core0")
+    topo = csr.encode_multi_area({"0": ls}, "core0").topos[0]
+    link_id = {link.key: i for i, link in enumerate(topo.links)}
+    sets = []
+    for d in sorted(ls.get_adjacency_databases()):
+        if d != "core0":
+            sets.append(sorted({link_id[l.key] for p in ls.get_kth_paths("core0", d, 1) for l in p}))
+    roots = np.full(len(sets), topo.node_id("core0"), np.int32)
+    args = tables_from_numpy(
+        [topo.src, topo.dst, topo.w, topo.edge_ok, topo.overloaded, roots], dev
+    )
+    li, failed = tables_from_numpy((topo.link_index, csr.link_failure_sets(sets)), dev)
+    launch, _ = spf.spf_distances_masked_launcher(*args, None, li, failed)
+    return {"spf_distances_masked": launch_ms(launch), "rows": len(sets),
+            "max_failed": int(failed.shape[1])}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("time_batch_kernels: no CUDA device available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    build.build_all()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    groups = sys.argv[1:] or ["fleet", "hub", "masked"]
+    out = {"card": card}
+    if "fleet" in groups:
+        out.update(fleet_kernels(dev))
+    if "hub" in groups:
+        out.update(hub_kernel(dev))
+    if "masked" in groups and hasattr(spf, "spf_distances_masked_launcher"):
+        out.update(masked_kernel(dev))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -608,3 +608,26 @@ def patch_encoded_multi_area(
         roots=prev.roots,
         **dense,
     )
+
+
+def link_failure_batch(
+    topo: EncodedTopology, failed_links_per_snapshot: List[List[int]]
+) -> np.ndarray:
+    """[B, E] bool edge-enable mask from per-snapshot failed undirected
+    link ids: an edge is off iff its link id is in its snapshot's list
+    (the reference's numpy path; it has no native fill here)."""
+    mask = np.ones((len(failed_links_per_snapshot), topo.padded_edges), bool)
+    for b, failed in enumerate(failed_links_per_snapshot):
+        if failed:
+            mask[b, np.isin(topo.link_index, np.asarray(failed, np.int32))] = False
+    return mask
+
+
+def link_failure_sets(failed_links_per_snapshot: List[List[int]]) -> np.ndarray:
+    """The same sets as a -1-padded [B, S] int32 array (S >= 1), the form
+    the batched kernels read instead of a [B, E] mask."""
+    S = max((len(f) for f in failed_links_per_snapshot), default=0)
+    out = np.full((len(failed_links_per_snapshot), max(S, 1)), -1, np.int32)
+    for b, failed in enumerate(failed_links_per_snapshot):
+        out[b, : len(failed)] = failed
+    return out

@@ -4,7 +4,8 @@ first-hop lane sets over the dense in-edge matrix — the counterpart of
 ``dense_spf_nexthop_lanes`` / ``dense_spf_one`` — and, in the sections
 below, the warm-start tables, the segment-form cold tables
 (``spf_distances`` / ``spf_nexthop_lanes`` / ``spf_one``), their batches
-over vantage roots and failure sets, and the what-if sweep.
+over vantage roots and failure sets, the KSP2 masked re-solve
+(``batched_spf_distances_masked``) and the what-if sweep.
 
 Every function takes a leading area axis (the reference vmaps its
 single-area kernels over areas): ``in_src/in_w/in_ok/in_rank [A, V, K]``,
@@ -140,11 +141,12 @@ MAX_KERNEL_NODES = 232448 // 4
 
 def _check_planes(in_src, in_w, in_ok, overloaded, roots, batch=None):
     """Check the dense planes and ``roots`` ([A], or [batch, A] when
-    ``batch`` is given); returns (A, V, K, device)."""
+    ``batch`` is given: kernel 12, which has no node bound); returns (A, V,
+    K, device)."""
     if in_src.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on {in_src.device}")
     A, V, K = in_src.shape
-    if V > MAX_KERNEL_NODES:
+    if batch is None and V > MAX_KERNEL_NODES:
         raise ValueError(f"{V} nodes exceed the kernel's shared-memory bound")
     dev = in_src.device
     check_tensor("in_src", in_src, torch.int32, (A, V, K), dev)
@@ -465,11 +467,12 @@ def root_lane_rank(src, roots):
 
 def _check_segments(src, dst, w, edge_ok, overloaded, roots, batch=None):
     """Check the edge lists and ``roots`` ([A], or [batch, A] when
-    ``batch`` is given); returns (A, V, E, device)."""
+    ``batch`` is given: kernel 14, which has no node bound); returns (A, V,
+    E, device)."""
     if src.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on {src.device}")
     A, V = overloaded.shape
-    if V > MAX_KERNEL_NODES:
+    if batch is None and V > MAX_KERNEL_NODES:
         raise ValueError(f"{V} nodes exceed the kernel's shared-memory bound")
     E = src.shape[1]
     dev = src.device
@@ -815,6 +818,30 @@ def fleet_spf_dense_plain(in_src, in_w, in_ok, in_rank, in_has, overloaded, root
 MAX_SHARED_BYTES = 232448
 #: threads per block of kernels 12 and 14
 BATCH_THREADS = 256
+#: threads an SM holds at once (sm_90)
+SM_THREADS = 2048
+
+
+def segment_batch_state_bytes(V: int, E: int, S: int) -> int:
+    """Kernel 14's per-block state: run ends, lane ranks, scan counts,
+    failed links, distances and edge classes."""
+    return 4 * (V + E + BATCH_THREADS + 1 + S) + 4 * V + E
+
+
+def fleet_dense_state_bytes(V: int, K: int) -> int:
+    """Kernel 12's per-block state: distances and edge classes."""
+    return 4 * V + V * K
+
+
+def _global_state(state_bytes: int, rows: int, dev):
+    """(scratch, grid) of the global-state path of kernels 12 and 14: as
+    many blocks as the SMs hold at once (at most one per pair), each with
+    a 16-byte-rounded slice of the scratch, walking the pairs in a
+    grid-stride loop."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = max(1, min(rows, sms * (SM_THREADS // BATCH_THREADS)))
+    slice_words = (state_bytes + 15) // 16 * 4
+    return torch.empty(grid * slice_words, dtype=torch.int32, device=dev), grid
 
 
 def spf_segment_batch_launcher(
@@ -822,9 +849,9 @@ def spf_segment_batch_launcher(
     link_index=None, fail_area=None, fail_link=None,
 ):
     """Check the inputs, derive the segment offsets, allocate the outputs
-    and bind kernel 14 once.  Returns ``(launch, (dist, nh))``: each
-    ``launch()`` enqueues the kernel (no synchronize) and counts one
-    launch."""
+    (and the global path's scratch) and bind kernel 14 once.  Returns
+    ``(launch, (dist, nh))``: each ``launch()`` enqueues the kernel (no
+    synchronize) and counts one launch."""
     B = roots.shape[0]
     A, V, E, dev = _check_segments(src, dst, w, edge_ok, overloaded, roots, batch=B)
     D = int(max_degree)
@@ -836,26 +863,28 @@ def spf_segment_batch_launcher(
         check_tensor("link_index", link_index, torch.int32, (A, E), dev)
         check_tensor("fail_area", fail_area, torch.int32, (B, S), dev)
         check_tensor("fail_link", fail_link, torch.int32, (B, S), dev)
-    smem = 4 * (V + E + BATCH_THREADS + 1 + S) + 4 * V + E
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"{V} nodes and {E} edges exceed the kernel's shared-memory bound")
+    # the shared path (one block per pair, its state in shared memory)
+    # where the state fits, else the global-state path
+    state = segment_batch_state_bytes(V, E, S)
+    scratch, grid = (None, B * A) if state <= MAX_SHARED_BYTES else _global_state(state, B * A, dev)
     seg_off = segment_offsets(dst, V)
     dist = torch.empty((B, A, V), dtype=torch.float32, device=dev)
     nh = torch.empty((B, A, V, D), dtype=torch.int8, device=dev)
     fn = function(
         "spf_warm",
         "openr_spf_segment_batch",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
     )
     sets = (ptr(link_index), ptr(fail_area), ptr(fail_link)) if S else (None, None, None)
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), sets[0],
-        ptr(roots), sets[1], sets[2], ptr(seg_off), ptr(dist), ptr(nh), B, A,
-        V, E, D, S, BIG, stream(dev),
+        ptr(roots), sets[1], sets[2], ptr(seg_off), ptr(dist), ptr(nh),
+        None if scratch is None else ptr(scratch), grid, B, A, V, E, D, S,
+        BIG, stream(dev),
     )
 
-    # the default argument keeps the derived layout alive
-    def launch(_held=seg_off) -> None:
+    # the default argument keeps the derived layout and the scratch alive
+    def launch(_held=(seg_off, scratch)) -> None:
         if B == 0 or A == 0:
             return
         check_launch("spf_segment_batch", fn(*args))
@@ -888,8 +917,11 @@ def spf_one(src, dst, w, edge_ok, overloaded, roots, max_degree: int):
     return dist[0], nh[0]
 
 
-def fleet_spf_dense_launcher(in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max_degree: int):
-    """Like :func:`spf_segment_batch_launcher`, for kernel 12:
+def fleet_spf_dense_launcher(
+    in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max_degree: int
+):
+    """Like :func:`spf_segment_batch_launcher`, for kernel 12, whose
+    blocks always keep their state in the global scratch:
     ``(launch, (dist, nh))``."""
     B = roots.shape[0]
     A, V, K, dev = _check_planes(in_src, in_w, in_ok, overloaded, roots, batch=B)
@@ -898,22 +930,21 @@ def fleet_spf_dense_launcher(in_src, in_w, in_ok, in_rank, in_has, overloaded, r
     D = int(max_degree)
     if D < 1:
         raise ValueError(f"max_degree {D} must be >= 1")
-    if 4 * V + V * K > MAX_SHARED_BYTES:
-        raise ValueError(f"{V} nodes x {K} in-edge slots exceed the kernel's shared-memory bound")
+    scratch, grid = _global_state(fleet_dense_state_bytes(V, K), B * A, dev)
     dist = torch.empty((B, A, V), dtype=torch.float32, device=dev)
     nh = torch.empty((B, A, V, D), dtype=torch.int8, device=dev)
     fn = function(
         "spf_dense",
         "openr_fleet_spf_dense",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     )
     args = (
         ptr(in_src), ptr(in_w), ptr(in_ok), ptr(in_rank), ptr(in_has),
-        ptr(overloaded), ptr(roots), ptr(dist), ptr(nh), B, A, V, K, D, BIG,
+        ptr(overloaded), ptr(roots), ptr(dist), ptr(nh), ptr(scratch), grid, B, A, V, K, D, BIG,
         stream(dev),
     )
 
-    def launch() -> None:
+    def launch(_held=scratch) -> None:
         if B == 0 or A == 0:
             return
         check_launch("fleet_spf_dense", fn(*args))
@@ -930,6 +961,165 @@ def fleet_spf_dense(in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max
     if in_src.device.type == "cpu":
         return fleet_spf_dense_plain(*args)
     return _launched(fleet_spf_dense_launcher, *args)
+
+
+# ---------------------------------------------------------------------------
+# The KSP2_ED_ECMP k-th-path re-solve — the counterpart of the reference's
+# ``batched_spf_distances_masked`` (kernel 15, ``spf_distances_masked``,
+# ``kernels/csrc/spf_warm.cu``).  One topology in the single-area edge-list
+# form (``src/dst/w/edge_ok [E]``, dst sorted, ``overloaded [V]``), B rows:
+# row b solves distances only from ``roots[b]`` with ``edge_ok &
+# edge_enabled[b]``.  The set form takes row b's failed undirected link
+# ids (``failed [B, S]``, -1 pads mask nothing) and ``link_index [E]``
+# instead of the [B, E] mask, which is how the KSP2 engine calls it: at
+# 8,191 rows over 32,768 edges the mask alone would be 268 MB.
+# ---------------------------------------------------------------------------
+
+
+def failed_links_mask(link_index, failed):
+    """[B, E] bool edge-enable mask of the rows' failed link id sets
+    ``failed`` [B, S] (-1 pads mask nothing): an edge is off iff its link
+    id is in its row's set, the reference's ``link_failure_batch`` rule."""
+    B = failed.shape[0]
+    L = int(link_index.max()) + 1 if link_index.numel() else 0
+    hit = torch.zeros((B, L + 1), dtype=torch.bool, device=failed.device)
+    ids = torch.where((failed >= 0) & (failed < L), failed, L).long()
+    hit.scatter_(1, ids, True)
+    hit[:, L] = False
+    cols = torch.where(link_index >= 0, link_index, L).long()
+    return ~hit[:, cols]
+
+
+def batched_spf_distances_masked_plain(src, dst, w, edge_ok, edge_enabled, overloaded, roots):
+    """[B, V] f32 distances of each row from its root with its row of
+    ``edge_enabled`` ANDed into ``edge_ok``, BIG where unreachable."""
+    B, E = edge_enabled.shape
+    V = overloaded.shape[0]
+    out = []
+    for r0, r1 in _row_chunks(B, E):
+        n = r1 - r0
+        rows = (src.expand(n, E), dst.expand(n, E), w.expand(n, E),
+                edge_ok[None] & edge_enabled[r0:r1], overloaded.expand(n, V), roots[r0:r1])
+        out.append(spf_distances_plain(*rows))
+    if not out:
+        return torch.empty((0, V), dtype=torch.float32, device=w.device)
+    return torch.cat(out)
+
+
+def batched_spf_distances_masked_sets_plain(src, dst, w, edge_ok, link_index, failed, overloaded, roots):
+    """The set form of :func:`batched_spf_distances_masked_plain`."""
+    out = [
+        batched_spf_distances_masked_plain(
+            src, dst, w, edge_ok, failed_links_mask(link_index, failed[r0:r1]),
+            overloaded, roots[r0:r1],
+        )
+        for r0, r1 in _row_chunks(failed.shape[0], src.shape[0])
+    ]
+    if not out:
+        return torch.empty((0, overloaded.shape[0]), dtype=torch.float32, device=w.device)
+    return torch.cat(out)
+
+
+def link_edge_csr(link_index, num_links: int):
+    """(link_off [L + 1], link_edges) int32: the edge positions of each
+    undirected link id, in edge order."""
+    valid = torch.nonzero(link_index >= 0).squeeze(1)
+    ids = link_index[valid]
+    order = torch.sort(ids, stable=True).indices
+    bounds = torch.arange(num_links + 1, dtype=ids.dtype, device=ids.device)
+    link_off = torch.searchsorted(ids[order], bounds, out_int32=True)
+    return link_off, valid[order].to(torch.int32).contiguous()
+
+
+def spf_distances_masked_launcher(
+    src, dst, w, edge_ok, overloaded, roots, edge_enabled=None, link_index=None, failed=None,
+):
+    """Check the inputs, derive the segment offsets and run ends (and, in
+    the set form, the link id -> edges CSR), allocate the output and bind
+    kernel 15 once.  Pass ``edge_enabled`` [B, E] bool, or ``link_index``
+    [E] and ``failed`` [B, S] int32.  Returns ``(launch, dist)``: each
+    ``launch()`` enqueues the kernel (no synchronize) and counts one
+    launch."""
+    if src.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on {src.device}")
+    dev = src.device
+    V = overloaded.shape[0]
+    E = src.shape[0]
+    B = roots.shape[0]
+    if 4 * V + 4 * ((E + 31) // 32) > MAX_SHARED_BYTES:
+        raise ValueError(f"{V} nodes and {E} edges exceed kernel 15's shared-memory bound")
+    check_tensor("src", src, torch.int32, (E,), dev)
+    check_tensor("dst", dst, torch.int32, (E,), dev)
+    check_tensor("w", w, torch.float32, (E,), dev)
+    check_tensor("edge_ok", edge_ok, torch.bool, (E,), dev)
+    check_tensor("overloaded", overloaded, torch.bool, (V,), dev)
+    check_tensor("roots", roots, torch.int32, (B,), dev)
+    S = L = 0
+    link_off = link_edges = None
+    if edge_enabled is not None:
+        check_tensor("edge_enabled", edge_enabled, torch.bool, (B, E), dev)
+    else:
+        S = failed.shape[1]
+        check_tensor("link_index", link_index, torch.int32, (E,), dev)
+        check_tensor("failed", failed, torch.int32, (B, S), dev)
+        L = int(link_index.max()) + 1 if E else 0
+        link_off, link_edges = link_edge_csr(link_index, L)
+    seg_off = segment_offsets(dst[None], V)[0]
+    # run ends of the last usable edge, shared by every row (the kernel-14
+    # prologue's seg_end, derived once here)
+    last = torch.where(edge_ok, torch.arange(1, E + 1, dtype=torch.int32, device=dev), 0)
+    seg_end = seg_off[:V].clone().scatter_reduce_(0, dst.long(), last, "amax")
+    # the vertices with a usable in-edge: no other distance can change
+    live = torch.nonzero(seg_end > seg_off[:V]).squeeze(1).to(torch.int32)
+    dist = torch.empty((B, V), dtype=torch.float32, device=dev)
+    fn = function(
+        "spf_warm",
+        "openr_spf_distances_masked",
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    opt = lambda t: None if t is None else ptr(t)  # noqa: E731
+    args = (
+        ptr(src), ptr(w), ptr(edge_ok), ptr(overloaded), ptr(roots), opt(edge_enabled),
+        opt(failed), opt(link_off), opt(link_edges), ptr(seg_off), ptr(seg_end),
+        ptr(live), int(live.numel()), ptr(dist), B, V, E, S, L, BIG, stream(dev),
+    )
+
+    # the default argument keeps the derived layout alive
+    def launch(_held=(seg_off, seg_end, live, link_off, link_edges)) -> None:
+        if B == 0:
+            return
+        check_launch("spf_distances_masked", fn(*args))
+        LAUNCHES["spf_distances_masked"] += 1
+
+    return launch, dist
+
+
+def batched_spf_distances_masked(src, dst, w, edge_ok, edge_enabled, overloaded, roots):
+    """[B, V] distances of each row from its root over ``edge_ok &
+    edge_enabled[b]``: kernel 15 for CUDA tensors, the plain version for
+    CPU tensors."""
+    if src.device.type == "cpu":
+        return batched_spf_distances_masked_plain(
+            src, dst, w, edge_ok, edge_enabled, overloaded, roots
+        )
+    return _launched(
+        spf_distances_masked_launcher, src, dst, w, edge_ok, overloaded, roots, edge_enabled
+    )
+
+
+def batched_spf_distances_masked_sets(src, dst, w, edge_ok, link_index, failed, overloaded, roots):
+    """[B, V] distances of each row from its root with the edges of its
+    failed link ids ``failed`` [B, S] (-1 pads) masked: kernel 15 for CUDA
+    tensors, the plain version for CPU tensors."""
+    if src.device.type == "cpu":
+        return batched_spf_distances_masked_sets_plain(
+            src, dst, w, edge_ok, link_index, failed, overloaded, roots
+        )
+    return _launched(
+        spf_distances_masked_launcher, src, dst, w, edge_ok, overloaded, roots, None,
+        link_index, failed,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -50,7 +50,13 @@ def test_sources_import_no_jax_or_reference_package():
 
 def test_every_module_imports_with_jax_and_reference_blocked():
     modules = _modules()
-    assert "openr_tpu_torch.decision.backend" in modules
+    for name in (
+        "openr_tpu_torch.decision.backend",
+        "openr_tpu_torch.decision.ksp2",
+        "openr_tpu_torch.decision.whatif_api",
+        "openr_tpu_torch.emulation.topology",
+    ):
+        assert name in modules
     code = "\n".join(
         [
             "import importlib, sys",
@@ -77,6 +83,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
 def test_backend_without_device_refuses_to_run_without_cuda(monkeypatch):
     from openr_tpu_torch.decision.backend import CudaBackend
     from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.decision.whatif_api import DeviceBuildWhatIfEngine
     from openr_tpu_torch.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -84,4 +91,6 @@ def test_backend_without_device_refuses_to_run_without_cuda(monkeypatch):
         CudaBackend(SpfSolver("node0"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceBuildWhatIfEngine(SpfSolver("node0"))
     assert resolve_device("cpu") == torch.device("cpu")

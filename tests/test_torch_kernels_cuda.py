@@ -626,3 +626,182 @@ def test_backend_on_card_builds_a_segment_encoding(card):
     torch.cuda.synchronize()
     assert {n for n, c in LAUNCHES.items() if c} == {"spf_segment_batch", "multi_area_select_from_tables"}
     assert route_db_summary(got) == route_db_summary(SpfSolver("hub").build_route_db({"0": ls}, ps))
+
+
+# -- kernels 12 and 14 on both of their paths (shared and global state) and
+# kernel 15 (spf_distances_masked) -------------------------------------------
+
+
+@pytest.mark.parametrize("world", ["grid", "multiarea_isolated"])
+def test_fleet_kernels_global_path_equals_shared_path_and_plain(card, world, monkeypatch):
+    """At a shape both of kernel 14's paths take, its global-state path
+    (forced by a shared-memory budget of 0) equals its shared path and the
+    plain version, failed sets too; kernel 12 (always global-state) equals
+    its plain version."""
+    areas, me = _areas(world)
+    enc = csr.encode_multi_area(areas, me)
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    (roots,) = tables_from_numpy((_fleet_roots(enc),), card)
+    dense = tables_from_numpy([getattr(enc, f) for f in FIELDS[:-1]], card)
+    seg = tables_from_numpy([getattr(enc, f) for f in SEGMENT], card)
+    want12 = spf.fleet_spf_dense_plain(*dense, roots, D)
+    want14 = spf.spf_segment_batch_plain(*seg, roots, D)
+    launch, got12 = spf.fleet_spf_dense_launcher(*dense, roots, D)
+    launch()
+    torch.cuda.synchronize()
+    assert torch.equal(got12[0], want12[0]) and torch.equal(got12[1], want12[1])
+    for budget in (spf.MAX_SHARED_BYTES, 0):
+        monkeypatch.setattr(spf, "MAX_SHARED_BYTES", budget)
+        launch, got14 = spf.spf_segment_batch_launcher(*seg, roots, D)
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(got14[0], want14[0]) and torch.equal(got14[1], want14[1]), budget
+    B, S = 64, 3
+    rng = np.random.default_rng(1)
+    fa = rng.integers(-1, enc.num_areas, (B, S)).astype(np.int32)
+    fl = rng.integers(-1, max(len(t.links) for t in enc.topos), (B, S)).astype(np.int32)
+    link_index = np.stack([t.link_index for t in enc.topos])
+    li, fa_t, fl_t = tables_from_numpy((link_index, fa, fl), card)
+    (rows,) = tables_from_numpy((np.repeat(enc.roots[None], B, axis=0),), card)
+    sets = dict(link_index=li, fail_area=fa_t, fail_link=fl_t)
+    want = spf.spf_segment_batch_plain(*seg, rows, D, **sets)
+    launch, got = spf.spf_segment_batch_launcher(*seg, rows, D, **sets)
+    launch()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _backbone(scale=8192):
+    from openr_tpu_torch.emulation.topology import _build_wan
+
+    ls = LinkState("0", "core0")
+    for db in build_adj_dbs(_build_wan(scale, 7)).values():
+        ls.update_adjacency_database(db)
+    return ls
+
+
+def test_fleet_kernels_at_the_16384_node_bucket_take_the_global_path(card):
+    """The 8,192-node backbone (V = 16,384, E = 32,768, K = 32): both
+    kernels' block state exceeds shared memory, and the global path equals
+    the plain versions (kernel 14 with 1-3-link failed sets)."""
+    enc = csr.encode_multi_area({"0": _backbone()}, "core0")
+    V, E = enc.overloaded.shape[1], enc.src.shape[1]
+    K = enc.in_src.shape[2]
+    assert (V, E) == (16384, 32768)
+    assert spf.segment_batch_state_bytes(V, E, 3) > spf.MAX_SHARED_BYTES
+    assert spf.fleet_dense_state_bytes(V, K) > spf.MAX_SHARED_BYTES
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    rng = np.random.default_rng(3)
+    B, S = 8, 3
+    picks = rng.choice(enc.topos[0].num_nodes, B, replace=False).astype(np.int32)
+    (roots,) = tables_from_numpy((picks[:, None],), card)
+    dense = tables_from_numpy([getattr(enc, f) for f in FIELDS[:-1]], card)
+    seg = tables_from_numpy([getattr(enc, f) for f in SEGMENT], card)
+    fl = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        k = 1 + b % 3
+        fl[b, :k] = rng.choice(len(enc.topos[0].links), k, replace=False)
+    fa = np.where(fl >= 0, 0, -1).astype(np.int32)
+    li, fa_t, fl_t = tables_from_numpy((enc.topos[0].link_index[None], fa, fl), card)
+    sets = dict(link_index=li, fail_area=fa_t, fail_link=fl_t)
+    reset_launch_counts()
+    got12 = spf.fleet_spf_dense(*dense, roots, D)
+    got14 = spf.spf_segment_batch(*seg, roots, D, **sets)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fleet_spf_dense"] == 1 and LAUNCHES["spf_segment_batch"] == 1
+    want12 = spf.fleet_spf_dense_plain(*dense, roots, D)
+    want14 = spf.spf_segment_batch_plain(*seg, roots, D, **sets)
+    for got, want in ((got12, want12), (got14, want14)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_segment_kernel_hub_row_on_the_global_path_equals_plain(card):
+    """Kernel 14 at one row on a hub of 5,000 leaves (V = 16,384, the
+    global path; the leaves hold their seed lanes without a round) equals
+    its plain version."""
+    ls = LinkState("0", "hub")
+    for db in build_adj_dbs([("hub", f"leaf{i}", 1) for i in range(5000)]).values():
+        ls.update_adjacency_database(db)
+    enc = csr.encode_multi_area({"0": ls}, "hub")
+    V, E = enc.overloaded.shape[1], enc.src.shape[1]
+    assert V == 16384 and spf.segment_batch_state_bytes(V, E, 0) > spf.MAX_SHARED_BYTES
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    seg = tables_from_numpy([getattr(enc, f) for f in SEGMENT], card)
+    (roots,) = tables_from_numpy((enc.roots[None],), card)
+    reset_launch_counts()
+    got = spf.spf_segment_batch(*seg, roots, D)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spf_segment_batch"] == 1
+    want = spf.spf_segment_batch_plain(*seg, roots, D)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _masked_rows(topo, B, rng, max_links=40):
+    """Roots (the vantage first) and failed link sets of 0-max_links links."""
+    L = len(topo.links)
+    sets = [sorted(rng.choice(L, int(rng.integers(0, max_links + 1)), replace=False).tolist())
+            for _ in range(B)]
+    root = topo.node_id("core0") if "core0" in topo.node_ids else 0
+    cut = np.unique(topo.link_index[(topo.src == root) & (topo.link_index >= 0)])
+    sets[0] = cut.tolist()  # the root cut off
+    return np.full(B, root, np.int32), sets
+
+
+@pytest.mark.parametrize("scale", [64, 8192])
+def test_masked_distance_kernel_equals_plain(card, scale):
+    """Kernel 15, set form and mask form, against its plain version: on a
+    tiny WAN and at the backbone's shape (8,191 rows over V = 16,384)."""
+    topo = csr.encode_link_state(_backbone(scale))
+    rng = np.random.default_rng(scale)
+    B = 8191 if scale == 8192 else 37
+    roots, sets = _masked_rows(topo, B, rng)
+    src, dst, w, ok, li, ovl = tables_from_numpy(
+        [topo.src, topo.dst, topo.w, topo.edge_ok, topo.link_index, topo.overloaded], card
+    )
+    r, f = tables_from_numpy((roots, csr.link_failure_sets(sets)), card)
+    reset_launch_counts()
+    got = spf.batched_spf_distances_masked_sets(src, dst, w, ok, li, f, ovl, r)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spf_distances_masked"] == 1
+    want = spf.batched_spf_distances_masked_sets_plain(src, dst, w, ok, li, f, ovl, r)
+    assert torch.equal(got, want)
+    assert bool((got[0] >= BIG).sum() == got.shape[1] - 1)  # only the root reached
+    n = min(B, 64)
+    (mask,) = tables_from_numpy((csr.link_failure_batch(topo, sets[:n]),), card)
+    got_m = spf.batched_spf_distances_masked(src, dst, w, ok, mask, ovl, r[:n])
+    assert torch.equal(got_m, want[:n])
+
+
+def test_backend_ksp2_on_card_equals_plain_and_scalar(card):
+    """A KSP2 fabric world through CudaBackend on the card: kernels 1-3
+    and 15, equal to the CPU path and the scalar solver."""
+    from openr_tpu_torch.emulation.topology import fabric_edges
+    from openr_tpu_torch.types import PrefixForwardingAlgorithm, PrefixForwardingType
+
+    edges = fabric_edges(num_pods=3, rsws_per_pod=4, fsws_per_pod=2, num_ssws=4)
+    nodes = sorted({n for e in edges for n in e[:2]})
+    labels = {n: 100 + i for i, n in enumerate(nodes)}
+
+    def mk():
+        ls = LinkState("0", "rsw0_0")
+        for db in build_adj_dbs(edges, node_labels=labels).values():
+            ls.update_adjacency_database(db)
+        return {"0": ls}
+
+    ps = PrefixState()
+    for i, n in enumerate(nodes):
+        ps.update_prefix(n, "0", PrefixEntry(
+            f"10.{i}.0.1/32", forwarding_algorithm=PrefixForwardingAlgorithm.KSP2_ED_ECMP,
+            forwarding_type=PrefixForwardingType.SR_MPLS if i % 2 else PrefixForwardingType.IP,
+        ))
+    reset_launch_counts()
+    got = CudaBackend(SpfSolver("rsw0_0"), device=card).build_route_db(mk(), ps)
+    torch.cuda.synchronize()
+    assert {n for n, c in LAUNCHES.items() if c} == {
+        "dense_spf_distances", "dense_spf_nexthop_lanes", "multi_area_select_from_tables",
+        "spf_distances_masked",
+    }
+    want = route_db_summary(SpfSolver("rsw0_0").build_route_db(mk(), ps))
+    assert route_db_summary(got) == want
+    cpu = CudaBackend(SpfSolver("rsw0_0"), device="cpu").build_route_db(mk(), ps)
+    assert route_db_summary(cpu) == want
