@@ -78,6 +78,19 @@ their state in a global scratch, and kernel 14's global-state path):
      form: kernel 14's global path at one row), and kernel 14 at 8 rows of
      1-3-link failed sets on the backbone
 
+and then the flagship what-if step (kernels 16 and 17):
+
+ 18. ``spf_and_select`` (per-snapshot SPF, kernel 16, then per-snapshot
+     selection, kernel 17, with no host sync between) on the headline
+     world (V = 1,024, 3,071 links, E = 8,192, D = 17) at 4,096 rows: rows
+     0-3,070 fail each link once from node0; rows 3,071-4,095 fail link
+     7b mod 3,071, hard-drain node 13b mod 1,024, soft-drain node 29b mod
+     1,024 by 60 and root at node b mod 1,024; a loopback per node and 64
+     anycast /24s of 4 advertisers (P = 1,088, C = 4).  Then
+     ``batched_spf_distinct`` on 64 WANs of the same class (seeds 7-70)
+     and ``graft_entry.entry()`` at the reference's own shape (grid 4,
+     B = 4)
+
 The CUDA kernels are built from ``openr_tpu_torch/kernels/csrc`` at first
 use.  Every build checks, with exact equality:
   * each kernel against its plain PyTorch version on the card, on the
@@ -119,8 +132,13 @@ solver on a third copy; the device-build what-if against
 plain path and 16 roots against the scalar solver; the large hub's
 RouteDb against the plain path and the scalar solver; kernel 14's rows and
 its global path (also at the (f) shape, beside the shared path) against
-their plain versions.  Any mismatch or exception
-exits non-zero.
+their plain versions.  The flagship phase checks, exactly: every call of
+kernels 16 and 17 against its plain version; rows 0-3,070 against the
+cold sweep kernel's tables (kernel 8) from node0, transposed; 32 seeded
+rows, half from each half, on every prefix against the scalar oracle
+(``graft_entry.scalar_route_oracle`` per advertiser, then the selection
+chain in plain Python); ``entry()`` on the card against its CPU forward.
+Any mismatch or exception exits non-zero.
 
 Prints the kernel and phase times with the card's name and power limit,
 a ``{"kernels": [...]}`` line, and last
@@ -140,6 +158,7 @@ import time
 import numpy as np
 import torch
 
+from openr_tpu_torch import graft_entry
 from openr_tpu_torch.decision import ksp2 as ksp2_mod
 from openr_tpu_torch.decision import whatif_api
 from openr_tpu_torch.decision.backend import DEGREE_BUCKETS, CudaBackend
@@ -250,6 +269,14 @@ SOURCES = {
         "openr_tpu_torch/kernels/csrc/spf_warm.cu",
         "openr_tpu/ops/spf.py:226",
     ),
+    "batched_spf": (
+        "openr_tpu_torch/kernels/csrc/spf_warm.cu",
+        "openr_tpu/ops/spf.py:201",
+    ),
+    "batched_select_routes": (
+        "openr_tpu_torch/kernels/csrc/sweep_select.cu",
+        "openr_tpu/ops/route_select.py:112",
+    ),
 }
 
 #: the what-if phases: the reference benchmark's headline world
@@ -297,6 +324,15 @@ SEGMENT_ROWS = 8
 #: launches and spans per timing at the shapes past the bound
 LARGE_LAUNCHES = 5
 LARGE_SPANS = 3
+#: phase (i), the flagship step: rows of the batch, anycast /24s and their
+#: advertisers (the candidate width), rows held against the scalar oracle,
+#: and the distinct WANs of the same class (seeds 7...) for
+#: batched_spf_distinct
+FLAGSHIP_ROWS = 4096
+FLAGSHIP_ANYCAST = 64
+FLAGSHIP_CANDIDATES = 4
+FLAGSHIP_ORACLE_ROWS = 32
+DISTINCT_WANS = 64
 
 
 class CheckFailed(Exception):
@@ -493,6 +529,26 @@ def lane_rounds(planes, dist):
         rounds += 1
 
 
+def dense_relaxations(in_src, in_ok, in_rank, ovl, roots, D):
+    """(usable [R], lanes [R]) of each row of the dense planes: its usable
+    in-edge slots (ok, and the source may transit) and the lanes a root
+    out-edge can seed (one per out-edge of the root, at most D).  The
+    operation term of a bound is one relaxation per usable edge per row:
+    an add and a min for the distances, a max per live lane for the lanes
+    (however many rounds a kernel runs)."""
+    usable = spf.transit_ok(in_src, in_ok, ovl, roots).flatten(1).sum(dim=1)
+    out = (in_src == roots[:, None, None]) & (in_rank >= 0)
+    return usable, out.flatten(1).sum(dim=1).clamp(max=D)
+
+
+def segment_relaxations(src, ok, ovl, roots, D):
+    """:func:`dense_relaxations` over segment-form rows: ``ok`` [R, E] the
+    edges each row may use before the transit rule."""
+    transit = spf.can_transit(ovl, roots)
+    usable = (ok & spf.gather_rows(transit, src)).sum(dim=1)
+    return usable, (src == roots[:, None]).sum(dim=1).clamp(max=D)
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
@@ -525,16 +581,19 @@ class KernelReport:
         self.err[name] = max(self.err[name], e)
 
     def time(self, name, launch, plain_fn, t_bytes, ops, per_round_bytes, rounds,
-             library_fn=None, key=None, launches=TIMED_LAUNCHES, spans=TIMED_SPANS):
+             library_fn=None, key=None, launches=TIMED_LAUNCHES, spans=TIMED_SPANS,
+             plain_spans=None):
         """Time kernel ``name`` (under ``key``, default the name: the
         kernels line reads the names, the other keys are the timings of a
-        kernel's other path or shape)."""
+        kernel's other path or shape); the plain version over
+        ``plain_spans`` calls (default ``spans``)."""
         key = key or name
         if key in self.timing:
             return
         dev_ms, host_ms = per_launch_ms(launch, launches, spans)
         self.timing[key] = dict(
-            ms=dev_ms, host_issue_ms=host_ms, plain_ms=plain_ms(plain_fn, spans),
+            ms=dev_ms, host_issue_ms=host_ms,
+            plain_ms=plain_ms(plain_fn, plain_spans or spans),
             bytes=t_bytes, ops=ops, per_round_bytes=per_round_bytes, rounds=rounds,
             library_ms=None if library_fn is None else plain_ms(library_fn),
         )
@@ -588,16 +647,17 @@ class KernelReport:
         A, V, K = in_src.shape
         r_d = relax_rounds(in_src, in_w, in_ok, ovl, roots)
         r_l = lane_rounds(planes, dist_p)
+        usable, lanes = dense_relaxations(in_src, in_ok, in_rank, ovl, roots, D)
         launch_d, _ = spf.dense_spf_distances_launcher(in_src, in_w, in_ok, ovl, roots)
         launch_n, _ = spf.dense_spf_nexthop_lanes_launcher(*planes, dist_p, D)
         self.time(
             "dense_spf_distances", launch_d, p_dist,
-            nbytes(in_src, in_w, in_ok, ovl, roots, dist_p), 2 * r_d * A * V * K,
+            nbytes(in_src, in_w, in_ok, ovl, roots, dist_p), 2 * int(usable.sum()),
             nbytes(in_src, in_w, in_ok) + 2 * nbytes(dist_p), r_d,
         )
         self.time(
             "dense_spf_nexthop_lanes", launch_n, p_nh,
-            nbytes(*planes, dist_p, nh_p), 2 * r_l * A * V * K * D,
+            nbytes(*planes, dist_p, nh_p), int((usable * lanes).sum()),
             A * V * K * 5 + 2 * nbytes(nh_p), r_l,
         )
 
@@ -1353,9 +1413,9 @@ def _present_rows(roots, A):
 def time_fleet(report, name, call, key=None, force_global=False, launches=TIMED_LAUNCHES,
                spans=TIMED_SPANS):
     """Time kernel ``name`` on one recorded call, with its bound from these
-    inputs: bytes read and written once, and synchronous rounds x edges (or
-    in-edge slots) x the (row, area) pairs solved, the lane rounds x the
-    lanes a root out-edge can seed (kernel 13: the selection chain's
+    inputs: bytes read and written once, and one relaxation per usable
+    edge (or in-edge slot) per (row, area) pair solved, a max per lane a
+    root out-edge can seed for the lanes (kernel 13: the selection chain's
     operations per batch row).  ``force_global`` binds kernel 12 or 14 on
     its global-state path (a shared-memory budget of 0 while the launch is
     bound) and first holds its outputs against the recorded ones.
@@ -1374,10 +1434,9 @@ def time_fleet(report, name, call, key=None, force_global=False, launches=TIMED_
         r_d = relax_rounds(planes[0], planes[1], planes[2], planes[5], planes[6])
         r_l = lane_rounds(planes, outs[0].reshape(-1, V)[rows])
         R = len(rows)
-        # lanes that can carry a bit: one per root out-edge (at most D)
-        out_deg = ((planes[0] == planes[6][:, None, None]) & (planes[3] >= 0)).sum(dim=(1, 2))
-        lanes = int(out_deg.clamp(max=D).sum())
-        ops = 2 * r_d * R * V * K + 2 * r_l * V * K * lanes
+        usable, lanes = dense_relaxations(planes[0], planes[2], planes[3], planes[5],
+                                          planes[6], D)
+        ops = int((2 * usable + usable * lanes).sum())
         per_round = R * nbytes(in_src[0], in_w[0], in_ok[0])
         launcher = spf.fleet_spf_dense_launcher
     elif name == "spf_segment_batch":
@@ -1396,8 +1455,8 @@ def time_fleet(report, name, call, key=None, force_global=False, launches=TIMED_
         r_l = spf.spf_nexthop_lanes_reset_plain(*seg, dist, zero, D, unroll=1)[1]
         r_d, r_l = int(r_d.max()), int(r_l.max())
         R = len(rows)
-        lanes = int((seg[0] == seg[5][:, None]).sum(dim=1).clamp(max=D).sum())
-        ops = 2 * r_d * R * E + 2 * r_l * E * lanes
+        usable, lanes = segment_relaxations(seg[0], seg[3], seg[4], seg[5], D)
+        ops = int((2 * usable + usable * lanes).sum())
         per_round = R * nbytes(src[0], w[0], ok[0])
         launcher = spf.spf_segment_batch_launcher
     else:
@@ -1951,6 +2010,246 @@ def c4_phase(report, rng, backbone_enc):
     return walls
 
 
+# ---------------------------------------------------------------------------
+# (i) the flagship step: kernels 16 and 17
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_ENTRIES = (
+    (rs, "batched_spf", "batched_spf", spf.batched_spf_plain),
+    (rs, "batched_select_routes", "batched_select_routes", rs.batched_select_routes_plain),
+)
+PLAIN_OF["batched_spf"] = spf.batched_spf_plain
+PLAIN_OF["batched_select_routes"] = rs.batched_select_routes_plain
+FLAGSHIP = {"batched_spf", "batched_select_routes"}
+
+
+def flagship_world(rng):
+    """The headline world (bench.py:106) with a loopback per node and
+    FLAGSHIP_ANYCAST anycast /24s of FLAGSHIP_CANDIDATES advertisers each,
+    mixed path and source preferences and drain metrics, every 8th with a
+    min-nexthop of 2.  Returns (edges, LinkState, encoding, candidates)."""
+    edges = random_connected_edges(WHATIF_NODES, 2 * WHATIF_NODES, seed=7)
+    ls, ps, topo = headline_world()
+    names = topo.id_to_node
+    for k in range(FLAGSHIP_ANYCAST):
+        for node in rng.choice(names, FLAGSHIP_CANDIDATES, replace=False):
+            metrics = PrefixMetrics(
+                drain_metric=int(rng.random() < 0.25),
+                path_preference=int(rng.choice([100, 200])),
+                source_preference=int(rng.choice([0, 50])),
+                distance=int(rng.integers(0, 2)),
+            )
+            ps.update_prefix(str(node), "0", PrefixEntry(
+                f"10.250.{k}.0/24", metrics=metrics, min_nexthop=2 if k % 8 == 0 else None))
+    cands = csr.encode_prefix_candidates(ps, topo, "0", max_candidates=FLAGSHIP_CANDIDATES)
+    return edges, ls, topo, cands
+
+
+def flagship_rows(topo):
+    """Rows 0..L-1 fail link b from node0 with the base drains; row b >= L
+    fails link 7b mod L, hard-drains node 13b mod V, soft-drains node
+    29b mod V by 60 and roots at node b mod V (node ids).  Returns
+    (failed [B], overloaded [B, V], soft [B, V], roots [B])."""
+    L, n = len(topo.links), topo.num_nodes
+    b = np.arange(FLAGSHIP_ROWS)
+    tail = b >= L
+    failed = np.where(tail, (7 * b) % L, b).astype(np.int32)
+    ovl = np.tile(topo.overloaded, (FLAGSHIP_ROWS, 1))
+    ovl[b[tail], (13 * b[tail]) % n] = True
+    soft = np.tile(topo.soft, (FLAGSHIP_ROWS, 1))
+    soft[b[tail], (29 * b[tail]) % n] += 60
+    roots = np.where(tail, b % n, topo.node_id("node0")).astype(np.int32)
+    return failed, ovl, soft, roots
+
+
+def oracle_routes(ls, topo, cands, root, link, ovl_row, soft_row, cache):
+    """Each prefix's (valid, metric or None, first-hop set) from the scalar
+    oracle: every advertiser's (metric, first hops) by
+    ``graft_entry.scalar_route_oracle`` on ``ls`` (the row's hard drain set
+    on it) with ``link`` removed, then the selection chain in plain Python
+    (reach, hard-drain filter with fallback, not drained, path and source
+    preference, least distance, skip-if-self, the least-metric winners'
+    first hops, the min-nexthop gate)."""
+    root_name = topo.id_to_node[root]
+    out = []
+    for p in range(cands.cand_node.shape[0]):
+        ans = {}
+        for c in np.nonzero(cands.cand_ok[p])[0]:
+            node = topo.id_to_node[cands.cand_node[p, c]]
+            ans[c] = graft_entry.scalar_route_oracle(ls, topo, root_name, link, node, cache)
+        reach = [c for c in ans if ans[c][0] is not None]
+        use = [c for c in reach if not ovl_row[cands.cand_node[p, c]]] or reach
+
+        def keep(keys, best):
+            vals = [keys(c) for c in use]
+            return [c for c in use if keys(c) == best(vals)] if vals else []
+
+        node_of = lambda c: cands.cand_node[p, c]  # noqa: E731
+        use = keep(lambda c: int(not (cands.drain_metric[p, c] > 0 or soft_row[node_of(c)] > 0)),
+                   max)
+        use = keep(lambda c: cands.path_pref[p, c], max)
+        use = keep(lambda c: cands.source_pref[p, c], max)
+        use = keep(lambda c: cands.distance[p, c], min)
+        if not use:
+            out.append((False, None, set()))
+            continue
+        best = min(ans[c][0] for c in use)
+        hops = set().union(*(ans[c][1] for c in use if ans[c][0] == best))
+        req = max(int(cands.min_nexthop[p, c]) for c in use)
+        self_wins = any(node_of(c) == root for c in use)
+        out.append((not self_wins and len(hops) > 0 and len(hops) >= req, best, hops))
+    return out
+
+
+def hold_flagship_oracle(rng, edges, ls, topo, cands, rows, outs):
+    """FLAGSHIP_ORACLE_ROWS seeded rows, half from each half of the batch,
+    every prefix against :func:`oracle_routes`: validity, metric (where any
+    advertiser is selected) and the first-hop set of valid routes."""
+    failed, ovl, soft, roots = rows
+    valid, metric, lanes = (t.cpu().numpy() for t in outs[:3])
+    L = len(topo.links)
+    half = FLAGSHIP_ORACLE_ROWS // 2
+    picks = sorted(rng.choice(L, half, replace=False).tolist()
+                   + (L + rng.choice(FLAGSHIP_ROWS - L, half, replace=False)).tolist())
+    checked = 0
+    for b in picks:
+        drained = [topo.id_to_node[v] for v in np.nonzero(ovl[b] & ~topo.overloaded)[0]]
+        row_ls = ls
+        if drained:
+            row_ls = LinkState("0")
+            for db in build_adj_dbs(edges, overloaded=drained).values():
+                row_ls.update_adjacency_database(db)
+        link = topo.links[failed[b]]
+        want = oracle_routes(row_ls, topo, cands, int(roots[b]), link, ovl[b], soft[b], {})
+        out_edges = topo.root_out_edges(topo.id_to_node[roots[b]])
+        for p, (ok, best, hops) in enumerate(want):
+            check(bool(valid[b, p]) == ok, f"flagship row {b} prefix {p}: valid != oracle")
+            check(metric[b, p] == (BIG if best is None else best),
+                  f"flagship row {b} prefix {p}: metric {metric[b, p]} != oracle {best}")
+            if ok:
+                got = {out_edges[r][1] for r in np.nonzero(lanes[b, p] > 0)[0]}
+                check(got == hops, f"flagship row {b} prefix {p}: first hops {got} != {hops}")
+            checked += 1
+    return picks, checked
+
+
+def time_flagship(report, rec, mask, rows_d):
+    """Time kernels 16 and 17 on the main run's inputs, with their
+    bounds: inputs read and outputs written once; kernel 16 one
+    relaxation per usable edge per row (an add and a min, then a max per
+    live lane), kernel 17 the chain's operations per row."""
+    (args, _kw, (dist, nh)), = rec.calls["batched_spf"]
+    src, dst, w, ok, _mask, ovl, roots, D = args
+    B = roots.shape[0]
+    usable = lanes = 0
+    for r0, r1 in spf._row_chunks(B, src.shape[0]):
+        u, ln = segment_relaxations(src.expand(r1 - r0, -1), ok[None] & mask[r0:r1], ovl[r0:r1],
+                                    roots[r0:r1], D)
+        usable += int(u.sum())
+        lanes += int((u * ln).sum())
+    t_bytes = nbytes(src, dst, w, ok, mask, ovl, roots, dist, nh)
+    launch, _ = spf.batched_spf_launcher(src, dst, w, ok, ovl, roots, D, edge_enabled=mask)
+    report.time("batched_spf", launch, lambda: spf.batched_spf_plain(*args), t_bytes,
+                2 * usable + lanes, nbytes(src, w, ok), 1, launches=20, plain_spans=2)
+    (args, _kw, outs), = rec.calls["batched_select_routes"]
+    P, C = args[0].shape
+    launch, _ = rs.batched_select_routes_launcher(*args)
+    t_bytes = nbytes(*args, *outs)
+    report.time("batched_select_routes", launch, lambda: rs.batched_select_routes_plain(*args),
+                t_bytes, B * select_ops(P, C, 1, D), t_bytes, 1, plain_spans=2)
+    print(f"[flagship] kernel 16 rows: {usable / B:.1f} usable edges per row", flush=True)
+    for name in ("batched_spf", "batched_select_routes"):
+        t = report.timing[name]
+        bound, by = report.bound_ms(name)
+        print(f"[flagship] {name}: {t['ms']:.4f} ms per launch (host issue "
+              f"{t['host_issue_ms']:.4f}), plain {t['plain_ms']:.2f} ms, bound {bound:.5f} ms "
+              f"({by})", flush=True)
+
+
+def flagship_phase(report, rng):
+    """(i) the flagship step, ``spf_and_select`` (kernel 16 then kernel 17),
+    on the headline world at FLAGSHIP_ROWS rows; rows 0..L-1 against the
+    cold sweep kernel (kernel 8) from node0; seeded rows against the scalar
+    oracle; ``batched_spf_distinct`` on DISTINCT_WANS WANs of the same class;
+    ``graft_entry.entry()`` at the reference's own shape.  Every kernel
+    16/17 call is held against its plain version."""
+    walls = {}
+    dev = torch.device("cuda", 0)
+    edges, ls, topo, cands = flagship_world(rng)
+    rows = failed, ovl, soft, roots = flagship_rows(topo)
+    D = topo.max_out_degree()
+    mask = csr.link_failure_batch(topo, [[int(f)] for f in failed])
+    P, C = cands.cand_node.shape
+    print(f"[flagship] world: V={topo.padded_nodes}, {len(topo.links)} links, "
+          f"E={topo.padded_edges} ({topo.num_edges} real), D={D}, B={FLAGSHIP_ROWS}, P={P}, "
+          f"C={C}; mask {mask.nbytes / 1e6:.1f} MB", flush=True)
+    arrays = [topo.src, topo.dst, topo.w, topo.edge_ok, mask, ovl, soft, roots,
+              cands.cand_node, cands.cand_ok, cands.drain_metric, cands.path_pref,
+              cands.source_pref, cands.distance, cands.min_nexthop]
+    args = tables_from_numpy(arrays, dev)
+    outs, rec, walls["i: flagship step"] = whatif_run(
+        report, "flagship", FLAGSHIP, lambda: rs.spf_and_select(*args, max_degree=D),
+        entries=FLAGSHIP_ENTRIES)
+    valid = outs[0]
+    print(f"[flagship] kernels 16 and 17 == plain; {int(valid.sum())} of {valid.numel()} routes "
+          f"valid", flush=True)
+
+    # rows 0..L-1 against the cold sweep kernel's tables from node0
+    (_a, _k, (dist, nh)), = rec.calls["batched_spf"]
+    L = len(topo.links)
+    src, dst, w, ok, li, ovl0 = tables_from_numpy(
+        [topo.src, topo.dst, topo.w, topo.edge_ok, topo.link_index, topo.overloaded], dev)
+    (fails_t,) = tables_from_numpy([failed[:L]], dev)
+    d8, nh8, _, _ = spf.sweep_spf_link_failures(src, dst, w, ok, li, fails_t, ovl0,
+                                                topo.node_id("node0"), D)
+    check(torch.equal(dist[:L], d8.t()) and torch.equal(nh[:L], nh8.permute(1, 0, 2)),
+          "flagship rows != the cold sweep kernel's tables")
+    print(f"[flagship] rows 0..{L - 1} == kernel 8 (sweep_spf_link_failures) from node0, "
+          f"transposed", flush=True)
+
+    t0 = time.perf_counter()
+    picks, checked = hold_flagship_oracle(rng, edges, ls, topo, cands, rows, outs)
+    print(f"[flagship] {len(picks)} rows x {P} prefixes ({checked}) == scalar oracle "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    time_flagship(report, rec, args[4], rows)
+
+    # batched_spf_distinct on WANs of the same class, one per row
+    topos = []
+    for seed in range(7, 7 + DISTINCT_WANS):
+        row_ls = LinkState("0")
+        for db in build_adj_dbs(random_connected_edges(WHATIF_NODES, 2 * WHATIF_NODES,
+                                                       seed=seed)).values():
+            row_ls.update_adjacency_database(db)
+        topos.append(csr.encode_link_state(row_ls, node_bucket=topo.padded_nodes,
+                                           edge_bucket=topo.padded_edges))
+    n = len(topos)
+    stack = [np.stack([getattr(t, f) for t in topos]) for f in ("src", "dst", "w", "edge_ok")]
+    d_ovl = np.stack([t.overloaded for t in topos])
+    d_ovl[np.arange(n), (13 * np.arange(n)) % topo.num_nodes] = True
+    d_roots = (np.arange(n) % topo.num_nodes).astype(np.int32)
+    d_max = max(t.max_out_degree() for t in topos)
+    d_args = tables_from_numpy(stack + [d_ovl, d_roots], dev)
+    reset_launch_counts()
+    got = spf.batched_spf_distinct(*d_args, d_max)
+    torch.cuda.synchronize()
+    check({k for k, v in LAUNCHES.items() if v} == {"batched_spf"}, "distinct: not kernel 16 alone")
+    report.launches["batched_spf"] += LAUNCHES["batched_spf"]
+    report.held("batched_spf", list(zip(got, spf.batched_spf_distinct_plain(*d_args, d_max))))
+    print(f"[flagship] batched_spf_distinct on {n} WANs (seeds 7..{6 + n}, "
+          f"{min(t.num_edges for t in topos)}-{max(t.num_edges for t in topos)} real edges of "
+          f"E={topo.padded_edges}, D={d_max}) == plain", flush=True)
+
+    # the entry point at the reference's own shape
+    forward, e_args = graft_entry.entry()
+    e_outs, _rec, walls["i: entry()"] = whatif_run(
+        report, "flagship:entry", FLAGSHIP, lambda: forward(*e_args), entries=FLAGSHIP_ENTRIES)
+    cpu_forward, cpu_args = graft_entry.entry(device="cpu")
+    check(all(torch.equal(g.cpu(), c) for g, c in zip(e_outs, cpu_forward(*cpu_args))),
+          "entry() on the card != entry(device='cpu')")
+    print("[flagship:entry] graft_entry.entry() == its CPU forward", flush=True)
+    return walls
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2020,6 +2319,9 @@ def main():
     ksp2_walls, backbone_enc = ksp2_phase(report, rng)
     walls.update(ksp2_walls)
     walls.update(c4_phase(report, rng, backbone_enc))
+
+    # 18. the flagship step
+    walls.update(flagship_phase(report, rng))
 
     for name in KERNEL_NAMES:
         t = report.timing[name]

@@ -23,6 +23,8 @@ KERNEL_NAMES = (
     "fleet_select",
     "spf_segment_batch",
     "spf_distances_masked",
+    "batched_spf",
+    "batched_select_routes",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

@@ -16,7 +16,12 @@
 //   :217 whatif_multi_area_tables                     (kernel 14 here),
 // and the KSP2_ED_ECMP k-th-path re-solve
 //   openr_tpu/ops/spf.py:226 batched_spf_distances_masked (kernel 15 here)
-// called by openr_tpu/decision/ksp2.py:94 Ksp2DeviceEngine._device_resolve.
+// called by openr_tpu/decision/ksp2.py:94 Ksp2DeviceEngine._device_resolve,
+// and the per-snapshot what-if batches
+//   openr_tpu/ops/spf.py:201 batched_spf, :178 batched_spf_link_failures,
+//   :247 batched_spf_distinct                         (kernel 16 here)
+// behind openr_tpu/ops/route_select.py:449 spf_and_select, the flagship
+// step of __graft_entry__.py.
 //
 // All three read the SEGMENT form of the topology: directed edges sorted
 // by dst, so vertex v's in-edges are the run [off[v], off[v+1]) (the
@@ -104,6 +109,27 @@
 // exist.  A row whose root is cut off ends after its first round.  What
 // bounds it: the rounds' L2 reads, 40-50 synchronous rounds per row on
 // the backbone (PERF.md).
+//
+// Kernel 16 (batched_spf) is kernel 14's solve, one block of 512 threads
+// per what-if row b (its lane rounds over a packed list of each moving
+// vertex's propagating sources, OR-accumulating as the reference's cold
+// lanes do), with everything per row that kernel 14 shares: the
+// root roots[b], the hard-drain row overloaded[b] (an overloaded node
+// relaxes only when it is that row's root), and the row's edge bits in
+// shared memory (kernel 15's: from its [E] bool mask row, or its failed
+// link ids through the link CSR, or all set).  The edge list is shared or,
+// for batched_spf_distinct, row b's own (row stride E, per-row segment
+// offsets).  Each row ranks its own root's out-edges (all of them, usable
+// or not, in edge order: the reference's lane numbering), so rows with
+// different roots never share lanes.  The state, 4(2V + E + 514 + E/32) +
+// 4V + E bytes (56,328 at the flagship's V = 1,024, E = 8,192: 4 blocks
+// of 512 threads fill an SM), lives in shared memory where it fits, else
+// in kernel 14's global-scratch layout with a grid-stride loop over the
+// rows.  The lane rounds run on the output rows (L1/L2-resident): a row's
+// lanes in shared memory too were no faster at 512 threads (PERF.md).  What bounds it: latency, as
+// kernel 14 — a row's rounds run on one SM; the bound counts one
+// relaxation per usable edge per row against the [B, V, D] lane output's
+// bytes (PERF.md).
 //
 // What bounds it: latency, not bytes.  Each round re-reads the area's
 // edge arrays (L2-resident at these sizes) and the loop runs for the
@@ -369,37 +395,64 @@ struct MaskedEdges {
   }
 };
 
-// Visits every i < n in index order, calling emit(i, rank) with i's rank
-// among the i that satisfy pred (-1 where pred is false): a block scan
-// over contiguous chunks.  counts holds blockDim.x + 1 ints of scratch.
-// Returns the number that satisfy pred; ends with a barrier.
-template <class Pred, class Emit>
-__device__ int block_ranks(int32_t* counts, int n, Pred pred, Emit emit) {
+// Visits every i < n in index order, calling emit(i, offset) with the sum
+// of weight(j) over j < i: a block scan over contiguous chunks.  counts
+// holds blockDim.x + 1 ints of scratch (blockDim.x a multiple of 32).  Returns the sum of every
+// weight; ends with a barrier.
+template <class Weight, class Emit>
+__device__ int block_offsets(int32_t* counts, int n, Weight weight,
+                             Emit emit) {
   const int T = blockDim.x;
   const int chunk = (n + T - 1) / T;
   const int lo = min(n, (int)threadIdx.x * chunk);
   const int hi = min(n, lo + chunk);
   int c = 0;
-  for (int i = lo; i < hi; ++i) c += pred(i);
-  counts[threadIdx.x] = c;
+  for (int i = lo; i < hi; ++i) c += weight(i);
+  // exclusive scan of c over the block: within each warp by shuffles, then
+  // the warp totals by warp 0 (blockDim.x a multiple of 32)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int inc = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) counts[warp] = inc;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int t = 0; t < T; ++t) {
-      const int k = counts[t];
-      counts[t] = run;
-      run += k;
+  if (warp == 0) {
+    const int t = lane < (T >> 5) ? counts[lane] : 0;
+    int ti = t;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, ti, o);
+      if (lane >= o) ti += y;
     }
-    counts[T] = run;
+    if (lane < (T >> 5)) counts[lane] = ti - t;
+    if (lane == 31) counts[T] = ti;
   }
   __syncthreads();
-  int next = counts[threadIdx.x];
-  for (int i = lo; i < hi; ++i) emit(i, pred(i) ? next++ : -1);
+  int next = counts[warp] + inc - c;
+  for (int i = lo; i < hi; ++i) {
+    const int k = weight(i);
+    emit(i, next);
+    next += k;
+  }
   __syncthreads();
   return counts[T];
 }
 
+// emit(i, rank) with i's rank among the i < n that satisfy pred (-1 where
+// pred is false), in index order; returns how many do.
+template <class Pred, class Emit>
+__device__ int block_ranks(int32_t* counts, int n, Pred pred, Emit emit) {
+  return block_offsets(
+      counts, n, [&](int i) { return pred(i) ? 1 : 0; },
+      [&](int i, int k) { emit(i, pred(i) ? k : -1); });
+}
+
 constexpr int kBatchThreads = 256;
+// kernel 16's threads per row (512: the fastest of 256, 512 and 1,024 at
+// the flagship shape on the H100, PERF.md)
+constexpr int kRowThreads = 512;
 
 // Kernel 14's per-block state, carved from `base` (dynamic shared memory,
 // or the block's slice of a global scratch): run ends [V], lane ranks [E],
@@ -554,6 +607,42 @@ struct BitMaskedEdges {
 
 constexpr int kMaskedThreads = 1024;
 
+// Row b's edge bits (one per edge, bit e % 32 of word e / 32): its row of
+// edge_enabled [B, E] bool packed 32 to a word, or, when that is null,
+// every edge but those of its failed link ids fail_link [B, S] (-1 pads
+// and ids past L mask nothing; link_off [L + 1] and link_edges list each
+// link's edges), or every edge when both are null.  Ends with a barrier.
+__device__ void row_edge_bits(uint32_t* bits, int b, int E,
+                              const uint8_t* __restrict__ edge_enabled,
+                              const int32_t* __restrict__ fail_link, int S,
+                              const int32_t* __restrict__ link_off,
+                              const int32_t* __restrict__ link_edges, int L) {
+  const int words = (E + 31) / 32;
+  if (edge_enabled) {
+    const uint8_t* row = edge_enabled + (size_t)b * E;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      uint32_t word = 0;
+      for (int j = 0, e = i * 32; j < 32 && e < E; ++j, ++e)
+        word |= (uint32_t)(row[e] != 0) << j;
+      bits[i] = word;
+    }
+  } else {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) bits[i] = ~0u;
+    if (fail_link) {
+      __syncthreads();
+      for (int s = threadIdx.x; s < S; s += blockDim.x) {
+        const int f = fail_link[(size_t)b * S + s];
+        if (f < 0 || f >= L) continue;  // a -1 pad masks nothing
+        for (int k = link_off[f]; k < link_off[f + 1]; ++k) {
+          const int e = link_edges[k];
+          atomicAnd(&bits[e >> 5], ~(1u << (e & 31)));
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // Kernel 15: distances only, one block per row b, from roots[b] over the
 // one shared edge list with row b's edges masked: either by its row of
 // edge_enabled [B, E], or by its failed link ids fail_link [B, S] (-1
@@ -575,27 +664,8 @@ __global__ void __launch_bounds__(kMaskedThreads) spf_distances_masked_kernel(
   uint32_t* enabled = reinterpret_cast<uint32_t*>(d + V);
   const int b = blockIdx.x;
   const int root = roots[b];
-  const int words = (E + 31) / 32;
-  if (edge_enabled) {
-    const uint8_t* row = edge_enabled + (size_t)b * E;
-    for (int i = threadIdx.x; i < words; i += blockDim.x) {
-      uint32_t word = 0;
-      for (int j = 0, e = i * 32; j < 32 && e < E; ++j, ++e)
-        word |= (uint32_t)(row[e] != 0) << j;
-      enabled[i] = word;
-    }
-  } else {
-    for (int i = threadIdx.x; i < words; i += blockDim.x) enabled[i] = ~0u;
-    __syncthreads();
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const int f = fail_link[(size_t)b * S + s];
-      if (f < 0 || f >= L) continue;  // a -1 pad masks nothing
-      for (int k = link_off[f]; k < link_off[f + 1]; ++k) {
-        const int e = link_edges[k];
-        atomicAnd(&enabled[e >> 5], ~(1u << (e & 31)));
-      }
-    }
-  }
+  row_edge_bits(enabled, b, E, edge_enabled, fail_link, S, link_off,
+                link_edges, L);
   for (int v = threadIdx.x; v < V; v += blockDim.x)
     d[v] = v == root ? 0.f : big;
   __syncthreads();
@@ -606,6 +676,164 @@ __global__ void __launch_bounds__(kMaskedThreads) spf_distances_masked_kernel(
                   num_live);
   for (int v = threadIdx.x; v < V; v += blockDim.x)
     dist_out[(size_t)b * V + v] = d[v];
+}
+
+// Kernel 16's per-block state, carved from `base` (dynamic shared memory,
+// or the block's slice of a global scratch): run ends [V], lane ranks [E]
+// (then the packed propagating sources), scan counts [T + 1], the moving
+// vertices' source offsets [V + 1], the row's edge bits [ceil(E / 32)],
+// distances [V] (then the moving vertices) and edge classes [E].
+__host__ __device__ inline size_t batched_spf_state_bytes(int V, int E) {
+  return (size_t)(V + E + kRowThreads + 1 + V + 1 + (E + 31) / 32) * 4 +
+         (size_t)V * sizeof(float) + (size_t)E;
+}
+
+// Kernel 16's lane fixed point: the moving vertices (moving[k], k <
+// num_moving) OR-accumulate, over their first L lanes, the lanes of their
+// propagating in-edges' sources psrc[poff[k], poff[k + 1]), in place until
+// a round changes nothing.  This is the reference's own cold update (a
+// lane once set stays set, from the fill and the seeds); on the DAG its
+// fixed point above the seeds is unique, so update order does not matter.
+__device__ void or_lanes(int8_t* nh, const int32_t* moving, int num_moving,
+                         const int32_t* poff, const int32_t* psrc, int V,
+                         int L, int D) {
+  const int n = num_moving * L;
+  for (int round = 0; round < V; ++round) {
+    int changed = 0;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int k = i / L;
+      const int l = i - k * L;
+      const size_t at = (size_t)moving[k] * D + l;
+      const int cur = nh[at];
+      int x = cur;
+      for (int j = poff[k]; j < poff[k + 1]; ++j) {
+        const int y = nh[(size_t)psrc[j] * D + l];
+        x = y > x ? y : x;
+      }
+      if (x != cur) {
+        nh[at] = (int8_t)x;
+        changed = 1;
+      }
+    }
+    if (!__syncthreads_or(changed)) break;
+  }
+}
+
+// Kernel 16's work on row b: distances and lanes from roots[b] over the
+// row's edge list (the shared one, or row b's when `distinct`), usable
+// where edge_ok, the row's edge bit and the transit rule of its own
+// overloaded row allow.  Lanes as kernel 14's: the rank of an edge among
+// ALL of the row root's out-edges in edge order (disabled ones included,
+// as the reference's is_root_out = src == root), an empty run -128, the
+// seeds set before the rounds, the rounds over the vertices with a
+// propagating in-edge only, on the output rows in device memory.
+__device__ __forceinline__ void batched_spf_row(
+    int32_t* state, int b, bool distinct, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ dst, const float* __restrict__ w,
+    const uint8_t* __restrict__ edge_ok, const int32_t* __restrict__ seg_off,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
+    const uint8_t* __restrict__ edge_enabled,
+    const int32_t* __restrict__ fail_link,
+    const int32_t* __restrict__ link_off,
+    const int32_t* __restrict__ link_edges, float* __restrict__ dist_out,
+    int8_t* nh, int V, int E, int D, int S, int L, float big) {
+  const int words = (E + 31) / 32;
+  int32_t* end = state;
+  int32_t* rank = end + V;
+  int32_t* counts = rank + E;
+  int32_t* poff = counts + blockDim.x + 1;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(poff + V + 1);
+  float* d = reinterpret_cast<float*>(bits + words);
+  uint8_t* cls = reinterpret_cast<uint8_t*>(d + V);
+  const int VD = V * D;
+  const int root = roots[b];
+  const size_t edges_at = distinct ? (size_t)b * E : 0;
+  const int32_t* off = seg_off + (distinct ? (size_t)b * (V + 1) : 0);
+  const int32_t* esrc = src + edges_at;
+  float* dist = dist_out + (size_t)b * V;
+  int8_t* lanes = nh + (size_t)b * V * D;
+  row_edge_bits(bits, b, E, edge_enabled, fail_link, S, link_off, link_edges,
+                L);
+  const int root_out = block_ranks(
+      counts, E, [&](int e) { return esrc[e] == root; },
+      [&](int e, int k) { rank[e] = k; });
+  for (int v = threadIdx.x; v < V; v += blockDim.x)
+    d[v] = v == root ? 0.f : big;
+  enabled_run_ends(end, off, dst + edges_at, edge_ok + edges_at, V, E);
+  const BitMaskedEdges edges{edge_ok + edges_at, overloaded + (size_t)b * V,
+                             bits, root};
+  relax_distances(d, off, end, esrc, w + edges_at, edges, nullptr, V, big);
+  for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = d[v];
+  classify_edges(cls, d, off, end, esrc, w + edges_at, rank, edges, nullptr,
+                 V, big);
+  // D need not be a multiple of 4 (17 on the flagship world): byte stores
+  for (int i = threadIdx.x; i < VD; i += blockDim.x) {
+    const int v = i / D;
+    lanes[i] = off[v] < off[v + 1] ? 0 : -128;
+  }
+  __syncthreads();
+  const int Lr = root_out < D ? root_out : D;
+  for (int v = threadIdx.x; v < V; v += blockDim.x)
+    for (int e = off[v]; e < end[v]; ++e)
+      if (cls[e] == kSeed && rank[e] < Lr) lanes[(size_t)v * D + rank[e]] = 1;
+  int32_t* moving = reinterpret_cast<int32_t*>(d);
+  const auto propagating = [&](int v) {
+    int c = 0;
+    for (int e = off[v]; e < end[v]; ++e) c += cls[e] == kPropagate;
+    return c;
+  };
+  const int num_moving = block_ranks(
+      counts, V, [&](int v) { return propagating(v) > 0; },
+      [&](int v, int k) {
+        if (k >= 0) moving[k] = v;
+      });
+  // pack the moving vertices' propagating sources in the lane ranks' place
+  // (the seeds, the last readers of the ranks, are behind the barriers)
+  int32_t* psrc = rank;
+  const int num_prop = block_offsets(
+      counts, num_moving, [&](int k) { return propagating(moving[k]); },
+      [&](int k, int o) {
+        const int v = moving[k];
+        poff[k] = o;
+        for (int e = off[v]; e < end[v]; ++e)
+          if (cls[e] == kPropagate) psrc[o++] = esrc[e];
+      });
+  if (threadIdx.x == 0) poff[num_moving] = num_prop;
+  __syncthreads();
+  or_lanes(lanes, moving, num_moving, poff, psrc, V, Lr, D);
+}
+
+// Kernel 16 over B rows: one block per row with its state in dynamic
+// shared memory (kGlobal false), or a fixed grid walking the rows with
+// each block's state in its slice of `scratch` (state_ints each).
+template <bool kGlobal>
+__global__ void __launch_bounds__(kRowThreads) batched_spf_kernel(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
+    const int32_t* __restrict__ seg_off, int distinct,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
+    const uint8_t* __restrict__ edge_enabled,
+    const int32_t* __restrict__ fail_link,
+    const int32_t* __restrict__ link_off,
+    const int32_t* __restrict__ link_edges, float* __restrict__ dist_out,
+    int8_t* nh, int32_t* scratch, size_t state_ints, int B, int V, int E,
+    int D, int S, int L, float big) {
+  if constexpr (!kGlobal) {
+    extern __shared__ int32_t shared_ints[];
+    batched_spf_row(shared_ints, blockIdx.x, distinct != 0, src, dst, w,
+                    edge_ok, seg_off, overloaded, roots, edge_enabled,
+                    fail_link, link_off, link_edges, dist_out, nh, V, E, D, S,
+                    L, big);
+  } else {
+    int32_t* state = scratch + blockIdx.x * state_ints;
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      batched_spf_row(state, b, distinct != 0, src, dst, w, edge_ok, seg_off,
+                      overloaded, roots, edge_enabled, fail_link, link_off,
+                      link_edges, dist_out, nh, V, E, D, S, L, big);
+      // the next row rewrites the state this one's threads may still read
+      __syncthreads();
+    }
+  }
 }
 
 template <class Kernel>
@@ -726,5 +954,39 @@ extern "C" int openr_spf_distances_masked(
       (const int32_t*)link_off, (const int32_t*)link_edges,
       (const int32_t*)seg_off, (const int32_t*)seg_end, (const int32_t*)live,
       num_live, (float*)dist, V, E, S, L, big);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int openr_batched_spf(
+    const void* src, const void* dst, const void* w, const void* edge_ok,
+    const void* seg_off, int distinct, const void* overloaded,
+    const void* roots, const void* edge_enabled, const void* fail_link,
+    const void* link_off, const void* link_edges, void* dist, void* nh,
+    void* scratch, int grid, int B, int V, int E, int D, int S, int L,
+    float big, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  const size_t state = batched_spf_state_bytes(V, E);
+  if (scratch) {
+    // the global-state path: each block's state in its slice of scratch
+    // (grid slices, each rounded up to whole 16-byte words)
+    const size_t state_ints = (state + 15) / 16 * 4;
+    batched_spf_kernel<true><<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)src, (const int32_t*)dst, (const float*)w,
+        (const uint8_t*)edge_ok, (const int32_t*)seg_off, distinct,
+        (const uint8_t*)overloaded, (const int32_t*)roots,
+        (const uint8_t*)edge_enabled, (const int32_t*)fail_link,
+        (const int32_t*)link_off, (const int32_t*)link_edges, (float*)dist,
+        (int8_t*)nh, (int32_t*)scratch, state_ints, B, V, E, D, S, L, big);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t err = allow_smem(batched_spf_kernel<false>, state);
+  if (err != cudaSuccess) return (int)err;
+  batched_spf_kernel<false><<<B, kRowThreads, state, (cudaStream_t)stream>>>(
+      (const int32_t*)src, (const int32_t*)dst, (const float*)w,
+      (const uint8_t*)edge_ok, (const int32_t*)seg_off, distinct,
+      (const uint8_t*)overloaded, (const int32_t*)roots,
+      (const uint8_t*)edge_enabled, (const int32_t*)fail_link,
+      (const int32_t*)link_off, (const int32_t*)link_edges, (float*)dist,
+      (int8_t*)nh, nullptr, 0, B, V, E, D, S, L, big);
   return (int)cudaGetLastError();
 }

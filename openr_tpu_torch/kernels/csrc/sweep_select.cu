@@ -1,5 +1,5 @@
 // What-if sweep selection and delta compaction for Hopper (sm_90a):
-// kernels 10 and 11.
+// kernels 10, 11 and 17.
 //
 // Kernel 10 replaces the jitted XLA kernel of the JAX package
 //   openr_tpu/ops/sweep_select.py:155 _select_chunk
@@ -41,8 +41,23 @@
 // order.  What bounds it: bytes — the changed words once, the rows it
 // copies once.
 //
+// Kernel 17 replaces the jitted XLA kernel of the JAX package
+//   openr_tpu/ops/route_select.py:112 batched_select_routes
+// (and the selection half of :449 spf_and_select, the flagship step): the
+// same chain (select_chain, shared with kernel 10) for every (row,
+// prefix), with the row's own hard drains, soft drains and root, against
+// row tables dist [B, V] and unpacked int8 lanes nh [B, V, D]; it writes
+// all five outputs (valid, metric, lanes [B, P, D] int8, num_nexthops,
+// use [B, P, C]).  Design: one thread per (row, prefix), rows on grid x
+// through a grid-stride loop (kernel 10's per-snapshot grid y stops at
+// 65,535).  What bounds it: bytes — the outputs are written once (the
+// lanes [B, P, D] and use [B, P, C] dominate), each row's dist and the
+// winners' lane rows are gathered from L2.
+//
 // Traps: metric comparisons are exact (no --use_fast_math); a prefix
-// beyond P in the last changed word is masked off.
+// beyond P in the last changed word is masked off; kernel 17's lane rows
+// (D = 17 on the flagship world) are read and written bytewise, no
+// alignment assumed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +79,70 @@ __device__ __forceinline__ uint64_t keep_max(uint64_t mask, const int32_t* key,
   for (int c = 0; c < C; ++c)
     if ((mask & bit(c)) && key[c] == best) out |= bit(c);
   return out;
+}
+
+// The selection chain of one prefix row over its C candidates (the row's
+// columns: node, ok, drain_metric, path_pref, source_pref, distance,
+// min_nexthop), against one snapshot's SPF distances, hard-drain bits and
+// soft-drain increments, read through dist_of(n), hard_of(n) and
+// soft_of(n).  Kernels 10 and 17 share it; only their lane layouts differ.
+struct Selection {
+  uint64_t use;      // the selection winners (after the min distance)
+  uint64_t winners;  // those of them at the least SPF distance
+  float best_igp;    // that distance (big when there is no winner)
+  int32_t req;       // min-nexthop requirement: max over use, 0 elsewhere
+  bool self_wins;    // the root advertises among the winners
+};
+
+template <class Dist, class Hard, class Soft>
+__device__ __forceinline__ Selection select_chain(
+    const int32_t* node, const uint8_t* ok, const int32_t* drain_metric,
+    const int32_t* path_pref, const int32_t* source_pref,
+    const int32_t* distance, const int32_t* min_nexthop, int C, int root,
+    float big, Dist dist_of, Hard hard_of, Soft soft_of) {
+  uint64_t reach = 0, hard = 0;
+  for (int c = 0; c < C; ++c) {
+    const int n = node[c];
+    if (ok[c] && dist_of(n) < big) reach |= bit(c);
+    if (hard_of(n)) hard |= bit(c);
+  }
+  const uint64_t nonhard = reach & ~hard;
+  uint64_t use = nonhard ? nonhard : reach;
+  // not drained: neither an advertised drain metric nor a soft drain
+  int32_t best = INT32_MIN;
+  for (int c = 0; c < C; ++c)
+    if (use & bit(c)) {
+      const int32_t k = (drain_metric[c] > 0 || soft_of(node[c]) > 0) ? 0 : 1;
+      best = k > best ? k : best;
+    }
+  uint64_t kept = 0;
+  for (int c = 0; c < C; ++c)
+    if (use & bit(c)) {
+      const int32_t k = (drain_metric[c] > 0 || soft_of(node[c]) > 0) ? 0 : 1;
+      if (k == best) kept |= bit(c);
+    }
+  use = kept;
+  use = keep_max(use, path_pref, C);
+  use = keep_max(use, source_pref, C);
+  int32_t lo = INT32_MAX;
+  for (int c = 0; c < C; ++c)
+    if ((use & bit(c)) && distance[c] < lo) lo = distance[c];
+  kept = 0;
+  for (int c = 0; c < C; ++c)
+    if ((use & bit(c)) && distance[c] == lo) kept |= bit(c);
+  use = kept;
+
+  Selection sel{use, 0, big, INT32_MIN, false};
+  for (int c = 0; c < C; ++c) {
+    const bool u = use & bit(c);
+    if (u && node[c] == root) sel.self_wins = true;
+    if (u) sel.best_igp = fminf(sel.best_igp, dist_of(node[c]));
+    const int32_t r = u ? min_nexthop[c] : 0;
+    sel.req = r > sel.req ? r : sel.req;
+  }
+  for (int c = 0; c < C; ++c)
+    if ((use & bit(c)) && dist_of(node[c]) == sel.best_igp) sel.winners |= bit(c);
+  return sel;
 }
 
 __global__ void __launch_bounds__(kSelectThreads) select_chunk_kernel(
@@ -92,52 +171,12 @@ __global__ void __launch_bounds__(kSelectThreads) select_chunk_kernel(
   if (p < P) {
     const size_t row = (size_t)p * C;
     const int32_t* node = cand_node + row;
-    uint64_t reach = 0, hard = 0;
-    for (int c = 0; c < C; ++c) {
-      const int n = node[c];
-      if (cand_ok[row + c] && dist[(size_t)n * b + s] < big) reach |= bit(c);
-      if (overloaded[n]) hard |= bit(c);
-    }
-    const uint64_t nonhard = reach & ~hard;
-    uint64_t use = nonhard ? nonhard : reach;
-    // not drained: neither an advertised drain metric nor a soft drain
-    int32_t best = INT32_MIN;
-    for (int c = 0; c < C; ++c)
-      if (use & bit(c)) {
-        const int32_t k = (drain_metric[row + c] > 0 || soft[node[c]] > 0) ? 0 : 1;
-        best = k > best ? k : best;
-      }
-    uint64_t kept = 0;
-    for (int c = 0; c < C; ++c)
-      if (use & bit(c)) {
-        const int32_t k = (drain_metric[row + c] > 0 || soft[node[c]] > 0) ? 0 : 1;
-        if (k == best) kept |= bit(c);
-      }
-    use = kept;
-    use = keep_max(use, path_pref + row, C);
-    use = keep_max(use, source_pref + row, C);
-    int32_t lo = INT32_MAX;
-    for (int c = 0; c < C; ++c)
-      if ((use & bit(c)) && distance[row + c] < lo) lo = distance[row + c];
-    kept = 0;
-    for (int c = 0; c < C; ++c)
-      if ((use & bit(c)) && distance[row + c] == lo) kept |= bit(c);
-    use = kept;
-
-    bool self_wins = false;
-    float best_igp = big;
-    int32_t req = INT32_MIN;
-    for (int c = 0; c < C; ++c) {
-      const bool u = use & bit(c);
-      if (u && node[c] == root) self_wins = true;
-      if (u) best_igp = fminf(best_igp, dist[(size_t)node[c] * b + s]);
-      const int32_t r = u ? min_nexthop[row + c] : 0;
-      req = r > req ? r : req;
-    }
-    uint64_t winners = 0;
-    for (int c = 0; c < C; ++c)
-      if ((use & bit(c)) && dist[(size_t)node[c] * b + s] == best_igp)
-        winners |= bit(c);
+    const Selection sel = select_chain(
+        node, cand_ok + row, drain_metric + row, path_pref + row,
+        source_pref + row, distance + row, min_nexthop + row, C, root, big,
+        [&](int n) { return dist[(size_t)n * b + s]; },
+        [&](int n) { return overloaded[n] != 0; },
+        [&](int n) { return soft[n]; });
 
     int num_nh = 0;
     bool lanes_differ = false;
@@ -146,7 +185,7 @@ __global__ void __launch_bounds__(kSelectThreads) select_chunk_kernel(
       uint32_t word = 0;
       const int d_end = D < 32 * (k + 1) ? D : 32 * (k + 1);
       for (int c = 0; c < C; ++c) {
-        if (!(winners & bit(c))) continue;
+        if (!(sel.winners & bit(c))) continue;
         const uint32_t* src = nh + (size_t)node[c] * D * Bw + sw;
         for (int d = 32 * k; d < d_end; ++d)
           word |= ((src[(size_t)d * Bw] >> sb) & 1u) << (d - 32 * k);
@@ -155,16 +194,70 @@ __global__ void __launch_bounds__(kSelectThreads) select_chunk_kernel(
       num_nh += __popc(word);
       lanes_differ |= word != base_lanes[(size_t)p * Dw + k];
     }
-    const bool valid = winners && !self_wins && best_igp < big && num_nh > 0 &&
-                       num_nh >= req;
+    const bool valid = sel.winners && !sel.self_wins && sel.best_igp < big &&
+                       num_nh > 0 && num_nh >= sel.req;
     valid_out[(size_t)s * P + p] = valid;
-    metric_out[(size_t)s * P + p] = best_igp;
+    metric_out[(size_t)s * P + p] = sel.best_igp;
     const bool bv = base_valid[p];
     changed = (valid != bv) ||
-              (valid && bv && (best_igp != base_metric[p] || lanes_differ));
+              (valid && bv && (sel.best_igp != base_metric[p] || lanes_differ));
   }
   const uint32_t word = __ballot_sync(kFull, changed);
   if ((threadIdx.x & 31) == 0 && p < P) changed_out[(size_t)s * Pw + (p >> 5)] = word;
+}
+
+// Kernel 17: the chain for every (row, prefix) pair i = b * P + p, one
+// thread each in a grid-stride loop (rows on grid x: no 65,535 limit),
+// against row b's tables dist [B, V] and unpacked int8 lanes nh [B, V, D],
+// hard drains overloaded [B, V], soft drains soft [B, V] and root
+// roots[b].  The lane union is the reference's int8 max over the
+// candidates, a non-winner contributing 0 (so a lone winner's -128 fill
+// row survives, as there); num_nh sums the lanes in int32.
+__global__ void __launch_bounds__(kSelectThreads) batched_select_kernel(
+    const float* __restrict__ dist, const int8_t* __restrict__ nh,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
+    const int32_t* __restrict__ roots, const int32_t* __restrict__ cand_node,
+    const uint8_t* __restrict__ cand_ok,
+    const int32_t* __restrict__ drain_metric,
+    const int32_t* __restrict__ path_pref,
+    const int32_t* __restrict__ source_pref,
+    const int32_t* __restrict__ distance,
+    const int32_t* __restrict__ min_nexthop, uint8_t* __restrict__ valid_out,
+    float* __restrict__ metric_out, int8_t* __restrict__ nh_out,
+    int32_t* __restrict__ num_out, uint8_t* __restrict__ use_out, int B,
+    int V, int P, int C, int D, float big) {
+  const size_t total = (size_t)B * P;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int b = (int)(i / P);
+    const int p = (int)(i - (size_t)b * P);
+    const size_t row = (size_t)p * C;
+    const int32_t* node = cand_node + row;
+    const float* d = dist + (size_t)b * V;
+    const uint8_t* ovl = overloaded + (size_t)b * V;
+    const int32_t* sft = soft + (size_t)b * V;
+    const Selection sel = select_chain(
+        node, cand_ok + row, drain_metric + row, path_pref + row,
+        source_pref + row, distance + row, min_nexthop + row, C, roots[b],
+        big, [&](int n) { return d[n]; }, [&](int n) { return ovl[n] != 0; },
+        [&](int n) { return sft[n]; });
+    for (int c = 0; c < C; ++c) use_out[i * C + c] = (sel.use >> c) & 1u;
+    const int8_t* lanes = nh + (size_t)b * V * D;
+    int num_nh = 0;
+    for (int l = 0; l < D; ++l) {
+      int x = INT32_MIN;
+      for (int c = 0; c < C; ++c) {
+        const int y = (sel.winners & bit(c)) ? lanes[(size_t)node[c] * D + l] : 0;
+        x = y > x ? y : x;
+      }
+      nh_out[i * D + l] = (int8_t)x;
+      num_nh += x;
+    }
+    num_out[i] = num_nh;
+    valid_out[i] = sel.winners && !sel.self_wins && sel.best_igp < big &&
+                   num_nh > 0 && num_nh >= sel.req;
+    metric_out[i] = sel.best_igp;
+  }
 }
 
 // changed word g of the sweep-wide buffer, padding rows and the bits past
@@ -321,5 +414,27 @@ extern "C" int openr_compact_deltas(
       (const long long*)block_sums, (int32_t*)row_out, (int32_t*)pref_out,
       (uint8_t*)valid_out, (float*)metric_out, (uint32_t*)lanes_out, words, Pw,
       P, Dw, (long long)cap);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int openr_batched_select_routes(
+    const void* dist, const void* nh, const void* overloaded, const void* soft,
+    const void* roots, const void* cand_node, const void* cand_ok,
+    const void* drain_metric, const void* path_pref, const void* source_pref,
+    const void* distance, const void* min_nexthop, void* valid, void* metric,
+    void* nh_out, void* num_nh, void* use, int B, int V, int P, int C, int D,
+    float big, void* stream) {
+  const size_t total = (size_t)B * P;
+  if (total == 0) return (int)cudaSuccess;
+  const size_t want = (total + kSelectThreads - 1) / kSelectThreads;
+  const int blocks = (int)(want < (1u << 30) ? want : (1u << 30));
+  batched_select_kernel<<<blocks, kSelectThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
+      (const int32_t*)soft, (const int32_t*)roots, (const int32_t*)cand_node,
+      (const uint8_t*)cand_ok, (const int32_t*)drain_metric,
+      (const int32_t*)path_pref, (const int32_t*)source_pref,
+      (const int32_t*)distance, (const int32_t*)min_nexthop, (uint8_t*)valid,
+      (float*)metric, (int8_t*)nh_out, (int32_t*)num_nh, (uint8_t*)use, B, V,
+      P, C, D, big);
   return (int)cudaGetLastError();
 }

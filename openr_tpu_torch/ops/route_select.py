@@ -5,7 +5,9 @@ counterpart of ``openr_tpu/ops/route_select.py``'s
 ``gather_selection_rows`` and the single-area chain ``select_routes_one``
 (the what-if sweep's selection), plus the selection batched over vantage
 roots or failure snapshots (``fleet_select``, the vmap the reference's
-``ops/fleet_tables.py`` runs)
+``ops/fleet_tables.py`` runs), the single-area chain batched over
+what-if snapshots with per-snapshot drains and roots
+(``batched_select_routes``) and the flagship step ``spf_and_select``
 (its warm table builders, ``warm_multi_area_spf_tables`` and
 ``warm_multi_area_subgraph_tables``, are ``ops/spf.py``'s
 ``warm_spf_one`` and ``warm_subgraph_repair``: one call over all areas).
@@ -49,7 +51,7 @@ from openr_tpu_torch.kernels.build import (
     stream,
 )
 from openr_tpu_torch.ops.consts import BIG
-from openr_tpu_torch.ops.spf import dense_spf_one, spf_one
+from openr_tpu_torch.ops.spf import _row_chunks, batched_spf, dense_spf_one, spf_one
 
 I32_MIN = -(2**31)
 I32_MAX = 2**31 - 1
@@ -68,13 +70,14 @@ def select_routes_one(
     min_nexthop,  # [P, C] int32 (0 = no requirement)
     dist,  # [..., V] f32 SPF distances from the root
     nh,  # [..., V, D] int8 first-hop lanes from the root
-    overloaded,  # [V] bool
-    soft,  # [V] int32 node soft-drain increments
-    root: int,
+    overloaded,  # [V] bool, or [..., V] per snapshot
+    soft,  # [V] int32 node soft-drain increments, or [..., V]
+    root,  # int, or an int tensor broadcastable to [..., P, C]
 ):
     """The single-area selection chain (the reference's
     ``select_routes_one``, SpfSolver.cpp:161-312) for one snapshot, or a
-    batch of snapshots along leading axes of ``dist`` / ``nh``: reach ▸
+    batch of snapshots along leading axes of ``dist`` / ``nh`` (and, per
+    snapshot, of ``overloaded`` / ``soft`` and ``root``): reach ▸
     hard-drain with fallback ▸ not drained ▸ path_pref ▸ source_pref ▸
     min distance ▸ skip-if-self ▸ igp-tie ECMP lane union (a max of the
     winners' lanes) ▸ min-nexthop gate.  Plain PyTorch: the what-if
@@ -84,10 +87,10 @@ def select_routes_one(
     cn = cand_node.long()
     cdist = dist[..., cn]  # [..., P, C]
     reach = cand_ok & (cdist < BIG)
-    hard = overloaded[cn]
+    hard = overloaded[..., cn]
     nonhard = reach & ~hard
     use = torch.where(nonhard.any(dim=-1, keepdim=True), nonhard, reach)
-    drained = (drain_metric > 0) | (soft[cn] > 0)
+    drained = (drain_metric > 0) | (soft[..., cn] > 0)
     not_drained = (~drained).to(torch.int32)
 
     def keep_max(mask, key):
@@ -520,3 +523,125 @@ def fleet_select(*args, **kwargs):
     launch, outs = fleet_select_launcher(*args, **kwargs)
     launch()
     return outs
+
+
+# ---------------------------------------------------------------------------
+# The single-area chain per what-if snapshot (kernel 17) and the flagship
+# step — the counterpart of the reference's ``batched_select_routes``
+# (``ops/route_select.py:112``) and ``spf_and_select`` (``:449``).  The
+# candidate tables [P, C] are shared; row b reads its own SPF tables
+# dist [B, V] / nh [B, V, D] int8, hard drains ``overloaded[b]``, soft
+# drains ``soft[b]`` and root ``roots[b]``.
+# ---------------------------------------------------------------------------
+
+
+def batched_select_routes_plain(
+    cand_node, cand_ok, drain_metric, path_pref, source_pref, distance, min_nexthop,
+    dist, nh, overloaded, soft, roots,
+):
+    """:func:`select_routes_one` for every row, with the row's drains and
+    root, over row chunks.  Returns (valid [B, P] bool, metric [B, P] f32,
+    nh [B, P, D] int8, num_nexthops [B, P] int32, use [B, P, C] bool)."""
+    B = dist.shape[0]
+    P, C = cand_node.shape
+    D = nh.shape[-1]
+    cand = (cand_node, cand_ok, drain_metric, path_pref, source_pref, distance, min_nexthop)
+    parts = [
+        select_routes_one(
+            *cand, dist[r0:r1], nh[r0:r1], overloaded[r0:r1], soft[r0:r1],
+            roots[r0:r1].view(-1, 1, 1),
+        )
+        for r0, r1 in list(_row_chunks(B, P * C * D)) or [(0, 0)]
+    ]
+    valid, metric, nh_out, num, use = (torch.cat(x) for x in zip(*parts))
+    return valid, metric, nh_out, num.to(torch.int32), use
+
+
+def batched_select_routes_launcher(
+    cand_node, cand_ok, drain_metric, path_pref, source_pref, distance, min_nexthop,
+    dist, nh, overloaded, soft, roots,
+) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """Check the inputs, allocate the five outputs and bind kernel 17
+    (``kernels/csrc/sweep_select.cu``) once: ``(launch, (valid, metric,
+    nh, num_nexthops, use))``, each ``launch()`` enqueueing the kernel (no
+    synchronize) and counting one launch."""
+    dev = dist.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called on {dev}")
+    if dist.dim() != 2:
+        raise ValueError(f"dist must be [B, V], got {tuple(dist.shape)}")
+    B, V = dist.shape
+    P, C = cand_node.shape
+    D = nh.shape[-1]
+    if C > MAX_KERNEL_CANDIDATES:
+        raise ValueError(f"{C} candidates exceed the kernel's {MAX_KERNEL_CANDIDATES}")
+    check_tensor("dist", dist, torch.float32, (B, V), dev)
+    check_tensor("nh", nh, torch.int8, (B, V, D), dev)
+    check_tensor("overloaded", overloaded, torch.bool, (B, V), dev)
+    check_tensor("soft", soft, torch.int32, (B, V), dev)
+    check_tensor("roots", roots, torch.int32, (B,), dev)
+    cand = (cand_node, cand_ok, drain_metric, path_pref, source_pref, distance, min_nexthop)
+    for name, t in zip(("cand_node", "cand_ok", "drain_metric", "path_pref",
+                        "source_pref", "distance", "min_nexthop"), cand):
+        check_tensor(name, t, torch.bool if name == "cand_ok" else torch.int32, (P, C), dev)
+    outs = (
+        torch.empty((B, P), dtype=torch.bool, device=dev),
+        torch.empty((B, P), dtype=torch.float32, device=dev),
+        torch.empty((B, P, D), dtype=torch.int8, device=dev),
+        torch.empty((B, P), dtype=torch.int32, device=dev),
+        torch.empty((B, P, C), dtype=torch.bool, device=dev),
+    )
+    fn = function(
+        "sweep_select",
+        "openr_batched_select_routes",
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    args = (
+        *(ptr(t) for t in (dist, nh, overloaded, soft, roots, *cand)),
+        *(ptr(o) for o in outs), B, V, P, C, D, BIG, stream(dev),
+    )
+
+    def launch() -> None:
+        if B == 0 or P == 0:
+            return
+        check_launch("batched_select_routes", fn(*args))
+        LAUNCHES["batched_select_routes"] += 1
+
+    return launch, outs
+
+
+def batched_select_routes(
+    cand_node, cand_ok, drain_metric, path_pref, source_pref, distance, min_nexthop,
+    dist, nh, overloaded, soft, roots,
+):
+    """The single-area chain for every what-if snapshot: kernel 17 for
+    CUDA tensors, the plain version for CPU tensors.  Returns (valid,
+    metric, nh, num_nexthops, use) with a leading [B] axis."""
+    args = (cand_node, cand_ok, drain_metric, path_pref, source_pref, distance,
+            min_nexthop, dist, nh, overloaded, soft, roots)
+    if dist.device.type == "cpu":
+        return batched_select_routes_plain(*args)
+    launch, outs = batched_select_routes_launcher(*args)
+    launch()
+    return outs
+
+
+def spf_and_select(
+    src, dst, w, edge_ok,
+    edge_enabled,  # [B, E] per-snapshot what-if mask
+    overloaded,  # [B, V]
+    soft,  # [B, V]
+    roots,  # [B]
+    cand_node, cand_ok, drain_metric, path_pref, source_pref, distance, min_nexthop,
+    max_degree: int,
+):
+    """The flagship what-if step: per-snapshot SPF (kernel 16), then the
+    per-snapshot selection (kernel 17) on the same stream, the [B, V, D]
+    tables staying on the device and no host sync between them (the plain
+    versions for CPU tensors).  Returns (valid [B, P], metric [B, P],
+    nh [B, P, D] int8, num_nexthops [B, P], use [B, P, C])."""
+    dist, nh = batched_spf(src, dst, w, edge_ok, edge_enabled, overloaded, roots, max_degree)
+    return batched_select_routes(
+        cand_node, cand_ok, drain_metric, path_pref, source_pref, distance, min_nexthop,
+        dist, nh, overloaded, soft, roots,
+    )

@@ -5,7 +5,8 @@ first-hop lane sets over the dense in-edge matrix — the counterpart of
 below, the warm-start tables, the segment-form cold tables
 (``spf_distances`` / ``spf_nexthop_lanes`` / ``spf_one``), their batches
 over vantage roots and failure sets, the KSP2 masked re-solve
-(``batched_spf_distances_masked``) and the what-if sweep.
+(``batched_spf_distances_masked``), the what-if sweep and the
+per-snapshot what-if batches (``batched_spf`` and its forms).
 
 Every function takes a leading area axis (the reference vmaps its
 single-area kernels over areas): ``in_src/in_w/in_ok/in_rank [A, V, K]``,
@@ -818,6 +819,8 @@ def fleet_spf_dense_plain(in_src, in_w, in_ok, in_rank, in_has, overloaded, root
 MAX_SHARED_BYTES = 232448
 #: threads per block of kernels 12 and 14
 BATCH_THREADS = 256
+#: threads per block (one what-if row) of kernel 16
+ROW_THREADS = 512
 #: threads an SM holds at once (sm_90)
 SM_THREADS = 2048
 
@@ -833,13 +836,13 @@ def fleet_dense_state_bytes(V: int, K: int) -> int:
     return 4 * V + V * K
 
 
-def _global_state(state_bytes: int, rows: int, dev):
-    """(scratch, grid) of the global-state path of kernels 12 and 14: as
-    many blocks as the SMs hold at once (at most one per pair), each with
-    a 16-byte-rounded slice of the scratch, walking the pairs in a
-    grid-stride loop."""
+def _global_state(state_bytes: int, rows: int, dev, threads: int = BATCH_THREADS):
+    """(scratch, grid) of the global-state path of kernels 12, 14 and 16:
+    as many blocks of ``threads`` as the SMs hold at once (at most one per
+    pair), each with a 16-byte-rounded slice of the scratch, walking the
+    pairs in a grid-stride loop."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(rows, sms * (SM_THREADS // BATCH_THREADS)))
+    grid = max(1, min(rows, sms * (SM_THREADS // threads)))
     slice_words = (state_bytes + 15) // 16 * 4
     return torch.empty(grid * slice_words, dtype=torch.int32, device=dev), grid
 
@@ -1287,3 +1290,191 @@ def sweep_spf_link_failures(
     if src.device.type == "cpu":
         return sweep_spf_link_failures_plain(*args)
     return _launched(sweep_spf_link_failures_launcher, *args)
+
+
+# ---------------------------------------------------------------------------
+# Per-snapshot batches — the counterpart of the reference's
+# ``batched_spf`` (``ops/spf.py:201``), ``batched_spf_link_failures``
+# (``:178``) and ``batched_spf_distinct`` (``:247``): ``spf_one`` for every
+# row b, from ``roots[b]`` with row b's own hard-drain row ``overloaded[b]``
+# and enable mask, giving distances and lanes (kernel 16, ``batched_spf``,
+# ``kernels/csrc/spf_warm.cu``).  The edge list is shared (``[E]``) with a
+# per-row mask — ``edge_enabled [B, E]`` bool, or each row's failed link
+# ids through ``link_index`` — or is row b's own (``[B, E]``, each row
+# dst-sorted, ``batched_spf_distinct``).  Lane r of a row is the r-th
+# out-edge of ITS root in edge order, disabled edges included.
+# ---------------------------------------------------------------------------
+
+
+def hop_count_weights(w):
+    """useLinkMetric=false mode: every edge costs 1 (LinkState.cpp:789)."""
+    return torch.ones_like(w)
+
+
+def _batched_rows_plain(src, dst, w, edge_ok, overloaded, roots, max_degree: int, ok_rows):
+    """(dist [B, V], nh [B, V, D]) of :func:`spf_distances_plain` and
+    :func:`spf_nexthop_lanes_plain` over row chunks; the edge arrays are
+    [E] (shared) or [B, E], ``ok_rows(r0, r1)`` gives the chunk's [n, E]
+    usable edges."""
+    B = overloaded.shape[0]
+    E = src.shape[-1]
+    D = max_degree
+    dists, lanes = [], []
+    for r0, r1 in list(_row_chunks(B, E * D)) or [(0, 0)]:
+        n = r1 - r0
+        rows = [a[r0:r1] if a.dim() == 2 else a.expand(n, E) for a in (src, dst, w)]
+        args = (*rows, ok_rows(r0, r1), overloaded[r0:r1], roots[r0:r1])
+        dist = spf_distances_plain(*args)
+        dists.append(dist)
+        lanes.append(spf_nexthop_lanes_plain(*args, dist, D))
+    return torch.cat(dists), torch.cat(lanes)
+
+
+def batched_spf_plain(src, dst, w, edge_ok, edge_enabled, overloaded, roots, max_degree: int):
+    """Row b: ``spf_one`` from ``roots[b]`` over ``edge_ok & edge_enabled[b]``
+    with hard-drain row ``overloaded[b]``.  Returns (dist [B, V] f32, nh
+    [B, V, D] int8)."""
+    return _batched_rows_plain(
+        src, dst, w, edge_ok, overloaded, roots, max_degree,
+        lambda r0, r1: edge_ok[None] & edge_enabled[r0:r1],
+    )
+
+
+def batched_spf_link_failures_plain(
+    src, dst, w, edge_ok, link_index, failed_link, overloaded, roots, max_degree: int
+):
+    """Row b fails the undirected link ``failed_link[b]`` (-1: none): the
+    reference's ``link_index != failed_link[b]`` mask, expanded per chunk."""
+    return _batched_rows_plain(
+        src, dst, w, edge_ok, overloaded, roots, max_degree,
+        lambda r0, r1: edge_ok[None] & (link_index[None] != failed_link[r0:r1, None]),
+    )
+
+
+def batched_spf_distinct_plain(src, dst, w, edge_ok, overloaded, roots, max_degree: int):
+    """Row b over its own edge list ``src/dst/w/edge_ok [B, E]`` (each
+    row dst-sorted, padded to the common E)."""
+    return _batched_rows_plain(
+        src, dst, w, edge_ok, overloaded, roots, max_degree, lambda r0, r1: edge_ok[r0:r1]
+    )
+
+
+def batched_spf_state_bytes(V: int, E: int) -> int:
+    """Kernel 16's per-block state: run ends, lane ranks, scan counts, the
+    moving vertices' source offsets, the row's edge bits, distances and
+    edge classes."""
+    return 4 * (V + E + ROW_THREADS + 1 + V + 1 + (E + 31) // 32) + 4 * V + E
+
+
+def batched_spf_launcher(
+    src, dst, w, edge_ok, overloaded, roots, max_degree: int,
+    edge_enabled=None, link_index=None, failed=None,
+):
+    """Check the inputs, derive the segment offsets (and, in the set form,
+    the link id -> edges CSR), allocate the outputs (and the global path's
+    scratch) and bind kernel 16 once.  The edge arrays are [E] (shared;
+    pass ``edge_enabled`` [B, E] bool, or ``link_index`` [E] and ``failed``
+    [B, S] int32, or neither) or [B, E] (row b's own list, no mask).
+    Returns ``(launch, (dist, nh))``: each ``launch()`` enqueues the
+    kernel (no synchronize) and counts one launch."""
+    if src.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on {src.device}")
+    dev = src.device
+    B, V = overloaded.shape
+    distinct = src.dim() == 2
+    E = src.shape[-1]
+    eshape = (B, E) if distinct else (E,)
+    for name, t in (("src", src), ("dst", dst)):
+        check_tensor(name, t, torch.int32, eshape, dev)
+    check_tensor("w", w, torch.float32, eshape, dev)
+    check_tensor("edge_ok", edge_ok, torch.bool, eshape, dev)
+    check_tensor("overloaded", overloaded, torch.bool, (B, V), dev)
+    check_tensor("roots", roots, torch.int32, (B,), dev)
+    D = int(max_degree)
+    if D < 1:
+        raise ValueError(f"max_degree {D} must be >= 1")
+    if distinct and (edge_enabled is not None or failed is not None):
+        raise ValueError("per-row edge lists take no enable mask")
+    S = L = 0
+    link_off = link_edges = None
+    if edge_enabled is not None:
+        check_tensor("edge_enabled", edge_enabled, torch.bool, (B, E), dev)
+    elif failed is not None:
+        S = failed.shape[1]
+        check_tensor("link_index", link_index, torch.int32, (E,), dev)
+        check_tensor("failed", failed, torch.int32, (B, S), dev)
+        L = int(link_index.max()) + 1 if E else 0
+        link_off, link_edges = link_edge_csr(link_index, L)
+    seg_off = segment_offsets(dst if distinct else dst[None], V)
+    # the shared path (one block per row, its state in shared memory)
+    # where the state fits, else the global path
+    state = batched_spf_state_bytes(V, E)
+    scratch, grid = (
+        (None, B) if state <= MAX_SHARED_BYTES else _global_state(state, B, dev, ROW_THREADS)
+    )
+    dist = torch.empty((B, V), dtype=torch.float32, device=dev)
+    nh = torch.empty((B, V, D), dtype=torch.int8, device=dev)
+    fn = function(
+        "spf_warm",
+        "openr_batched_spf",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    opt = lambda t: None if t is None else ptr(t)  # noqa: E731
+    args = (
+        ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(seg_off), int(distinct),
+        ptr(overloaded), ptr(roots), opt(edge_enabled), opt(failed), opt(link_off),
+        opt(link_edges), ptr(dist), ptr(nh), opt(scratch), grid, B, V, E, D, S, L,
+        BIG, stream(dev),
+    )
+
+    # the default argument keeps the derived layout and the scratch alive
+    def launch(_held=(seg_off, link_off, link_edges, scratch, failed)) -> None:
+        if B == 0:
+            return
+        check_launch("batched_spf", fn(*args))
+        LAUNCHES["batched_spf"] += 1
+
+    return launch, (dist, nh)
+
+
+def batched_spf(src, dst, w, edge_ok, edge_enabled, overloaded, roots, max_degree: int):
+    """(dist [B, V], nh [B, V, D]) of every what-if snapshot (shared edge
+    list, per-row mask, hard drains and root): kernel 16 for CUDA tensors,
+    the plain version for CPU tensors."""
+    if src.device.type == "cpu":
+        return batched_spf_plain(
+            src, dst, w, edge_ok, edge_enabled, overloaded, roots, max_degree
+        )
+    return _launched(
+        batched_spf_launcher, src, dst, w, edge_ok, overloaded, roots, max_degree, edge_enabled
+    )
+
+
+def batched_spf_link_failures(
+    src, dst, w, edge_ok, link_index, failed_link, overloaded, roots, max_degree: int
+):
+    """The single-link-failure sweep with the mask expanded on the device:
+    row b fails ``failed_link[b]`` (-1: none).  Kernel 16 in its set form
+    (S = 1; a -1 masks nothing there, where the reference's rule masks the
+    pad edges, which are never usable) for CUDA tensors, the plain version
+    for CPU tensors."""
+    if src.device.type == "cpu":
+        return batched_spf_link_failures_plain(
+            src, dst, w, edge_ok, link_index, failed_link, overloaded, roots, max_degree
+        )
+    return _launched(
+        batched_spf_launcher, src, dst, w, edge_ok, overloaded, roots, max_degree, None,
+        link_index, failed_link[:, None].contiguous(),
+    )
+
+
+def batched_spf_distinct(src, dst, w, edge_ok, overloaded, roots, max_degree: int):
+    """Fully distinct topologies per row (``[B, E]`` edge lists, padded to
+    a common E): kernel 16 for CUDA tensors, the plain version for CPU
+    tensors."""
+    if src.device.type == "cpu":
+        return batched_spf_distinct_plain(src, dst, w, edge_ok, overloaded, roots, max_degree)
+    return _launched(
+        batched_spf_launcher, src, dst, w, edge_ok, overloaded, roots, max_degree
+    )

@@ -805,3 +805,132 @@ def test_backend_ksp2_on_card_equals_plain_and_scalar(card):
     assert route_db_summary(got) == want
     cpu = CudaBackend(SpfSolver("rsw0_0"), device="cpu").build_route_db(mk(), ps)
     assert route_db_summary(cpu) == want
+
+
+# -- the flagship batches: kernels 16 and 17 ---------------------------------
+
+
+def _batched_world(n=96, extra=160, seed=7, **enc):
+    from openr_tpu_torch.decision.link_state import LinkState as _LS
+
+    ls = _LS("0")
+    for db in build_adj_dbs(random_connected_edges(n, extra, seed=seed), overloaded=["node5"]).values():
+        ls.update_adjacency_database(db)
+    return csr.encode_link_state(ls, **enc)
+
+
+def _batched_rows(topo, B, rng):
+    n = topo.num_nodes
+    roots = rng.integers(0, n, B).astype(np.int32)
+    ovl = np.tile(topo.overloaded, (B, 1))
+    ovl[:, :n] |= rng.random((B, n)) < 0.1
+    soft = np.tile(topo.soft, (B, 1))
+    soft[:, :n] += np.where(rng.random((B, n)) < 0.1, 60, 0).astype(np.int32)
+    return roots, ovl, soft, rng.random((B, topo.padded_edges)) > 0.1
+
+
+@pytest.mark.parametrize("form", ["mask", "sets", "distinct", "global"])
+def test_batched_spf_kernel_equals_plain(card, form, monkeypatch):
+    """Kernel 16 in each form (mask, failed-link set, per-row edge lists,
+    and the global-state path) against its plain version."""
+    topo = _batched_world()
+    rng = np.random.default_rng(16)
+    B = 67
+    roots, ovl, _soft, mask = _batched_rows(topo, B, rng)
+    D = max(topo.max_out_degree(), 1)
+    if form == "global":
+        monkeypatch.setattr(spf, "MAX_SHARED_BYTES", 0)
+    edges = tables_from_numpy([topo.src, topo.dst, topo.w, topo.edge_ok], card)
+    r, o = tables_from_numpy([roots, ovl], card)
+    reset_launch_counts()
+    if form == "sets":
+        failed = rng.integers(-1, len(topo.links), B).astype(np.int32)
+        li, f = tables_from_numpy([topo.link_index, failed], card)
+        got = spf.batched_spf_link_failures(*edges, li, f, o, r, D)
+        want = spf.batched_spf_link_failures_plain(*edges, li, f, o, r, D)
+    elif form == "distinct":
+        rows = [_batched_world(40 + b, 60 + b, seed=b, node_bucket=256, edge_bucket=2048)
+                for b in range(B)]
+        stack = [np.stack(a) for a in zip(*([t.src, t.dst, t.w, t.edge_ok] for t in rows))]
+        ovl_d = np.stack([t.overloaded for t in rows])
+        roots_d = np.array([b % t.num_nodes for b, t in enumerate(rows)], np.int32)
+        D = max(t.max_out_degree() for t in rows)
+        args = tables_from_numpy(stack + [ovl_d, roots_d], card)
+        got = spf.batched_spf_distinct(*args, D)
+        want = spf.batched_spf_distinct_plain(*args, D)
+    else:
+        (m,) = tables_from_numpy([mask], card)
+        got = spf.batched_spf(*edges, m, o, r, D)
+        want = spf.batched_spf_plain(*edges, m, o, r, D)
+    torch.cuda.synchronize()
+    assert LAUNCHES["batched_spf"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _batched_cands(topo, rng):
+    ps = PrefixState()
+    names = topo.id_to_node
+    for i, node in enumerate(names):
+        ps.update_prefix(node, "0", PrefixEntry(f"10.1.{i}.1/32"))
+    from openr_tpu_torch.types import PrefixMetrics
+
+    for k in range(32):
+        for node in rng.choice(names, 4, replace=False):
+            ps.update_prefix(str(node), "0", PrefixEntry(
+                f"10.2.{k}.0/24", min_nexthop=2 if k % 8 == 0 else None,
+                metrics=PrefixMetrics(drain_metric=int(rng.random() < 0.3),
+                                      path_preference=int(rng.choice([100, 200])),
+                                      source_preference=int(rng.choice([0, 50])),
+                                      distance=int(rng.integers(0, 3))),
+            ))
+    c = csr.encode_prefix_candidates(ps, topo, "0", max_candidates=4)
+    return [c.cand_node, c.cand_ok, c.drain_metric, c.path_pref, c.source_pref,
+            c.distance, c.min_nexthop]
+
+
+def test_batched_select_and_spf_and_select_kernels_equal_plain(card):
+    """Kernel 17 on kernel 16's tables, and spf_and_select (16 then 17, no
+    sync between) against the plain path, with per-row drains and roots
+    (row 0 roots at an anycast advertiser: self-skip)."""
+    topo = _batched_world()
+    rng = np.random.default_rng(17)
+    B = 300
+    roots, ovl, soft, mask = _batched_rows(topo, B, rng)
+    cand = _batched_cands(topo, rng)
+    roots[0] = cand[0][-1, 0]
+    D = max(topo.max_out_degree(), 1)
+    edges = tables_from_numpy([topo.src, topo.dst, topo.w, topo.edge_ok], card)
+    m, o, s, r = tables_from_numpy([mask, ovl, soft, roots], card)
+    ct = tables_from_numpy(cand, card)
+    dist, nh = spf.batched_spf_plain(*edges, m, o, r, D)
+    reset_launch_counts()
+    got = rs.batched_select_routes(*ct, dist, nh, o, s, r)
+    torch.cuda.synchronize()
+    assert LAUNCHES["batched_select_routes"] == 1
+    want = rs.batched_select_routes_plain(*ct, dist, nh, o, s, r)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(want[0].any()) and not bool(want[0].all())
+    reset_launch_counts()
+    got = rs.spf_and_select(*edges, m, o, s, r, *ct, max_degree=D)
+    torch.cuda.synchronize()
+    assert {k for k, v in LAUNCHES.items() if v} == {"batched_spf", "batched_select_routes"}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="candidates"):
+        wide = [torch.cat([t] * 17, dim=1) for t in ct]
+        rs.batched_select_routes(*wide, dist, nh, o, s, r)
+
+
+def test_graft_entry_on_card_equals_cpu(card):
+    from openr_tpu_torch import graft_entry
+
+    forward, args = graft_entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    reset_launch_counts()
+    got = forward(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["batched_spf"] == 1 and LAUNCHES["batched_select_routes"] == 1
+    cpu_forward, cpu_args = graft_entry.entry(device="cpu")
+    for g, w in zip(got, cpu_forward(*cpu_args)):
+        assert torch.equal(g.cpu(), w)
