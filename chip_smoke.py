@@ -60,8 +60,9 @@ and then the fleet RIB and the multi-area what-if (kernels 12-14):
      base row), then metro0's two homing links as one simultaneous set
 
 and then KSP2_ED_ECMP on a backbone (kernel 15) and the shapes whose
-block state exceeds shared memory (kernel 12, whose blocks always keep
-their state in a global scratch, and kernel 14's global-state path):
+block state exceeds shared memory (kernel 12, whose lane lists always live
+in a global scratch beside its frontier state, and kernel 14's
+global-state path):
 
  16. the wan_hierarchy class at 8,192 nodes, seed 7 (V = 16,384,
      E = 32,768), vantage core0, node labels on every node and a KSP2 /32
@@ -698,14 +699,15 @@ class KernelReport:
         A, E = src.shape
         r_d = int(spf.warm_spf_distances_plain(*seg, d0, unroll=1)[1].max())
         r_l = int(spf.spf_nexthop_lanes_reset_plain(*seg, dist_p, nh0, D, unroll=1)[1].max())
+        usable, lanes = segment_relaxations(src, ok, ovl, roots, D)
         self.time(
             "warm_spf_distances", launch_d, p_dist,
-            nbytes(*seg, d0, dist_p), 2 * r_d * A * E,
+            nbytes(*seg, d0, dist_p), 2 * int(usable.sum()),
             nbytes(src, w, ok) + 2 * nbytes(dist_p), r_d,
         )
         self.time(
             "spf_nexthop_lanes_reset", launch_n, p_nh,
-            nbytes(*seg, dist_p, nh0, nh_p), 2 * r_l * A * E * D,
+            nbytes(*seg, dist_p, nh0, nh_p), int((usable * lanes).sum()),
             nbytes(src) + A * E + 2 * nbytes(nh_p), r_l,
         )
 
@@ -722,15 +724,16 @@ class KernelReport:
         )
         if not timed:
             return
-        src_sub = args[0]
-        D = args[-1]
-        A, Es = src_sub.shape
+        ok_sub, rank_sub, D = args[3], args[4], args[-1]
         _d, _n, r_d, r_l = spf.warm_subgraph_repair_plain(*args, unroll=1)
         r_d, r_l = int(r_d.max()), int(r_l.max())
+        # one relaxation per usable sub-edge, a max per lane a root
+        # out-edge of the sub-edge list can seed
+        usable = ok_sub.sum(dim=1)
+        lanes = (rank_sub >= 0).sum(dim=1).clamp(max=D)
         self.time(
             "warm_subgraph_repair", launch, p_sub,
-            nbytes(*args[:-1], want[0], want[1]),
-            2 * r_d * A * Es + 2 * r_l * A * Es * D,
+            nbytes(*args[:-1], want[0], want[1]), int((2 * usable + usable * lanes).sum()),
             nbytes(*args[:4]) + 2 * nbytes(want[0]) + 2 * nbytes(want[1]), r_d + r_l,
         )
 
@@ -1129,25 +1132,32 @@ def time_whatif(report, rec):
         src, dst, w, ok, li, failed, ovl, root, D = args
         _d, _n, r_d, r_l = spf.sweep_spf_link_failures_plain(*args)
         E, B = src.shape[0], failed.shape[0]
+        # one relaxation per usable edge per snapshot (its failed link's
+        # edges off), a max per lane a root out-edge can seed
+        transit = ~ovl | (torch.arange(ovl.shape[0], device=ovl.device) == root)
+        base = ok & transit[src.long()]
+        usable = B * int(base.sum()) - int((base[:, None] & (li[:, None] == failed[None])).sum())
+        lanes = min(int((src == root).sum()), D)
         launch, _ = spf.sweep_spf_link_failures_launcher(*args)
         report.time(
             "sweep_spf_link_failures", launch,
             lambda: spf.sweep_spf_link_failures_plain(*args),
-            nbytes(src, dst, w, ok, li, failed, ovl, outs[0], outs[1]),
-            2 * r_d * E * B + 2 * r_l * E * B * D,
+            nbytes(src, dst, w, ok, li, failed, ovl, outs[0], outs[1]), (2 + lanes) * usable,
             nbytes(src, w, ok, li) + 2 * nbytes(outs[0]), r_d + r_l,
         )
     if rec.calls["repair_sweep"] and "repair_sweep" not in report.timing:
         args, kw, outs = max(rec.calls["repair_sweep"], key=lambda c: c[0][5].shape[0])
         _d, _n, r_d, r_l = repair.repair_sweep_plain(*args, **kw)
-        E, B = args[0].shape[0], args[5].shape[0]
+        src, _dst, _w, lid, transit_src_ok, fails, aff_table, base_dist = args[:8]
         V, D, Bw = outs[1].shape
-        din = kw["din"]
+        # one relaxation per usable edge per snapshot (its set's links off),
+        # a max per lane
+        en = repair.repair_sweep_init(lid, fails, aff_table, base_dist, V)[2]
+        usable = int((en & transit_src_ok[:, None]).sum())
         launch, _ = repair.repair_sweep_launcher(*args, **kw)
         report.time(
             "repair_sweep", launch, lambda: repair.repair_sweep_plain(*args, **kw),
-            nbytes(*args, outs[0], outs[1]),
-            2 * r_d * E * B + 2 * r_l * V * din * D * Bw,
+            nbytes(*args, outs[0], outs[1]), (2 + D) * usable,
             nbytes(*args[:5]) + 2 * nbytes(outs[0]), r_d + r_l,
         )
     if rec.calls["select_chunk"] and "select_chunk" not in report.timing:
@@ -1743,25 +1753,26 @@ def masked_enabled_edges(ok, li, failed):
     return total
 
 
-def time_masked(report, call):
-    """Time kernel 15 on one recorded call, with its bound: inputs read
-    and the [B, V] output written once, and one relaxation per enabled
-    edge per row (however many rounds the kernel takes)."""
+def time_masked(report, call, key):
+    """Time kernel 15 on one recorded call (under ``key``, as in
+    ``KernelReport.time``), with its bound: inputs read and the [B, V]
+    output written once, and one relaxation per enabled edge per row
+    (however many rounds the kernel takes)."""
     args, _kw, outs = call
     src, dst, w, ok, li, failed, ovl, roots = args
     edges = masked_enabled_edges(ok, li, failed)
     launch, _ = spf.spf_distances_masked_launcher(src, dst, w, ok, ovl, roots, None, li, failed)
     report.time("spf_distances_masked", launch, lambda: PLAIN_OF["spf_distances_masked"](*args),
-                nbytes(*args, outs), 2 * edges, nbytes(src, w, ok, li), 1)
-    t = report.timing["spf_distances_masked"]
+                nbytes(*args, outs), 2 * edges, nbytes(src, w, ok, li), 1, key=key)
+    t = report.timing[key]
     cut = int(((outs < BIG).sum(dim=1) == 1).sum())
-    print(f"[ksp2] kernel 15 at B={failed.shape[0]}, S={failed.shape[1]}: {t['ms']:.4f} ms per "
+    print(f"[ksp2] {key} at B={failed.shape[0]}, S={failed.shape[1]}: {t['ms']:.4f} ms per "
           f"launch, plain {t['plain_ms']:.2f} ms; {edges / failed.shape[0]:.1f} enabled edges per "
           f"row; {cut} rows cut off at the root", flush=True)
 
 
 def drive_ksp2(report, kernel_be, plain_be, areas, ps, label, rng, expect, rows, hints=None,
-               timed=False):
+               timed=None):
     """One request through the port's main path on the KSP2 world: launch
     counts zeroed just before and read just after; ``expect`` the exact
     kernels and ``rows`` the rows of each kernel-15 launch; every kernel
@@ -1770,7 +1781,8 @@ def drive_ksp2(report, kernel_be, plain_be, areas, ps, label, rng, expect, rows,
     (``areas["plain"]``) and a seeded sample against the scalar solver on
     a third copy (``areas["oracle"]``), so no k-path memo is shared.
     ``expect`` may be a function of the backend, read after the build
-    (the warm path the planner chose)."""
+    (the warm path the planner chose).  ``timed``, a key, times kernel 15
+    on the build's first call under it."""
     hints = hints or {}
     with Recorder(entries=KSP2_ENTRIES) as rec:
         reset_launch_counts()
@@ -1796,7 +1808,7 @@ def drive_ksp2(report, kernel_be, plain_be, areas, ps, label, rng, expect, rows,
         warm_tables_equal_cold(kernel_be)
     hold_recorded(report, rec)
     if timed:
-        time_masked(report, rec.calls["spf_distances_masked"][0])
+        time_masked(report, rec.calls["spf_distances_masked"][0], timed)
     with Recorder(plain=True, entries=KSP2_ENTRIES):
         reset_launch_counts()
         plain_db = plain_be.build_route_db(areas["plain"], ps, **hints)
@@ -1840,7 +1852,7 @@ def ksp2_phase(report, rng):
     plain_be = PlainPath(SpfSolver("core0"))
     walls["g: KSP2 cold build"] = drive_ksp2(
         report, kernel_be, plain_be, areas, ps, "ksp2:cold", rng, KSP2_COLD, [dests],
-        hints=dict(force_full=True), timed=True)
+        hints=dict(force_full=True), timed="spf_distances_masked")
 
     # prefix churn: the two late nodes' loopbacks, one withdrawal
     changed = set()
@@ -1851,7 +1863,8 @@ def ksp2_phase(report, rng):
     before = kernel_be.num_incremental_builds
     walls["g: KSP2 prefix churn"] = drive_ksp2(
         report, kernel_be, plain_be, areas, ps, "ksp2:churn", rng,
-        {SELECT, "spf_distances_masked"}, [2], hints=dict(changed_prefixes=changed))
+        {SELECT, "spf_distances_masked"}, [2], hints=dict(changed_prefixes=changed),
+        timed="spf_distances_masked, churn")
     check(kernel_be.num_incremental_builds == before + 1, "the churn tick did not patch")
 
     # warm_delta: one backbone link (not core0's) weakened both ways: the
@@ -1875,7 +1888,8 @@ def ksp2_phase(report, rng):
 
     walls["g: KSP2 warm_delta weakening"] = drive_ksp2(
         report, kernel_be, plain_be, areas, ps, f"ksp2:weaken:{a}-{b}", rng, warm_expect,
-        [dests + 1], hints=dict(changed_prefixes=set(), force_full=True, warm_delta=True))
+        [dests + 1], hints=dict(changed_prefixes=set(), force_full=True, warm_delta=True),
+        timed="spf_distances_masked, weakening")
     check(kernel_be.num_warm_builds == before[0] + 1, "the weakening did not solve warm")
     check(kernel_be.num_warm_selective_builds == before[2], "the warm-selective branch ran")
 
@@ -1938,7 +1952,9 @@ def c4_phase(report, rng, backbone_enc):
           "the fat-tree's kernel-12 block state fits shared memory")
     print(f"[c4] fat-tree: {len(nodes)} nodes, V={V}, K={K}, D="
           f"{csr.bucket_for(enc.max_out_degree(), DEGREE_BUCKETS)}, {len(ps.prefixes())} prefixes; "
-          f"kernel 12 block state {spf.fleet_dense_state_bytes(V, K)} B", flush=True)
+          f"kernel 12 per-pair state up to {spf.fleet_dense_state_bytes(V, K)} B, of it the "
+          f"frontier state {spf.frontier_state_bytes(V, min(V, spf.FRONTIER_CAP), spf.FLEET_THREADS)}"
+          f" B", flush=True)
     eng = FleetRibEngine(SpfSolver("rsw0_0"))
     check(eng.eligible(areas, ps, 1), "the fat-tree is not eligible")
     summary, rec, walls["h: fat-tree fleet solve"] = whatif_run(

@@ -7,8 +7,8 @@ own with::
          -Xcompiler -fPIC -o lib<name>-<hash>.so csrc/<name>.cu
 
 into ``_build/`` beside this file (listed in ``.gitignore``).  The library
-name carries a hash of the source and flags, so an edited source is
-rebuilt and never loaded stale.  All missing libraries are compiled
+name carries a hash of the source, the headers under ``csrc/`` and the
+flags, so an edited source or header is rebuilt and never loaded stale.  All missing libraries are compiled
 together, one nvcc process per source.  Never ``--use_fast_math``: the
 kernels compare against +inf and BIG exactly.
 
@@ -62,11 +62,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    every header of ``csrc/`` (so an edited header is never loaded stale)
+    and the flags."""
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> None:

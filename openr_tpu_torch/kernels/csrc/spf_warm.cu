@@ -95,20 +95,23 @@
 // after the barriers that already order it, and the edge arrays every
 // row shares stay in L2, so both paths compute the same tables.
 //
-// Kernel 15 (spf_distances_masked) is kernel 14's distance phase alone,
-// one block of 1,024 threads per row: the KSP2 re-solve from the root
-// with the links of paths 1..k-1 masked.  The row's distances (64 KB at
-// V = 16,384) and one bit per edge of its mask stay in shared memory, so
-// two blocks fill an SM's threads; the edge arrays, the segment offsets
-// and run ends and the list of vertices with a usable in-edge (derived
-// once per launch, shared by every row) are read from global memory and
-// stay in L2.  The rounds sweep only that list: the other vertices'
-// distances cannot change, and half of a node bucket is padding.  The
-// mask comes from the row's [E] bool row, or from its failed link ids
-// through a CSR of link id -> edges, so a [B, E] mask never needs to
-// exist.  A row whose root is cut off ends after its first round.  What
-// bounds it: the rounds' L2 reads, 40-50 synchronous rounds per row on
-// the backbone (PERF.md).
+// Kernel 15 (spf_distances_masked) is the KSP2 re-solve from the root
+// with the links of paths 1..k-1 masked: distances only, one block per
+// row, by frontier relaxation (frontier.cuh) over a CSR by source of the
+// usable edges, derived once per launch and shared by every row (L2- and
+// L1-resident).  A slot carries its edge's position in the edge list, so
+// the row's mask is one bit per edge: from the row's [E] bool row, or from
+// its failed link ids through a CSR of link id -> edges, so a [B, E] mask
+// never needs to exist.  The row's distances, edge bits and frontier state
+// live in shared memory where they fit (the frontier listed at most `cap`
+// vertices at a time), else in a global scratch with a grid-stride loop
+// over the rows.  A row whose root is cut off ends after its first round.
+// Only the vertices an edge or a root touches are solved (a node bucket's
+// padding reads BIG), which halves the state on the backbone: 3 rows of
+// 256 threads per SM, the fastest of 256, 512 and 1,024 on the H100.
+// What bounds it: latency, ~48 rounds per row on the backbone, each about
+// nine barrier phases waiting on shared memory or L2 (about 2.6 out-edge
+// visits per usable edge per row); not bytes (PERF.md).
 //
 // Kernel 16 (batched_spf) is kernel 14's solve, one block of 512 threads
 // per what-if row b (its lane rounds over a packed list of each moving
@@ -144,6 +147,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "frontier.cuh"
 
 namespace {
 
@@ -183,21 +188,17 @@ __device__ void enabled_run_ends(int32_t* seg_end, const int32_t* off,
   __syncthreads();
 }
 
-// Relax the selected vertices (all when `only` is null; the `count`
-// vertices of `list` when it is given) to the fixed point; returns the
-// number of rounds run.
+// Relax the selected vertices (all when `only` is null) to the fixed
+// point; returns the number of rounds run.
 template <class Edges>
 __device__ int relax_distances(float* d, const int32_t* off,
                                const int32_t* seg_end, const int32_t* src,
                                const float* w, Edges edges,
-                               const uint8_t* only, int V, float big,
-                               const int32_t* list = nullptr, int count = 0) {
+                               const uint8_t* only, int V, float big) {
   int rounds = 0;
-  const int n = list ? count : V;
   for (int round = 0; round < V; ++round) {
     int changed = 0;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int v = list ? list[i] : i;
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
       if (only && !only[v]) continue;
       const float cur = d[v];
       float best = cur;
@@ -395,60 +396,6 @@ struct MaskedEdges {
   }
 };
 
-// Visits every i < n in index order, calling emit(i, offset) with the sum
-// of weight(j) over j < i: a block scan over contiguous chunks.  counts
-// holds blockDim.x + 1 ints of scratch (blockDim.x a multiple of 32).  Returns the sum of every
-// weight; ends with a barrier.
-template <class Weight, class Emit>
-__device__ int block_offsets(int32_t* counts, int n, Weight weight,
-                             Emit emit) {
-  const int T = blockDim.x;
-  const int chunk = (n + T - 1) / T;
-  const int lo = min(n, (int)threadIdx.x * chunk);
-  const int hi = min(n, lo + chunk);
-  int c = 0;
-  for (int i = lo; i < hi; ++i) c += weight(i);
-  // exclusive scan of c over the block: within each warp by shuffles, then
-  // the warp totals by warp 0 (blockDim.x a multiple of 32)
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int inc = c;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == 31) counts[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const int t = lane < (T >> 5) ? counts[lane] : 0;
-    int ti = t;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, ti, o);
-      if (lane >= o) ti += y;
-    }
-    if (lane < (T >> 5)) counts[lane] = ti - t;
-    if (lane == 31) counts[T] = ti;
-  }
-  __syncthreads();
-  int next = counts[warp] + inc - c;
-  for (int i = lo; i < hi; ++i) {
-    const int k = weight(i);
-    emit(i, next);
-    next += k;
-  }
-  __syncthreads();
-  return counts[T];
-}
-
-// emit(i, rank) with i's rank among the i < n that satisfy pred (-1 where
-// pred is false), in index order; returns how many do.
-template <class Pred, class Emit>
-__device__ int block_ranks(int32_t* counts, int n, Pred pred, Emit emit) {
-  return block_offsets(
-      counts, n, [&](int i) { return pred(i) ? 1 : 0; },
-      [&](int i, int k) { emit(i, pred(i) ? k : -1); });
-}
-
 constexpr int kBatchThreads = 256;
 // kernel 16's threads per row (512: the fastest of 256, 512 and 1,024 at
 // the flagship shape on the H100, PERF.md)
@@ -592,8 +539,8 @@ __global__ void __launch_bounds__(kBatchThreads) spf_segment_batch_kernel(
   }
 }
 
-// kernel 15's usability: the transit rule of FullEdges, and the row's bit
-// of the edge in `enabled` (one bit per edge, in shared memory)
+// kernel 16's usability: the transit rule of FullEdges, and the row's bit
+// of the edge in `enabled` (one bit per edge, from row_edge_bits)
 struct BitMaskedEdges {
   const uint8_t* edge_ok;
   const uint8_t* overloaded;
@@ -604,8 +551,6 @@ struct BitMaskedEdges {
            (!overloaded[s] || s == root);
   }
 };
-
-constexpr int kMaskedThreads = 1024;
 
 // Row b's edge bits (one per edge, bit e % 32 of word e / 32): its row of
 // edge_enabled [B, E] bool packed 32 to a word, or, when that is null,
@@ -643,39 +588,81 @@ __device__ void row_edge_bits(uint32_t* bits, int b, int E,
   __syncthreads();
 }
 
-// Kernel 15: distances only, one block per row b, from roots[b] over the
-// one shared edge list with row b's edges masked: either by its row of
-// edge_enabled [B, E], or by its failed link ids fail_link [B, S] (-1
-// pads), whose edges the link CSR (link_off [L + 1], link_edges) lists.
-// Shared memory: the row's distances [V] and its edge bits [E / 32].
-__global__ void __launch_bounds__(kMaskedThreads) spf_distances_masked_kernel(
-    const int32_t* __restrict__ src, const float* __restrict__ w,
-    const uint8_t* __restrict__ edge_ok,
-    const uint8_t* __restrict__ overloaded,
-    const int32_t* __restrict__ roots,
+// Kernel 15's per-block state, carved from `base` (dynamic shared memory,
+// or the block's slice of a global scratch): the frontier's
+// (frontier_state_ints) and the row's edge bits [ceil(E / 32)].
+__host__ __device__ inline size_t masked_state_ints(int V, int E, int cap,
+                                                    int T) {
+  return frontier_state_ints(V, cap, T) + ((size_t)E + 31) / 32;
+}
+
+// Kernel 15 on row b: distances only, from roots[b] (-1: the row reads BIG
+// throughout), by frontier relaxation over the out-edge CSR of the usable
+// edges (out_off [live + 1], out_edge {dst, w}, out_id the edge's position
+// in the edge list), a slot kept where the row's edge bit is set: from its
+// row of edge_enabled [B, E], or from its failed link ids fail_link [B, S]
+// (-1 pads) through the link CSR (link_off [L + 1], link_edges).  Only the
+// first `live` vertices (every endpoint of a usable edge, every root) are
+// solved; the rest of the row, a node bucket's padding, reads BIG.
+__device__ __forceinline__ void masked_row(
+    int32_t* state, int b, const int32_t* __restrict__ out_off,
+    const int2* __restrict__ out_edge, const int32_t* __restrict__ out_id,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
     const uint8_t* __restrict__ edge_enabled,
     const int32_t* __restrict__ fail_link,
     const int32_t* __restrict__ link_off,
-    const int32_t* __restrict__ link_edges,
-    const int32_t* __restrict__ seg_off, const int32_t* __restrict__ seg_end,
-    const int32_t* __restrict__ live, int num_live,
-    float* __restrict__ dist_out, int V, int E, int S, int L, float big) {
-  extern __shared__ float d[];
-  uint32_t* enabled = reinterpret_cast<uint32_t*>(d + V);
-  const int b = blockIdx.x;
+    const int32_t* __restrict__ link_edges, float* __restrict__ dist_out,
+    int V, int live, int E, int S, int L, int cap, float big) {
+  const Frontier f(state, live, cap);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(
+      state + frontier_state_ints(live, cap, blockDim.x));
+  float* dist = dist_out + (size_t)b * V;
   const int root = roots[b];
-  row_edge_bits(enabled, b, E, edge_enabled, fail_link, S, link_off,
+  if (root < 0) {
+    for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = big;
+    return;
+  }
+  row_edge_bits(bits, b, E, edge_enabled, fail_link, S, link_off,
                 link_edges, L);
+  // the set form's bits were cleared by atomics: read them past the L1
+  const volatile uint32_t* vbits = bits;
+  frontier_distances(
+      f, live, root, out_off, out_edge, out_id, overloaded,
+      [&](int e) { return (vbits[e >> 5] >> (e & 31)) & 1u; }, big);
+  const volatile float* vd = f.d;
   for (int v = threadIdx.x; v < V; v += blockDim.x)
-    d[v] = v == root ? 0.f : big;
-  __syncthreads();
-  // a row whose root has every out-edge masked changes nothing in its
-  // first round, and the vote ends it there
-  const BitMaskedEdges edges{edge_ok, overloaded, enabled, root};
-  relax_distances(d, seg_off, seg_end, src, w, edges, nullptr, V, big, live,
-                  num_live);
-  for (int v = threadIdx.x; v < V; v += blockDim.x)
-    dist_out[(size_t)b * V + v] = d[v];
+    dist[v] = v < live ? vd[v] : big;
+}
+
+// Kernel 15 over B rows: one block per row with its state in dynamic shared
+// memory (kGlobal false), or a fixed grid walking the rows with each
+// block's state in its slice of `scratch` (state_ints each).
+template <bool kGlobal>
+__global__ void __launch_bounds__(1024) spf_distances_masked_kernel(
+    const int32_t* __restrict__ out_off, const int2* __restrict__ out_edge,
+    const int32_t* __restrict__ out_id,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
+    const uint8_t* __restrict__ edge_enabled,
+    const int32_t* __restrict__ fail_link,
+    const int32_t* __restrict__ link_off,
+    const int32_t* __restrict__ link_edges, float* __restrict__ dist_out,
+    int32_t* scratch, size_t state_ints, int B, int V, int live, int E, int S,
+    int L, int cap, float big) {
+  if constexpr (!kGlobal) {
+    extern __shared__ int32_t shared_ints[];
+    masked_row(shared_ints, blockIdx.x, out_off, out_edge, out_id, overloaded,
+               roots, edge_enabled, fail_link, link_off, link_edges, dist_out,
+               V, live, E, S, L, cap, big);
+  } else {
+    int32_t* state = scratch + blockIdx.x * state_ints;
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      masked_row(state, b, out_off, out_edge, out_id, overloaded, roots,
+                 edge_enabled, fail_link, link_off, link_edges, dist_out, V,
+                 live, E, S, L, cap, big);
+      // the next row rewrites the state this one's threads may still read
+      __syncthreads();
+    }
+  }
 }
 
 // Kernel 16's per-block state, carved from `base` (dynamic shared memory,
@@ -686,37 +673,6 @@ __global__ void __launch_bounds__(kMaskedThreads) spf_distances_masked_kernel(
 __host__ __device__ inline size_t batched_spf_state_bytes(int V, int E) {
   return (size_t)(V + E + kRowThreads + 1 + V + 1 + (E + 31) / 32) * 4 +
          (size_t)V * sizeof(float) + (size_t)E;
-}
-
-// Kernel 16's lane fixed point: the moving vertices (moving[k], k <
-// num_moving) OR-accumulate, over their first L lanes, the lanes of their
-// propagating in-edges' sources psrc[poff[k], poff[k + 1]), in place until
-// a round changes nothing.  This is the reference's own cold update (a
-// lane once set stays set, from the fill and the seeds); on the DAG its
-// fixed point above the seeds is unique, so update order does not matter.
-__device__ void or_lanes(int8_t* nh, const int32_t* moving, int num_moving,
-                         const int32_t* poff, const int32_t* psrc, int V,
-                         int L, int D) {
-  const int n = num_moving * L;
-  for (int round = 0; round < V; ++round) {
-    int changed = 0;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int k = i / L;
-      const int l = i - k * L;
-      const size_t at = (size_t)moving[k] * D + l;
-      const int cur = nh[at];
-      int x = cur;
-      for (int j = poff[k]; j < poff[k + 1]; ++j) {
-        const int y = nh[(size_t)psrc[j] * D + l];
-        x = y > x ? y : x;
-      }
-      if (x != cur) {
-        nh[at] = (int8_t)x;
-        changed = 1;
-      }
-    }
-    if (!__syncthreads_or(changed)) break;
-  }
 }
 
 // Kernel 16's work on row b: distances and lanes from roots[b] over the
@@ -937,23 +893,37 @@ extern "C" int openr_spf_segment_batch(
 }
 
 extern "C" int openr_spf_distances_masked(
-    const void* src, const void* w, const void* edge_ok,
+    const void* out_off, const void* out_edge, const void* out_id,
     const void* overloaded, const void* roots, const void* edge_enabled,
     const void* fail_link, const void* link_off, const void* link_edges,
-    const void* seg_off, const void* seg_end, const void* live, int num_live,
-    void* dist, int B, int V, int E, int S, int L, float big, void* stream) {
+    void* dist, void* scratch, int grid, int threads, int B, int V, int live,
+    int E, int S, int L, int cap, float big, void* stream) {
   if (B == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)V * sizeof(float) + (size_t)(E + 31) / 32 * 4;
-  cudaError_t err = allow_smem(spf_distances_masked_kernel, smem);
+  const size_t state = masked_state_ints(live, E, cap, threads) * 4;
+  if (scratch) {
+    // the global-state path: each block's state in its slice of scratch
+    // (grid slices, each rounded up to whole 16-byte words)
+    const size_t state_ints = (state + 15) / 16 * 4;
+    spf_distances_masked_kernel<true>
+        <<<grid, threads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)out_off, (const int2*)out_edge,
+            (const int32_t*)out_id, (const uint8_t*)overloaded,
+            (const int32_t*)roots, (const uint8_t*)edge_enabled,
+            (const int32_t*)fail_link, (const int32_t*)link_off,
+            (const int32_t*)link_edges, (float*)dist, (int32_t*)scratch,
+            state_ints, B, V, live, E, S, L, cap, big);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t err = allow_smem(spf_distances_masked_kernel<false>, state);
   if (err != cudaSuccess) return (int)err;
-  spf_distances_masked_kernel<<<B, kMaskedThreads, smem,
-                                (cudaStream_t)stream>>>(
-      (const int32_t*)src, (const float*)w, (const uint8_t*)edge_ok,
-      (const uint8_t*)overloaded, (const int32_t*)roots,
-      (const uint8_t*)edge_enabled, (const int32_t*)fail_link,
-      (const int32_t*)link_off, (const int32_t*)link_edges,
-      (const int32_t*)seg_off, (const int32_t*)seg_end, (const int32_t*)live,
-      num_live, (float*)dist, V, E, S, L, big);
+  spf_distances_masked_kernel<false>
+      <<<B, threads, state, (cudaStream_t)stream>>>(
+          (const int32_t*)out_off, (const int2*)out_edge,
+          (const int32_t*)out_id, (const uint8_t*)overloaded,
+          (const int32_t*)roots, (const uint8_t*)edge_enabled,
+          (const int32_t*)fail_link, (const int32_t*)link_off,
+          (const int32_t*)link_edges, (float*)dist, nullptr, 0, B, V, live, E,
+          S, L, cap, big);
   return (int)cudaGetLastError();
 }
 

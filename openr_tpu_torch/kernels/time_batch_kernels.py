@@ -1,15 +1,17 @@
 """Time the batched SPF kernels on one card, to compare two checkouts in one
 call (parent, change, change, parent):
 
-  * ``fleet``: kernel 12 (``fleet_spf_dense``) and kernel 14
+  * ``fleet``: kernel 12 (``fleet_spf_dense``; where the checkout has
+    ``spf.FLEET_THREADS``, also at 256, 512 and 1,024 threads, its lane
+    lists in shared memory or not) and kernel 14
     (``spf_segment_batch``) over the fleet world of ``chip_smoke.py``'s
     phase (d), the reference benchmark's 1,024-node WAN
     (``random_connected_edges(1024, 2048, seed=7)``), every node a root,
     and kernel 12 over the topology of phase (e)'s 3-area world, every
-    node a root (-1 in the areas it is absent from); kernel 14 on the
-    path the shape takes and again with ``spf.MAX_SHARED_BYTES`` lowered
-    to 0 while the launch is bound (its global-state path; null where the
-    checkout refuses the shape);
+    node a root (-1 in the areas it is absent from); kernels 12 and 14
+    at (d) on the path the shape takes and again with
+    ``spf.MAX_SHARED_BYTES`` lowered to 0 while the launch is bound (their
+    global-state paths; null where the checkout refuses the shape);
   * ``hub``: kernel 14 at one row on phase (h)'s hub of 5,000 leaves
     (V = 16,384, D = 8,192: the global-state path; null where the
     checkout refuses the shape);
@@ -17,20 +19,30 @@ call (parent, change, change, parent):
     has it, at phase (g)'s inputs: the wan_hierarchy class at 8,192
     nodes, seed 7, one row per destination of core0, each row's failed
     set the links of its destination's first paths (what the KSP2 engine
-    sends).
+    sends): every destination (cold), the last two (churn), and every
+    destination again after one backbone link is raised by 5 both ways
+    (weakening); where the checkout has ``spf.MASKED_THREADS``, the cold
+    rows again at 256, 512 and 1,024 threads per row, with a frontier cap
+    of 1,024 and 2,048, and on the global-state path at 128, 256 and 512;
+  * ``fattree``: kernel 12 over phase (h)'s fat-tree (the
+    fattree_multipod class at 2,048: 2,064 roots, V = 4,096, K = 64),
+    on the path the shape takes, with a budget of 0 and, where the
+    checkout has ``spf.FLEET_THREADS``, at 256, 512 and 1,024 threads.
 
 Run from the root of the checkout to time, naming the groups (default:
-all three)::
+all four)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [masked]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [masked] [fattree]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
-pre-bound launch, median of 5 spans; 3 launches at the hub row).
+pre-bound launch, median of 5 spans; 3 launches at the hub row and 5 at
+the fat-tree).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -101,6 +113,24 @@ def both_paths(make, label: str, out: dict) -> None:
         spf.MAX_SHARED_BYTES = saved
 
 
+def sweep(make, label: str, knobs: dict, out: dict, launches: int = LAUNCHES) -> None:
+    """Where the checkout has every ``spf.<knob>`` of ``knobs`` (knob ->
+    values: a kernel's threads per block, its frontier cap, a layout
+    budget), time the launch ``make()`` binds at each combination."""
+    if not all(hasattr(spf, k) for k in knobs):
+        return
+    saved = {k: getattr(spf, k) for k in knobs}
+    try:
+        for values in itertools.product(*knobs.values()):
+            for k, v in zip(knobs, values):
+                setattr(spf, k, v)
+            tag = ", ".join(f"{k}={v}" for k, v in zip(knobs, values))
+            out[f"{label}, {tag}"] = timed(make, launches)
+    finally:
+        for k, v in saved.items():
+            setattr(spf, k, v)
+
+
 def encoded(areas: dict, me: str, dev):
     enc = csr.encode_multi_area(areas, me)
     D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
@@ -117,7 +147,10 @@ def fleet_kernels(dev) -> dict:
         [getattr(enc, k) for k in ("in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded")], dev
     )
     seg = tables_from_numpy([getattr(enc, k) for k in ("src", "dst", "w", "edge_ok", "overloaded")], dev)
-    out["fleet_spf_dense (d)"] = timed(lambda: spf.fleet_spf_dense_launcher(*dense, r, D))
+    both_paths(lambda: spf.fleet_spf_dense_launcher(*dense, r, D), "fleet_spf_dense (d)", out)
+    sweep(lambda: spf.fleet_spf_dense_launcher(*dense, r, D), "fleet_spf_dense (d)",
+          {"FLEET_THREADS": (256, 512, 1024), "FLEET_SHARED_ALL_BYTES": (0, spf.MAX_SHARED_BYTES)},
+          out)
     both_paths(lambda: spf.spf_segment_batch_launcher(*seg, r, D), "spf_segment_batch (d)", out)
     # phase (e)'s 3-area world (its prefixes do not reach kernel 12)
     ring = [(f"b{i}", f"b{(i + 1) % 6}", 1) for i in range(6)]
@@ -147,8 +180,12 @@ def hub_kernel(dev) -> dict:
             "hub D": D}
 
 
-def masked_kernel(dev) -> dict:
-    ls = link_state(topology._build_wan(8192, 7), "core0")
+def masked_rows(edges, dev):
+    """Kernel 15's set-form inputs on a wan_hierarchy world: one row per
+    destination of core0 (sorted), its failed set the links of the
+    destination's first paths.  Returns (edge-list args, link index,
+    failed sets)."""
+    ls = link_state(edges, "core0")
     topo = csr.encode_multi_area({"0": ls}, "core0").topos[0]
     link_id = {link.key: i for i, link in enumerate(topo.links)}
     sets = []
@@ -160,9 +197,51 @@ def masked_kernel(dev) -> dict:
         [topo.src, topo.dst, topo.w, topo.edge_ok, topo.overloaded, roots], dev
     )
     li, failed = tables_from_numpy((topo.link_index, csr.link_failure_sets(sets)), dev)
-    launch, _ = spf.spf_distances_masked_launcher(*args, None, li, failed)
-    return {"spf_distances_masked": launch_ms(launch), "rows": len(sets),
-            "max_failed": int(failed.shape[1])}
+    return args, li, failed
+
+
+def masked_kernel(dev) -> dict:
+    edges = topology._build_wan(8192, 7)
+    args, li, failed = masked_rows(edges, dev)
+    out = {"rows": int(failed.shape[0]), "max_failed": int(failed.shape[1])}
+    out["spf_distances_masked, cold"] = timed(
+        lambda: spf.spf_distances_masked_launcher(*args, None, li, failed))
+    *edge_args, roots = args
+    out["spf_distances_masked, churn (2 rows)"] = timed(
+        lambda: spf.spf_distances_masked_launcher(*edge_args, roots[-2:], None, li, failed[-2:]))
+    sweep(lambda: spf.spf_distances_masked_launcher(*args, None, li, failed),
+          "spf_distances_masked, cold",
+          {"FRONTIER_CAP": (1024, 2048), "MASKED_THREADS": (256, 512, 1024)}, out)
+    sweep(lambda: spf.spf_distances_masked_launcher(*args, None, li, failed),
+          "spf_distances_masked, cold, global state",
+          {"MAX_SHARED_BYTES": (0,), "MASKED_THREADS": (128, 256, 512)}, out)
+    # the weakening: the first backbone link not at core0 raised by 5
+    a, b, _m = next(e for e in edges if e[0].startswith("core") and e[1].startswith("core")
+                    and "core0" not in e[:2])
+    weak = [(x, y, w + 5) if (x, y) in ((a, b), (b, a)) else (x, y, w) for x, y, w in edges]
+    args, li, failed = masked_rows(weak, dev)
+    out["spf_distances_masked, weakening"] = timed(
+        lambda: spf.spf_distances_masked_launcher(*args, None, li, failed))
+    return out
+
+
+def fattree_kernel(dev) -> dict:
+    ls = link_state(topology._build_fattree(2048, 0), "rsw0_0")
+    enc, D, r = encoded({"0": ls}, "rsw0_0", dev)
+    dense = tables_from_numpy(
+        [getattr(enc, k) for k in ("in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded")], dev
+    )
+    out = {"fat-tree roots": int(r.shape[0]), "fat-tree V": int(enc.overloaded.shape[1])}
+    make = lambda: spf.fleet_spf_dense_launcher(*dense, r, D)  # noqa: E731
+    out["fleet_spf_dense (h) fat-tree, default path"] = timed(make, 5)
+    sweep(make, "fleet_spf_dense (h) fat-tree", {"FLEET_THREADS": (256, 512, 1024)}, out, 5)
+    saved = spf.MAX_SHARED_BYTES
+    spf.MAX_SHARED_BYTES = 0
+    try:
+        out["fleet_spf_dense (h) fat-tree, budget 0"] = timed(make, 5)
+    finally:
+        spf.MAX_SHARED_BYTES = saved
+    return out
 
 
 def main() -> int:
@@ -175,7 +254,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    groups = sys.argv[1:] or ["fleet", "hub", "masked"]
+    groups = sys.argv[1:] or ["fleet", "hub", "masked", "fattree"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
@@ -183,6 +262,8 @@ def main() -> int:
         out.update(hub_kernel(dev))
     if "masked" in groups and hasattr(spf, "spf_distances_masked_launcher"):
         out.update(masked_kernel(dev))
+    if "fattree" in groups:
+        out.update(fattree_kernel(dev))
     print(json.dumps(out), flush=True)
     return 0
 

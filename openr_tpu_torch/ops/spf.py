@@ -43,6 +43,12 @@ from openr_tpu_torch.kernels.build import (
     stream,
 )
 from openr_tpu_torch.ops.consts import BIG
+from openr_tpu_torch.ops.frontier import (
+    dense_out_edge_csr,
+    frontier_state_bytes,
+    live_nodes,
+    out_edge_csr,
+)
 
 #: relaxation rounds per convergence check in the plain versions (the
 #: reference's DENSE_UNROLL); extra rounds past the fixed point are no-ops
@@ -817,12 +823,26 @@ def fleet_spf_dense_plain(in_src, in_w, in_ok, in_rank, in_has, overloaded, root
 
 #: the kernels' shared-memory budget per block (bytes)
 MAX_SHARED_BYTES = 232448
-#: threads per block of kernels 12 and 14
+#: threads per block of kernel 14
 BATCH_THREADS = 256
+#: threads per block of kernel 12 (one (root, area) pair at a time)
+FLEET_THREADS = 512
 #: threads per block (one what-if row) of kernel 16
 ROW_THREADS = 512
+#: threads per block (one row) of kernel 15
+MASKED_THREADS = 256
+#: frontier vertices kernels 12 and 15 list at a time where their frontier
+#: state lives in shared memory (a larger frontier runs in chunks)
+FRONTIER_CAP = 2048
 #: threads an SM holds at once (sm_90)
 SM_THREADS = 2048
+#: shared memory an SM holds, and what the runtime keeps of it per block
+#: (sm_90)
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+#: kernel 12 keeps its lane lists in shared memory beside its frontier
+#: state up to this many bytes a block (two blocks an SM)
+FLEET_SHARED_ALL_BYTES = SM_SHARED_BYTES // 2 - BLOCK_RESERVED_BYTES
 
 
 def segment_batch_state_bytes(V: int, E: int, S: int) -> int:
@@ -831,20 +851,57 @@ def segment_batch_state_bytes(V: int, E: int, S: int) -> int:
     return 4 * (V + E + BATCH_THREADS + 1 + S) + 4 * V + E
 
 
+def fleet_lists_bytes(V: int, M: int) -> int:
+    """Kernel 12's lane lists per block (``fleet_lists_ints``): source
+    counts and cursors, the moving vertices, their offsets and ``M`` packed
+    sources."""
+    return 4 * (3 * V + 1 + M)
+
+
 def fleet_dense_state_bytes(V: int, K: int) -> int:
-    """Kernel 12's per-block state: distances and edge classes."""
-    return 4 * V + V * K
+    """Kernel 12's per-pair state when its lane lists hold every in-edge
+    slot of the planes (``M = V * K``, the most a pair can pack): the
+    frontier state (shared memory where it fits) and the lane lists
+    (always in a global scratch, sized by the usable edges)."""
+    return frontier_state_bytes(V, min(V, FRONTIER_CAP), FLEET_THREADS) + fleet_lists_bytes(V, V * K)
+
+
+def masked_state_bytes(V: int, E: int, cap: int, threads: int) -> int:
+    """Kernel 15's per-block state (``masked_state_ints``): the frontier
+    state and the row's edge bits."""
+    return frontier_state_bytes(V, cap, threads) + 4 * ((E + 31) // 32)
+
+
+#: the ctypes argument types of kernel 12's and kernel 15's C entry points
+#: (``openr_fleet_spf_dense``, ``openr_spf_distances_masked``), in order
+FLEET_SPF_DENSE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+SPF_DISTANCES_MASKED_ARGTYPES = (
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+)
+
+
+def _words16(nbytes: int) -> int:
+    """int32 words of ``nbytes`` rounded up to whole 16-byte words."""
+    return (nbytes + 15) // 16 * 4
+
+
+def _resident_grid(rows: int, dev, threads: int, smem: int = 0) -> int:
+    """Blocks of ``threads`` (``smem`` dynamic shared bytes each) the card
+    holds at once, at most one per row."""
+    per_sm = SM_THREADS // threads
+    if smem:
+        per_sm = min(per_sm, SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(rows, sms * max(per_sm, 1)))
 
 
 def _global_state(state_bytes: int, rows: int, dev, threads: int = BATCH_THREADS):
-    """(scratch, grid) of the global-state path of kernels 12, 14 and 16:
-    as many blocks of ``threads`` as the SMs hold at once (at most one per
-    pair), each with a 16-byte-rounded slice of the scratch, walking the
-    pairs in a grid-stride loop."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(rows, sms * (SM_THREADS // threads)))
-    slice_words = (state_bytes + 15) // 16 * 4
-    return torch.empty(grid * slice_words, dtype=torch.int32, device=dev), grid
+    """(scratch, grid) of the global-state path of kernels 12, 14, 15 and
+    16: as many blocks of ``threads`` as the SMs hold at once (at most one
+    per pair), each with a 16-byte-rounded slice of the scratch, walking
+    the pairs in a grid-stride loop."""
+    grid = _resident_grid(rows, dev, threads)
+    return torch.empty(grid * _words16(state_bytes), dtype=torch.int32, device=dev), grid
 
 
 def spf_segment_batch_launcher(
@@ -923,8 +980,10 @@ def spf_one(src, dst, w, edge_ok, overloaded, roots, max_degree: int):
 def fleet_spf_dense_launcher(
     in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, max_degree: int
 ):
-    """Like :func:`spf_segment_batch_launcher`, for kernel 12, whose
-    blocks always keep their state in the global scratch:
+    """Like :func:`spf_segment_batch_launcher`, for kernel 12: derives the
+    out-edge CSR of each area's usable slots (:func:`dense_out_edge_csr`)
+    and places each resident block's state (the frontier state and the
+    lane lists) in shared memory or its slice of a global scratch:
     ``(launch, (dist, nh))``."""
     B = roots.shape[0]
     A, V, K, dev = _check_planes(in_src, in_w, in_ok, overloaded, roots, batch=B)
@@ -933,21 +992,34 @@ def fleet_spf_dense_launcher(
     D = int(max_degree)
     if D < 1:
         raise ValueError(f"max_degree {D} must be >= 1")
-    scratch, grid = _global_state(fleet_dense_state_bytes(V, K), B * A, dev)
+    out_off, out_edge, out_rank = dense_out_edge_csr(in_src, in_w, in_ok, in_rank)
+    M = int((out_off[:, V] - out_off[:, 0]).max()) if A else 0
+    T = FLEET_THREADS
+    cap = min(V, FRONTIER_CAP)
+    state = 4 * _words16(frontier_state_bytes(V, cap, T))
+    lists = 4 * _words16(fleet_lists_bytes(V, M))
+    # the whole state in shared memory where two blocks still fit an SM,
+    # else the frontier state alone, else neither (``FleetLayout``)
+    if state + lists <= min(MAX_SHARED_BYTES, FLEET_SHARED_ALL_BYTES):
+        layout, smem, slice_bytes = 0, state + lists, 0
+    elif state <= MAX_SHARED_BYTES:
+        layout, smem, slice_bytes = 1, state, lists
+    else:
+        cap = V
+        state = 4 * _words16(frontier_state_bytes(V, cap, T))
+        layout, smem, slice_bytes = 2, 0, state + lists
+    grid = _resident_grid(B * A, dev, T, smem)
+    scratch = torch.empty(max(1, grid * slice_bytes // 4), dtype=torch.int32, device=dev)
     dist = torch.empty((B, A, V), dtype=torch.float32, device=dev)
     nh = torch.empty((B, A, V, D), dtype=torch.int8, device=dev)
-    fn = function(
-        "spf_dense",
-        "openr_fleet_spf_dense",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_dense", "openr_fleet_spf_dense", FLEET_SPF_DENSE_ARGTYPES)
     args = (
-        ptr(in_src), ptr(in_w), ptr(in_ok), ptr(in_rank), ptr(in_has),
-        ptr(overloaded), ptr(roots), ptr(dist), ptr(nh), ptr(scratch), grid, B, A, V, K, D, BIG,
-        stream(dev),
+        ptr(out_off), ptr(out_edge), ptr(out_rank), ptr(in_has), ptr(overloaded), ptr(roots),
+        ptr(dist), ptr(nh), ptr(scratch), layout, grid, T, B, A, V, M, D, cap, BIG, stream(dev),
     )
 
-    def launch(_held=scratch) -> None:
+    # the default argument keeps the derived layout and the scratch alive
+    def launch(_held=(out_off, out_edge, out_rank, scratch)) -> None:
         if B == 0 or A == 0:
             return
         check_launch("fleet_spf_dense", fn(*args))
@@ -1037,20 +1109,19 @@ def link_edge_csr(link_index, num_links: int):
 def spf_distances_masked_launcher(
     src, dst, w, edge_ok, overloaded, roots, edge_enabled=None, link_index=None, failed=None,
 ):
-    """Check the inputs, derive the segment offsets and run ends (and, in
-    the set form, the link id -> edges CSR), allocate the output and bind
-    kernel 15 once.  Pass ``edge_enabled`` [B, E] bool, or ``link_index``
-    [E] and ``failed`` [B, S] int32.  Returns ``(launch, dist)``: each
-    ``launch()`` enqueues the kernel (no synchronize) and counts one
-    launch."""
+    """Check the inputs, derive the out-edge CSR of the usable edges
+    (:func:`out_edge_csr`; in the set form, also the link id -> edges CSR),
+    allocate the output (and, where a row's state exceeds shared memory,
+    the scratch of the resident blocks) and bind kernel 15 once.  Pass
+    ``edge_enabled`` [B, E] bool, or ``link_index`` [E] and ``failed``
+    [B, S] int32.  Returns ``(launch, dist)``: each ``launch()`` enqueues
+    the kernel (no synchronize) and counts one launch."""
     if src.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on {src.device}")
     dev = src.device
     V = overloaded.shape[0]
     E = src.shape[0]
     B = roots.shape[0]
-    if 4 * V + 4 * ((E + 31) // 32) > MAX_SHARED_BYTES:
-        raise ValueError(f"{V} nodes and {E} edges exceed kernel 15's shared-memory bound")
     check_tensor("src", src, torch.int32, (E,), dev)
     check_tensor("dst", dst, torch.int32, (E,), dev)
     check_tensor("w", w, torch.float32, (E,), dev)
@@ -1067,29 +1138,26 @@ def spf_distances_masked_launcher(
         check_tensor("failed", failed, torch.int32, (B, S), dev)
         L = int(link_index.max()) + 1 if E else 0
         link_off, link_edges = link_edge_csr(link_index, L)
-    seg_off = segment_offsets(dst[None], V)[0]
-    # run ends of the last usable edge, shared by every row (the kernel-14
-    # prologue's seg_end, derived once here)
-    last = torch.where(edge_ok, torch.arange(1, E + 1, dtype=torch.int32, device=dev), 0)
-    seg_end = seg_off[:V].clone().scatter_reduce_(0, dst.long(), last, "amax")
-    # the vertices with a usable in-edge: no other distance can change
-    live = torch.nonzero(seg_end > seg_off[:V]).squeeze(1).to(torch.int32)
+    out_off, out_edge, out_id = out_edge_csr(src, dst, w, edge_ok, V)
+    # the rows solve only the vertices an edge or a root touches
+    live = live_nodes(out_off, out_edge, roots)
+    T = MASKED_THREADS
+    cap = min(live, FRONTIER_CAP)
+    scratch, grid = None, B
+    if masked_state_bytes(live, E, cap, T) > MAX_SHARED_BYTES:
+        cap = live
+        scratch, grid = _global_state(masked_state_bytes(live, E, cap, T), B, dev, T)
     dist = torch.empty((B, V), dtype=torch.float32, device=dev)
-    fn = function(
-        "spf_warm",
-        "openr_spf_distances_masked",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p]
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_warm", "openr_spf_distances_masked", SPF_DISTANCES_MASKED_ARGTYPES)
     opt = lambda t: None if t is None else ptr(t)  # noqa: E731
     args = (
-        ptr(src), ptr(w), ptr(edge_ok), ptr(overloaded), ptr(roots), opt(edge_enabled),
-        opt(failed), opt(link_off), opt(link_edges), ptr(seg_off), ptr(seg_end),
-        ptr(live), int(live.numel()), ptr(dist), B, V, E, S, L, BIG, stream(dev),
+        ptr(out_off), ptr(out_edge), ptr(out_id), ptr(overloaded), ptr(roots),
+        opt(edge_enabled), opt(failed), opt(link_off), opt(link_edges), ptr(dist), opt(scratch),
+        grid, T, B, V, live, E, S, L, cap, BIG, stream(dev),
     )
 
-    # the default argument keeps the derived layout alive
-    def launch(_held=(seg_off, seg_end, live, link_off, link_edges)) -> None:
+    # the default argument keeps the derived layout and the scratch alive
+    def launch(_held=(out_off, out_edge, out_id, link_off, link_edges, scratch)) -> None:
         if B == 0:
             return
         check_launch("spf_distances_masked", fn(*args))

@@ -518,6 +518,52 @@ def test_fleet_spf_kernels_equal_plain_and_each_other(card, world):
     assert torch.equal(one[0], cold[0]) and torch.equal(one[1], cold[1])
 
 
+def _fattree_areas(scale=128):
+    from openr_tpu_torch.emulation.topology import _build_fattree
+
+    ls = LinkState("0", "rsw0_0")
+    for db in build_adj_dbs(_build_fattree(scale, 0)).values():
+        ls.update_adjacency_database(db)
+    return {"0": ls}, "rsw0_0"
+
+
+def _frontier_path(path, monkeypatch):
+    """Force a path of the frontier kernels (12 and 15): the frontier state
+    in shared memory listed whole, listed 4 vertices at a time, kernel 12's
+    lane lists in the global scratch, or the whole state there."""
+    if path == "chunked":
+        monkeypatch.setattr(spf, "FRONTIER_CAP", 4)
+    elif path == "lists":
+        monkeypatch.setattr(spf, "FLEET_SHARED_ALL_BYTES", 0)
+    elif path == "global":
+        monkeypatch.setattr(spf, "MAX_SHARED_BYTES", 0)
+
+
+@pytest.mark.parametrize("path", ["shared", "chunked", "lists", "global"])
+@pytest.mark.parametrize("world", ["grid", "multiarea_isolated", "fattree"])
+def test_fleet_frontier_kernel_on_every_path_equals_plain(card, world, path, monkeypatch):
+    """Kernel 12 (frontier relaxation, then the packed OR lanes) against
+    its plain version on every path of its frontier state: an overloaded
+    non-root transit node and a soft drain (grid), A = 2 with roots of -1,
+    vertices absent from an area and unreachable ones (multiarea_isolated),
+    a 4-pod fat-tree whose roots have up to 28 out-edges."""
+    areas, me = _fattree_areas() if world == "fattree" else _areas(world)
+    enc = csr.encode_multi_area(areas, me)
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    (roots,) = tables_from_numpy((_fleet_roots(enc),), card)
+    dense = tables_from_numpy([getattr(enc, f) for f in FIELDS[:-1]], card)
+    _frontier_path(path, monkeypatch)
+    reset_launch_counts()
+    got = spf.fleet_spf_dense(*dense, roots, D)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fleet_spf_dense"] == 1
+    want = spf.fleet_spf_dense_plain(*dense, roots, D)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if world == "multiarea_isolated":
+        assert enc.num_areas == 2 and bool((roots < 0).any())
+        assert bool((got[1] == -128).any()) and bool((got[0] >= BIG).any())
+
+
 @pytest.mark.parametrize("S", [1, 3])
 def test_segment_batch_with_failed_sets_equals_plain(card, S):
     areas, me = _areas("multiarea_isolated")
@@ -770,6 +816,44 @@ def test_masked_distance_kernel_equals_plain(card, scale):
     (mask,) = tables_from_numpy((csr.link_failure_batch(topo, sets[:n]),), card)
     got_m = spf.batched_spf_distances_masked(src, dst, w, ok, mask, ovl, r[:n])
     assert torch.equal(got_m, want[:n])
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("path", ["shared", "chunked", "global"])
+def test_masked_frontier_kernel_on_every_path_equals_plain(card, path, threads, monkeypatch):
+    """Kernel 15 (frontier relaxation), set form and mask form, on every
+    path of its frontier state and at each thread count tried: rows from
+    random roots, an overloaded root (it may transit) beside overloaded
+    transit nodes, a root with every out-edge masked, a root in a
+    component the others cannot reach."""
+    ls = LinkState("0")
+    edges = random_connected_edges(40, 30, seed=1) + [("x0", "x1", 3), ("x1", "x2", 1)]
+    for db in build_adj_dbs(edges, overloaded=["node3", "node17"]).values():
+        ls.update_adjacency_database(db)
+    topo = csr.encode_link_state(ls)
+    rng = np.random.default_rng(threads)
+    B = 48
+    roots, sets = _masked_rows(topo, B, rng, max_links=6)
+    roots = rng.integers(0, topo.num_nodes, B).astype(np.int32)
+    roots[0] = 0  # _masked_rows cut node 0 off in row 0
+    roots[1], roots[2] = topo.node_id("node3"), topo.node_id("x0")
+    sets[2] = []
+    monkeypatch.setattr(spf, "MASKED_THREADS", threads)
+    _frontier_path(path, monkeypatch)
+    src, dst, w, ok, li, ovl = tables_from_numpy(
+        [topo.src, topo.dst, topo.w, topo.edge_ok, topo.link_index, topo.overloaded], card
+    )
+    r, f = tables_from_numpy((roots, csr.link_failure_sets(sets)), card)
+    reset_launch_counts()
+    got = spf.batched_spf_distances_masked_sets(src, dst, w, ok, li, f, ovl, r)
+    (mask,) = tables_from_numpy((csr.link_failure_batch(topo, sets),), card)
+    got_m = spf.batched_spf_distances_masked(src, dst, w, ok, mask, ovl, r)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spf_distances_masked"] == 2
+    want = spf.batched_spf_distances_masked_sets_plain(src, dst, w, ok, li, f, ovl, r)
+    assert torch.equal(got, want) and torch.equal(got_m, want)
+    assert bool((got[0] >= BIG).sum() == got.shape[1] - 1)  # only the root reached
+    assert int((got[2] < BIG).sum()) == 3  # x0's component
 
 
 def test_backend_ksp2_on_card_equals_plain_and_scalar(card):
