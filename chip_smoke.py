@@ -60,9 +60,8 @@ and then the fleet RIB and the multi-area what-if (kernels 12-14):
      base row), then metro0's two homing links as one simultaneous set
 
 and then KSP2_ED_ECMP on a backbone (kernel 15) and the shapes whose
-block state exceeds shared memory (kernel 12, whose lane lists always live
-in a global scratch beside its frontier state, and kernel 14's
-global-state path):
+block state exceeds shared memory (kernels 12 and 14's frontier form,
+whose lane lists live in a global scratch beside its frontier state):
 
  16. the wan_hierarchy class at 8,192 nodes, seed 7 (V = 16,384,
      E = 32,768), vantage core0, node labels on every node and a KSP2 /32
@@ -76,8 +75,8 @@ global-state path):
  17. ``FleetRibEngine`` on the fattree_multipod class at 2,048 (2,064
      roots, V = 4,096, K = 64: kernels 12 and 13),
      ``CudaBackend`` on a hub of 5,000 leaves (V = 16,384, the segment
-     form: kernel 14's global path at one row), and kernel 14 at 8 rows of
-     1-3-link failed sets on the backbone
+     form: kernel 14's frontier form at one row, its fill over the card),
+     and kernel 14 at 8 rows of 1-3-link failed sets on the backbone
 
 and then the flagship what-if step (kernels 16 and 17):
 
@@ -131,10 +130,10 @@ so no k-path memo is shared) and 32 seeded prefixes against the scalar
 solver on a third copy; the device-build what-if against
 ``GenericSolverWhatIfEngine``; the fat-tree fleet's summary against the
 plain path and 16 roots against the scalar solver; the large hub's
-RouteDb against the plain path and the scalar solver; kernel 14's rows and
-its global path (also at the (f) shape, beside the shared path) against
-their plain versions.  The flagship phase checks, exactly: every call of
-kernels 16 and 17 against its plain version; rows 0-3,070 against the
+RouteDb against the plain path and the scalar solver; kernel 14's rows, its
+hub row and, at the (f) shape, its frontier form's all-global layout
+(beside the round form the shape takes) against their plain versions.  The flagship phase checks,
+exactly: every call of kernels 16 and 17 against its plain version; rows 0-3,070 against the
 cold sweep kernel's tables (kernel 8) from node0, transposed; 32 seeded
 rows, half from each half, on every prefix against the scalar oracle
 (``graft_entry.scalar_route_oracle`` per advertiser, then the selection
@@ -1427,8 +1426,8 @@ def time_fleet(report, name, call, key=None, force_global=False, launches=TIMED_
     edge (or in-edge slot) per (row, area) pair solved, a max per lane a
     root out-edge can seed for the lanes (kernel 13: the selection chain's
     operations per batch row).  ``force_global`` binds kernel 12 or 14 on
-    its global-state path (a shared-memory budget of 0 while the launch is
-    bound) and first holds its outputs against the recorded ones.
+    its global-state layout (a shared-memory budget of 0 while the launch
+    is bound) and first holds its outputs against the recorded ones.
     ``key``, ``launches`` and ``spans`` as in ``KernelReport.time``."""
     if (key or name) in report.timing:
         return
@@ -1707,7 +1706,7 @@ def multiarea_phase(report, rng):
 
 # ---------------------------------------------------------------------------
 # (g) KSP2_ED_ECMP on a backbone: kernel 15; (h) the shapes past the
-# shared-memory bound: kernel 12 and kernel 14's global-state path
+# shared-memory bound: kernels 12 and 14's lane lists in a global scratch
 # ---------------------------------------------------------------------------
 
 #: the KSP2 engine's entry point of kernel 15 (decision/ksp2.py's own name)
@@ -1940,7 +1939,7 @@ def fattree_world():
 def c4_phase(report, rng, backbone_enc):
     """(h) the shapes whose block state exceeds shared memory: the fleet
     on the fat-tree (kernels 12 and 13), ``CudaBackend`` on
-    the hub world at HUB_LEAVES_LARGE leaves (kernel 14's global path at
+    the hub world at HUB_LEAVES_LARGE leaves (kernel 14's frontier form at
     one row), kernel 14 at SEGMENT_ROWS rows with failed sets on the (g)
     world."""
     walls = {}
@@ -1982,10 +1981,11 @@ def c4_phase(report, rng, backbone_enc):
         hub_ps.update_prefix(f"leaf{i}", "0", PrefixEntry(f"10.3.{i}.0/24"))
     hub_enc = csr.encode_multi_area({"0": hub}, "hub")
     V, E = hub_enc.overloaded.shape[1], hub_enc.src.shape[1]
-    check(not hub_enc.has_dense and spf.segment_batch_state_bytes(V, E, 0) > spf.MAX_SHARED_BYTES,
-          "the large hub fits kernel 14's shared path")
-    print(f"[c4] hub: {HUB_LEAVES_LARGE} leaves, V={V}, E={E}; kernel 14 block state "
-          f"{spf.segment_batch_state_bytes(V, E, 0)} B", flush=True)
+    hub_layout = spf.segment_batch_layout(1, V, E, 0, "cuda")
+    check(not hub_enc.has_dense and hub_layout[1] != 0,
+          "the large hub's kernel-14 state fits shared memory")
+    print(f"[c4] hub: {HUB_LEAVES_LARGE} leaves, V={V}, E={E}; kernel 14 threads, layout, "
+          f"shared and scratch bytes {hub_layout[:2] + hub_layout[3:]}", flush=True)
     kernel_be = KernelPath(SpfSolver("hub"))
     t0 = time.perf_counter()
     drive(report, kernel_be, PlainPath(SpfSolver("hub")), SpfSolver("hub"), {"0": hub}, hub_ps,
@@ -1994,7 +1994,7 @@ def c4_phase(report, rng, backbone_enc):
     args, out = kernel_be.io["segment"]
     src, dst, w, ok, ovl, roots, D = args
     time_fleet(report, "spf_segment_batch", (args[:5] + (roots[None], D), {}, out),
-               key="spf_segment_batch global path, hub", **large)
+               key="spf_segment_batch, hub row", **large)
 
     # kernel 14 on the (g) world's segment arrays, SEGMENT_ROWS rows of
     # 1-3-link failed sets
@@ -2020,7 +2020,7 @@ def c4_phase(report, rng, backbone_enc):
         report.launches["spf_segment_batch"] += 1
     hold_recorded(report, rec)
     time_fleet(report, "spf_segment_batch", rec.calls["spf_segment_batch"][0],
-               key="spf_segment_batch global path, (g) rows", **large)
+               key="spf_segment_batch, (g) rows", **large)
     print(f"[c4] kernel 14 at {B} rows with 1-3-link failed sets on the backbone (V="
           f"{backbone_enc.overloaded.shape[1]}, E={backbone_enc.src.shape[1]}) == plain", flush=True)
     return walls

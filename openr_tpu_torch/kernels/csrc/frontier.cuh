@@ -1,11 +1,13 @@
 // Device routines shared by the SPF kernels of spf_warm.cu and
 // spf_dense.cu: the warp-shuffle block scan (block_offsets, block_ranks),
-// the packed OR lane loop (or_lanes) and frontier relaxation over a
-// compact out-edge list (frontier_distances).
+// the packed OR lane loop (or_lanes), frontier relaxation over a compact
+// out-edge list (frontier_distances) and the whole solve of one (root,
+// area) pair over that list (frontier_pair, kernels 12 and 14).
 //
-// Frontier relaxation (kernels 12 and 15).  The topology is a CSR by
+// Frontier relaxation (kernels 12, 14 and 15).  The topology is a CSR by
 // SOURCE of the usable edges only (edge_ok false and padding dropped by
-// the launcher): vertex u's out-edges are the slots [off[u], off[u + 1]),
+// the launcher; kernel 14's list keeps them as self-loops of +inf, which
+// lower nothing): vertex u's out-edges are the slots [off[u], off[u + 1]),
 // each an int2 {dst, bits of w}, so one 8-byte load gives both.  Round 0's
 // frontier is the root alone; each round relaxes only the out-edges of the
 // vertices whose distance fell in the round before, and the solve ends
@@ -19,7 +21,8 @@
 // L2.  The transit rule (an
 // overloaded vertex other than the root relaxes nothing) is checked once
 // per frontier vertex, as a degree of 0; a per-slot filter (kernel 15's
-// row edge bit, by the slot's edge id) once per pair.  d[v] falls by an integer atomicMin on the
+// row edge bit, by the slot's edge id; kernel 14's failed set, by the
+// slot's link id) once per pair.  d[v] falls by an integer atomicMin on the
 // float's bits: distances are >= 0, so integer order is float order.
 // Only vertices with d < BIG are ever in a frontier, so BIG + BIG (+inf)
 // is never formed.  A lowered v sets its bit in the next round's bitmap;
@@ -283,6 +286,172 @@ __device__ int frontier_distances(const Frontier& f, int V, int root,
     }
   }
   return rounds;
+}
+
+// The lane lists of frontier_pair: per vertex its propagating sources'
+// count, then the cursor of its packing [V], the moving vertices [V],
+// their sources' offsets [V + 1] and the packed sources [M] (M: at least
+// the largest area's usable edges).
+__host__ __device__ inline size_t lane_lists_ints(int V, int M) {
+  return 3 * (size_t)V + 1 + (size_t)M;
+}
+
+// Where a pair kernel's block state lives: the frontier state and the
+// lane lists both in dynamic shared memory, the frontier state there and
+// the lists in the block's slice of a global scratch, or both in the
+// slice.
+enum StateLayout { kSharedAll = 0, kSharedFrontier = 1, kGlobalAll = 2 };
+
+// The solve of one (root, area) pair from root >= 0 over the area's
+// out-edge CSR (off [V + 1] absolute slots, out_edge {dst, bits of w},
+// out_rank the slot's lane: its rank among its source's out-edges; where
+// null, the slot's place in its source's run, a run that holds all of the
+// source's edges in edge order), a
+// slot usable where slot_id is null or keep(slot_id[slot]) holds, into
+// dist [V] and lanes [V, D]:
+//   1. distances by frontier_distances;
+//   2. the fill, -128 where has[v] is false (the vertex is absent from
+//      the padded edge list), else 0, and dist for every vertex; or, where
+//      `prefilled` (a fill kernel wrote dist BIG and the fill already;
+//      has is then not read), dist of the reached vertices only;
+//   3. the root's out-edges on the shortest-path DAG set their lanes;
+//      every other DAG edge (its source reached, not the root, free to
+//      transit) is packed as a propagating source of its dst;
+//   4. OR rounds over the vertices with a propagating source and only the
+//      lanes a seed can reach (1 + the highest rank of a root out-edge on
+//      the DAG): every other lane of a present vertex is 0 from the fill
+//      and never changes, because a propagating source is reached and not
+//      the root, so its own lanes hold 0 or 1, never -128.  So the int8
+//      max is an OR of bits: where the live lanes fit 32, the rounds run
+//      on one uint32 word a vertex in the distances' place (shared memory
+//      where the state is), else on the table (or_lanes).
+// lists: lane_lists_ints(V, M); lanes_used: a __shared__ int.
+template <class Keep>
+__device__ void frontier_pair(const Frontier& f, int32_t* lists, int& lanes_used, int root,
+                              const int32_t* __restrict__ off,
+                              const int2* __restrict__ out_edge,
+                              const int32_t* __restrict__ out_rank,
+                              const int32_t* __restrict__ slot_id, Keep keep,
+                              const uint8_t* __restrict__ has,
+                              const uint8_t* __restrict__ ovl, float* dist,
+                              int8_t* lanes, int V, int D, float big,
+                              bool prefilled) {
+  const int T = blockDim.x;
+  int32_t* count = lists;
+  int32_t* moving = count + V;
+  int32_t* poff = moving + V;
+  int32_t* psrc = poff + V + 1;
+  const auto kept = [&](int j) { return !slot_id || keep(slot_id[j]); };
+
+  // 1. distances
+  frontier_distances(f, V, root, off, out_edge, slot_id, ovl, keep, big);
+  const volatile float* d = f.d;
+  for (int v = threadIdx.x; v < V; v += T) {
+    const float dv = d[v];
+    if (!prefilled || dv < big) dist[v] = dv;
+    count[v] = 0;
+  }
+  // 2. the fill (16 lanes a store where whole rows of D lanes fill 16-byte
+  // words)
+  if (!prefilled) {
+    const size_t VD = (size_t)V * D;
+    if (D % 16 == 0) {
+      uint4* words = reinterpret_cast<uint4*>(lanes);
+      for (size_t i = threadIdx.x; i < VD / 16; i += T) {
+        const uint32_t x = has[i / (D / 16)] ? 0u : 0x80808080u;
+        words[i] = make_uint4(x, x, x, x);
+      }
+    } else {
+      for (size_t i = threadIdx.x; i < VD; i += T) lanes[i] = has[i / D] ? 0 : -128;
+    }
+  }
+  if (threadIdx.x == 0) lanes_used = 0;
+  __syncthreads();
+
+  // 3. the root's out-edges on the DAG set their lanes; every other DAG
+  // edge counts a propagating source of its dst
+  for (int j = off[root] + threadIdx.x; j < off[root + 1]; j += T) {
+    const int2 e = out_edge[j];
+    const float dv = d[e.x];
+    if (kept(j) && d[root] + __int_as_float(e.y) == dv && dv < big) {
+      const int k = out_rank ? out_rank[j] : j - off[root];
+      if (k < D) lanes[(size_t)e.x * D + k] = 1;
+      atomicMax(&lanes_used, k + 1);
+    }
+  }
+  const auto each_propagating = [&](auto visit) {
+    for (int u = threadIdx.x; u < V; u += T) {
+      const float du = d[u];
+      if (u == root || du >= big || ovl[u]) continue;
+      for (int j = off[u]; j < off[u + 1]; ++j) {
+        const int2 e = out_edge[j];
+        if (du + __int_as_float(e.y) == d[e.x] && kept(j)) visit(u, e.x);
+      }
+    }
+  };
+  each_propagating([&](int, int v) { atomicAdd(count + v, 1); });
+  __syncthreads();
+
+  // the moving vertices (a propagating source at least) and the offsets of
+  // their sources; count becomes each one's packing cursor
+  const volatile int32_t* vcount = count;
+  const int num_moving = block_ranks(
+      f.counts, V, [&](int v) { return vcount[v] > 0; },
+      [&](int v, int k) {
+        if (k >= 0) moving[k] = v;
+      });
+  const int num_prop = block_offsets(
+      f.counts, num_moving, [&](int k) { return vcount[moving[k]]; },
+      [&](int k, int o) {
+        poff[k] = o;
+        count[moving[k]] = o;
+      });
+  if (threadIdx.x == 0) poff[num_moving] = num_prop;
+  each_propagating([&](int u, int v) { psrc[atomicAdd(count + v, 1)] = u; });
+  __syncthreads();
+
+  // 4. OR-propagation over the live lanes: where they fit one word a
+  // vertex, as bit words in the distances' place (read no more), seeded
+  // from the seed lanes set in step 3 (a lane of the fill is 0 or -128, so
+  // a 1 is a seed), then each moving vertex's lanes that became 1 written
+  // out; else on the table itself
+  const int L = lanes_used < D ? lanes_used : D;
+  if (L > 32) {
+    or_lanes(lanes, moving, num_moving, poff, psrc, V, L, D);
+    return;
+  }
+  // the words are set by atomics, so they are read past the L1 (the state
+  // may be a global scratch)
+  volatile uint32_t* word = reinterpret_cast<volatile uint32_t*>(f.d);
+  for (int v = threadIdx.x; v < V; v += T) word[v] = 0u;
+  __syncthreads();
+  for (int j = off[root] + threadIdx.x; j < off[root + 1]; j += T) {
+    const int k = out_rank ? out_rank[j] : j - off[root];
+    const int v = out_edge[j].x;
+    if (k < L && lanes[(size_t)v * D + k] == 1)
+      atomicOr(const_cast<uint32_t*>(word) + v, 1u << k);
+  }
+  __syncthreads();
+  for (int round = 0; round < V; ++round) {
+    int changed = 0;
+    for (int k = threadIdx.x; k < num_moving; k += T) {
+      const int v = moving[k];
+      const uint32_t cur = word[v];
+      uint32_t x = cur;
+      for (int j = poff[k]; j < poff[k + 1]; ++j) x |= word[psrc[j]];
+      if (x != cur) {
+        word[v] = x;
+        changed = 1;
+      }
+    }
+    if (!__syncthreads_or(changed)) break;
+  }
+  for (int i = threadIdx.x; i < num_moving * L; i += T) {
+    const int k = i / L;
+    const int l = i - k * L;
+    const int v = moving[k];
+    if ((word[v] >> l) & 1u) lanes[(size_t)v * D + l] = 1;
+  }
 }
 
 }  // namespace

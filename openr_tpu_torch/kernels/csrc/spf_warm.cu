@@ -67,33 +67,50 @@
 // which contribute nothing (BIG to a distance, 0 to a lane); the run's
 // emptiness, which decides the -128 fill, is still read from off[].
 //
-// Kernel 14 (spf_segment_batch) is the cold solve of 4 then 5 for every
-// (batch row, area) pair in one launch, one block of 256 threads each:
-// distances from BIG (the root at 0), then the lanes.  The reference
-// OR-accumulates its cold lanes from the seed; the reset update reaches
-// the same tables, because on the DAG both fixed points are the unique
-// one above the seed.  Per row it takes the row's own root (-1: the
-// vantage is absent from the area, and the block writes dist BIG, lanes
-// 0 without solving) and, optionally, a failed set of (area, link) pairs:
-// an edge is masked iff some member has this area, the edge's link id and
-// a link id >= 0, so a -1 pad masks nothing, not even a padding edge
-// (whose link id is also -1).  The block keeps in shared memory its
-// distances, its run ends, its edge classes and the lane rank of every
-// edge (a block scan: the rank among the root's out-edges in edge order,
-// -1 off the root), so nothing scales with the batch but the outputs.
-// The seed edges set their lanes before the rounds, which then run only
-// over lanes a root out-edge can seed and only over vertices with a
-// propagating in-edge: the others hold their fixed point already (a hub's
-// leaves, a bucket's padding vertices).
-// That state is 4(V + E + 257 + S) + 4V + E bytes.  Where it fits the
-// block's 232,448 bytes of shared memory, one block runs each pair (the
-// shared path).  Past that (a 16,384-node bucket with 32,768 edges needs
-// 295,940) the same code runs with each block's state in its own slice of
-// a global scratch (the global path): a fixed grid of resident blocks
-// walks the pairs in a grid-stride loop, so the scratch scales with the
-// grid and not with B * A.  The state is block-private and read back
-// after the barriers that already order it, and the edge arrays every
-// row shares stay in L2, so both paths compute the same tables.
+// Kernel 14 (spf_segment_batch) is the cold segment-form solve of every
+// (batch row, area) pair in one launch.  Per row it takes the row's own
+// root (-1: the vantage is absent from the area, and the pair reads dist
+// BIG, lanes 0) and, optionally, a failed set of (area, link) pairs: an
+// edge is masked iff some member has this area, the edge's link id and a
+// link id >= 0, so a -1 pad masks nothing, not even a padding edge (whose
+// link id is also -1).  The reference OR-accumulates its cold lanes from
+// the seed; lane l of a vertex is 1 iff some shortest path from the root
+// leaves by the root's l-th out-edge in edge order, and a vertex whose run
+// in the padded edge list is empty holds -128.  Two forms:
+//   * the frontier form (segment_frontier_kernel), for pairs of more than
+//     SEGMENT_ROUNDS_MAX_NODES vertices (ops/spf.py) and for any pair
+//     whose round-form state exceeds shared memory.  The launcher sorts
+//     each area's edges by source (stable); from them a layout kernel
+//     over the card builds a CSR by source of ALL the area's edges, each
+//     slot {dst, w} (an unusable edge a self-loop of +inf) and its link
+//     id.  A source's run keeps edge order, so a slot's place in it is
+//     its lane rank (its rank among ALL of its source's edges: the lane it
+//     seeds when its source is the root), and a binary search over the
+//     dst-sorted list says which vertices have a run.  A fill kernel, launched
+//     from the same entry point on a grid that covers the card, writes
+//     dist BIG and the lanes' -128 / 0 (16 lanes a store where D allows);
+//     then blocks walk the pairs in a grid-stride loop, each solving its
+//     pair by frontier_pair (frontier.cuh, kernel 12's solve) with the
+//     failed set filtered per slot by link id, writing the distances of
+//     the reached vertices and only the lanes that become 1.  Threads per
+//     block rise to 1,024 while every pair still has its own block.  The
+//     state (frontier state, failed links, lane lists) sits in shared
+//     memory or a global scratch as kernel 12's does.
+//   * the round form (segment_pair), for small pairs, where a pair's
+//     fixed cost of frontier rounds loses (PERF.md): one block of 256
+//     threads per pair, distances then the lanes by relaxation rounds over
+//     each vertex's in-edge run.  The block keeps in shared memory its
+//     distances, its run ends, its edge classes and the lane rank of every
+//     edge (a block scan), so nothing scales with the batch but the
+//     outputs.  The seed edges set their lanes before the rounds, which
+//     then run only over lanes a root out-edge can seed and only over
+//     vertices with a propagating in-edge.  That state is 4(V + E + 257 +
+//     S) + 4V + E bytes, always in shared memory: a small pair whose state
+//     does not fit the block's 232,448 bytes takes the frontier form.
+// What bounds it: a lone pair's latency (its frontier rounds, then the OR
+// lane rounds on the output rows, on one SM) on rows of large pairs; the
+// fill's bytes on the hub row, whose solve is one hop; the rounds' barriers
+// on the many small pairs of a multi-area what-if (PERF.md).
 //
 // Kernel 15 (spf_distances_masked) is the KSP2 re-solve from the root
 // with the links of paths 1..k-1 masked: distances only, one block per
@@ -113,9 +130,9 @@
 // nine barrier phases waiting on shared memory or L2 (about 2.6 out-edge
 // visits per usable edge per row); not bytes (PERF.md).
 //
-// Kernel 16 (batched_spf) is kernel 14's solve, one block of 512 threads
-// per what-if row b (its lane rounds over a packed list of each moving
-// vertex's propagating sources, OR-accumulating as the reference's cold
+// Kernel 16 (batched_spf) is kernel 14's round-form solve, one block of
+// 512 threads per what-if row b (its lane rounds over a packed list of
+// each moving vertex's propagating sources, OR-accumulating as the reference's cold
 // lanes do), with everything per row that kernel 14 shares: the
 // root roots[b], the hard-drain row overloaded[b] (an overloaded node
 // relaxes only when it is that row's root), and the row's edge bits in
@@ -127,16 +144,16 @@
 // different roots never share lanes.  The state, 4(2V + E + 514 + E/32) +
 // 4V + E bytes (56,328 at the flagship's V = 1,024, E = 8,192: 4 blocks
 // of 512 threads fill an SM), lives in shared memory where it fits, else
-// in kernel 14's global-scratch layout with a grid-stride loop over the
-// rows.  The lane rounds run on the output rows (L1/L2-resident): a row's
+// in a global scratch, one slice per resident block, with a grid-stride
+// loop over the rows.  The lane rounds run on the output rows (L1/L2-resident): a row's
 // lanes in shared memory too were no faster at 512 threads (PERF.md).  What bounds it: latency, as
 // kernel 14 — a row's rounds run on one SM; the bound counts one
 // relaxation per usable edge per row against the [B, V, D] lane output's
 // bytes (PERF.md).
 //
-// What bounds it: latency, not bytes.  Each round re-reads the area's
-// edge arrays (L2-resident at these sizes) and the loop runs for the
-// depth of the perturbed region; one block runs on 1 of the card's 132
+// What bounds kernels 4-6: latency, not bytes.  Each round re-reads the
+// area's edge arrays (L2-resident at these sizes) and the loop runs for
+// the depth of the perturbed region; one block runs on 1 of the card's 132
 // SMs when A = 1.
 //
 // Traps: the seed and the unusable-edge candidate are BIG = 3.4e38, not
@@ -379,7 +396,7 @@ __global__ void __launch_bounds__(kThreads) warm_subgraph_repair_kernel(
   }
 }
 
-// full edge list minus a failed set: kernel 14's usability (the transit
+// full edge list minus a failed set: kernel 14's round-form usability (the transit
 // rule of FullEdges, and no edge of a failed link of this area)
 struct MaskedEdges {
   const uint8_t* edge_ok;
@@ -396,22 +413,24 @@ struct MaskedEdges {
   }
 };
 
+// kernel 14's round form: threads per pair (the 256 of the
+// scan counts in ops/spf.py segment_rounds_state_bytes)
 constexpr int kBatchThreads = 256;
 // kernel 16's threads per row (512: the fastest of 256, 512 and 1,024 at
 // the flagship shape on the H100, PERF.md)
 constexpr int kRowThreads = 512;
 
-// Kernel 14's per-block state, carved from `base` (dynamic shared memory,
-// or the block's slice of a global scratch): run ends [V], lane ranks [E],
-// scan counts [T + 1], failed links [S], distances [V], edge classes [E].
-__host__ __device__ inline size_t segment_batch_state_bytes(int V, int E,
-                                                            int S) {
+// Kernel 14's round-form per-block state in dynamic shared memory: run
+// ends [V], lane ranks [E], scan counts [T + 1], failed links [S],
+// distances [V], edge classes [E].
+__host__ __device__ inline size_t segment_rounds_state_bytes(int V, int E,
+                                                             int S) {
   return (size_t)(V + E + kBatchThreads + 1 + S) * 4 +
          (size_t)V * sizeof(float) + (size_t)E;
 }
 
-// Kernel 14's work on one (row, area) pair r = batch row * A + area, with
-// the block's state carved from `state` (segment_batch_state_bytes).
+// Kernel 14's round-form work on one (row, area) pair r = batch row * A + area, with
+// the block's state carved from `state` (segment_rounds_state_bytes).
 __device__ __forceinline__ void segment_pair(
     int32_t* state, int& num_failed, int r, const int32_t* __restrict__ src,
     const int32_t* __restrict__ dst, const float* __restrict__ w,
@@ -505,12 +524,8 @@ __device__ __forceinline__ void segment_pair(
                   num_moving);
 }
 
-// Kernel 14 over rows = B * A pairs.  The shared path (kGlobal false) runs
-// one block per pair with its state in dynamic shared memory; the global
-// path keeps each block's state in its slice of `scratch` (state_ints
-// each) and walks the pairs in a grid-stride loop over a fixed grid, so
-// the scratch scales with the resident blocks and not with B * A.
-template <bool kGlobal>
+// Kernel 14's round form: one block per (row, area) pair, its state in
+// dynamic shared memory.
 __global__ void __launch_bounds__(kBatchThreads) spf_segment_batch_kernel(
     const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
     const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
@@ -519,23 +534,170 @@ __global__ void __launch_bounds__(kBatchThreads) spf_segment_batch_kernel(
     const int32_t* __restrict__ roots, const int32_t* __restrict__ fail_area,
     const int32_t* __restrict__ fail_link,
     const int32_t* __restrict__ seg_off, float* __restrict__ dist_out,
-    int8_t* nh, int32_t* scratch, size_t state_ints, int rows, int A, int V,
-    int E, int D, int S, float big) {
+    int8_t* nh, int A, int V, int E, int D, int S, float big) {
   __shared__ int num_failed;
-  if constexpr (!kGlobal) {
-    extern __shared__ int32_t shared_ints[];
-    segment_pair(shared_ints, num_failed, blockIdx.x, src, dst, w, edge_ok,
-                 overloaded, link_index, roots, fail_area, fail_link, seg_off,
-                 dist_out, nh, A, V, E, D, S, big);
-  } else {
-    int32_t* state = scratch + blockIdx.x * state_ints;
-    for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-      segment_pair(state, num_failed, r, src, dst, w, edge_ok, overloaded,
-                   link_index, roots, fail_area, fail_link, seg_off, dist_out,
-                   nh, A, V, E, D, S, big);
-      // the next pair rewrites the state this one's threads may still read
-      __syncthreads();
+  extern __shared__ int32_t shared_ints[];
+  segment_pair(shared_ints, num_failed, blockIdx.x, src, dst, w, edge_ok,
+               overloaded, link_index, roots, fail_area, fail_link, seg_off,
+               dist_out, nh, A, V, E, D, S, big);
+}
+
+// The first i in [0, n) with a[i] >= x (n if none) of ascending a.
+__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ a,
+                                           int n, int x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Kernel 14's out-edge CSR, from each area's edges stably sorted by
+// source (src_sorted [A, E]; order [A, E], their positions in the area's
+// segment list), over the whole card: slot a E + i holds sorted position
+// i's {dst, bits of w} where the edge is usable, else a self-loop of +inf
+// (it lowers no distance and is on no shortest-path DAG), and its link
+// id; out_off[a][u] = a E + the first sorted position of source
+// u, so each source's run holds ALL of its edges in edge order and a
+// slot's lane rank is its place in its run (frontier_pair with a null
+// out_rank).  Sources out of [0, V) sort outside every run.
+// out_off[a][V] is segment_trim_kernel's.  has[a][v]: v is the dst of an
+// edge of the padded, dst-sorted list.
+__global__ void __launch_bounds__(256) segment_layout_kernel(
+    const int32_t* __restrict__ src_sorted, const int64_t* __restrict__ order,
+    const int32_t* __restrict__ dst, const float* __restrict__ w,
+    const uint8_t* __restrict__ edge_ok, const int32_t* __restrict__ link_index,
+    int2* __restrict__ out_edge, int32_t* __restrict__ out_link,
+    int32_t* __restrict__ out_off, uint8_t* __restrict__ has, int A, int V,
+    int E) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (size_t s = first; s < (size_t)A * E; s += stride) {
+    const size_t e = s / E * E + order[s];
+    out_edge[s] = edge_ok[e] ? make_int2(dst[e], __float_as_int(w[e]))
+                             : make_int2(src_sorted[s], 0x7f800000);
+    if (link_index) out_link[s] = link_index[e];
+  }
+  for (size_t s = first; s < (size_t)A * V; s += stride) {
+    const size_t a = s / V;
+    const int u = (int)(s - a * V);
+    const size_t at = a * E;
+    out_off[a * (V + 1) + u] = (int)at + lower_bound(src_sorted + at, E, u);
+    const int k = lower_bound(dst + at, E, u);
+    has[s] = k < E && dst[at + k] == u;
+  }
+}
+
+// out_off[a][V] of area a = blockIdx.x: the end of source V - 1's run less
+// its trailing unusable edges (the padding edges, all from V - 1 at the
+// tail of the edge list), so a reached V - 1 never walks them; a dropped
+// slot would relax nothing and seed no lane.
+__global__ void __launch_bounds__(1024) segment_trim_kernel(
+    const int32_t* __restrict__ src_sorted, const int64_t* __restrict__ order,
+    const uint8_t* __restrict__ edge_ok, int32_t* __restrict__ out_off, int V,
+    int E) {
+  __shared__ int end;
+  const size_t at = (size_t)blockIdx.x * E;
+  const int lo = lower_bound(src_sorted + at, E, V - 1);
+  const int hi = lower_bound(src_sorted + at, E, V);
+  if (threadIdx.x == 0) end = lo;
+  __syncthreads();
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x)
+    if (edge_ok[at + order[at + i]]) atomicMax(&end, i + 1);
+  __syncthreads();
+  if (threadIdx.x == 0) out_off[blockIdx.x * (size_t)(V + 1) + V] = (int)at + end;
+}
+
+// Kernel 14's fill, spread over the card before the solve: dist BIG over
+// every (row, area) pair, and lanes 0 on the pairs of a -1 root, else -128
+// where the vertex's run in the padded edge list is empty (has false) and
+// 0 elsewhere (16 lanes a store where whole rows of D lanes fill 16-byte
+// words, 4 where they fill 4-byte ones).
+__global__ void __launch_bounds__(256) segment_fill_kernel(
+    const int32_t* __restrict__ roots, const uint8_t* __restrict__ has,
+    float* __restrict__ dist, int8_t* __restrict__ nh, int rows, int A, int V,
+    int D, float big) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t RV = (size_t)rows * V;
+  for (size_t i = first; i < RV; i += stride) dist[i] = big;
+  // the fill byte of row-vertex rv = r * V + v, as 0x00 or 0x80
+  const auto fill = [&](size_t rv) -> uint32_t {
+    const size_t r = rv / V;
+    const int v = (int)(rv - r * V);
+    return roots[r] < 0 || has[(r % A) * V + v] ? 0u : 0x80u;
+  };
+  if (D % 16 == 0) {
+    uint4* out = reinterpret_cast<uint4*>(nh);
+    const size_t per = D / 16;
+    for (size_t i = first; i < RV * per; i += stride) {
+      const uint32_t x = fill(i / per) * 0x01010101u;
+      out[i] = make_uint4(x, x, x, x);
     }
+  } else if (D % 4 == 0) {
+    uint32_t* out = reinterpret_cast<uint32_t*>(nh);
+    const size_t per = D / 4;
+    for (size_t i = first; i < RV * per; i += stride) out[i] = fill(i / per) * 0x01010101u;
+  } else {
+    for (size_t i = first; i < RV * D; i += stride) nh[i] = (int8_t)fill(i / D);
+  }
+}
+
+// Kernel 14 over rows = B * A pairs: block b walks pairs b, b + grid, ...
+// with its state placed by `layout` (StateLayout; slice_ints: its slice
+// of `scratch`): the frontier state, the row's failed links of this area
+// [S] after it, and the lane lists.  A pair of root -1 keeps the fill.
+__global__ void __launch_bounds__(1024) segment_frontier_kernel(
+    const int32_t* __restrict__ out_off, const int2* __restrict__ out_edge,
+    const int32_t* __restrict__ out_link, const uint8_t* __restrict__ overloaded,
+    const int32_t* __restrict__ roots, const int32_t* __restrict__ fail_area,
+    const int32_t* __restrict__ fail_link, float* __restrict__ dist_out,
+    int8_t* nh, int32_t* scratch, size_t state_ints, size_t slice_ints,
+    int layout, int rows, int A, int V, int D, int S, int cap, float big) {
+  extern __shared__ int32_t shared_ints[];
+  __shared__ int lanes_used;
+  __shared__ int num_failed;
+  int32_t* slice = scratch ? scratch + blockIdx.x * slice_ints : nullptr;
+  int32_t* state = layout == kGlobalAll ? slice : shared_ints;
+  const Frontier f(state, V, cap);
+  int32_t* failed = state + frontier_state_ints(V, cap, blockDim.x);
+  int32_t* lists = layout == kSharedAll         ? shared_ints + state_ints
+                   : layout == kSharedFrontier ? slice
+                                               : slice + state_ints;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int root = roots[r];
+    if (root >= 0) {
+      const int b = r / A;  // r = batch row * A + area
+      const int a = r - b * A;
+      if (threadIdx.x == 0) {
+        int n = 0;
+        for (int s = 0; s < S; ++s) {
+          const int fl = fail_link[(size_t)b * S + s];
+          if (fail_area[(size_t)b * S + s] == a && fl >= 0) failed[n++] = fl;
+        }
+        num_failed = n;
+      }
+      __syncthreads();
+      // an edge is masked iff some member has this area, the edge's link
+      // id and a link id >= 0: the slot's link id against the members
+      const int nf = num_failed;
+      frontier_pair(
+          f, lists, lanes_used, root, out_off + (size_t)a * (V + 1), out_edge, nullptr,
+          nf ? out_link : nullptr,
+          [&](int link) {
+            for (int k = 0; k < nf; ++k)
+              if (link == failed[k]) return false;
+            return true;
+          },
+          nullptr, overloaded + (size_t)a * V, dist_out + (size_t)r * V,
+          nh + (size_t)r * V * D, V, D, big, true);
+    }
+    // the next pair rewrites the state this one's threads may still read
+    __syncthreads();
   }
 }
 
@@ -856,39 +1018,75 @@ extern "C" int openr_warm_subgraph_repair(
   return (int)cudaGetLastError();
 }
 
-extern "C" int openr_spf_segment_batch(
+extern "C" int openr_spf_segment_batch_rounds(
     const void* src, const void* dst, const void* w, const void* edge_ok,
     const void* overloaded, const void* link_index, const void* roots,
     const void* fail_area, const void* fail_link, const void* seg_off,
-    void* dist, void* nh, void* scratch, int grid, int B, int A, int V,
-    int E, int D, int S, float big, void* stream) {
+    void* dist, void* nh, int B, int A, int V, int E, int D, int S,
+    float big, void* stream) {
+  if (B == 0 || A == 0) return (int)cudaSuccess;
+  const size_t state = segment_rounds_state_bytes(V, E, S);
+  cudaError_t err = allow_smem(spf_segment_batch_kernel, state);
+  if (err != cudaSuccess) return (int)err;
+  spf_segment_batch_kernel<<<B * A, kBatchThreads, state,
+                             (cudaStream_t)stream>>>(
+      (const int32_t*)src, (const int32_t*)dst, (const float*)w,
+      (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
+      (const int32_t*)link_index, (const int32_t*)roots,
+      (const int32_t*)fail_area, (const int32_t*)fail_link,
+      (const int32_t*)seg_off, (float*)dist, (int8_t*)nh, A, V, E, D, S,
+      big);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int openr_spf_segment_batch(
+    const void* src_sorted, const void* order, const void* dst, const void* w,
+    const void* edge_ok, const void* link_index, const void* overloaded,
+    const void* roots, const void* fail_area, const void* fail_link,
+    void* work, void* dist, void* nh, void* scratch, int layout, int grid,
+    int fill_grid, int threads, int B, int A, int V, int E, int D, int S,
+    int cap, float big, void* stream) {
   if (B == 0 || A == 0) return (int)cudaSuccess;
   const int rows = B * A;
-  const size_t state = segment_batch_state_bytes(V, E, S);
-  if (scratch) {
-    // the global-state path: each block's state in its slice of scratch
-    // (grid slices, each rounded up to whole 16-byte words)
-    const size_t state_ints = (state + 15) / 16 * 4;
-    spf_segment_batch_kernel<true>
-        <<<grid, kBatchThreads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)src, (const int32_t*)dst, (const float*)w,
-            (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
-            (const int32_t*)link_index, (const int32_t*)roots,
-            (const int32_t*)fail_area, (const int32_t*)fail_link,
-            (const int32_t*)seg_off, (float*)dist, (int8_t*)nh,
-            (int32_t*)scratch, state_ints, rows, A, V, E, D, S, big);
-    return (int)cudaGetLastError();
-  }
-  cudaError_t err = allow_smem(spf_segment_batch_kernel<false>, state);
+  // the derived layout, built first, in `work` (int32 words; ops/spf.py
+  // segment_work_ints): the slots' {dst, bits of w} [A E] (int2) and link
+  // ids [A E], the out-edge offsets [A (V + 1)] and the has bytes [A V]
+  const size_t AE = (size_t)A * E;
+  int32_t* ints = (int32_t*)work;
+  int2* out_edge = (int2*)ints;
+  int32_t* out_link = link_index ? ints + 2 * AE : nullptr;
+  int32_t* out_off = ints + 3 * AE;
+  uint8_t* has = (uint8_t*)(out_off + (size_t)A * (V + 1));
+  segment_layout_kernel<<<fill_grid, 256, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)src_sorted, (const int64_t*)order, (const int32_t*)dst,
+      (const float*)w, (const uint8_t*)edge_ok, (const int32_t*)link_index,
+      out_edge, out_link, out_off, has, A, V, E);
+  segment_trim_kernel<<<A, 1024, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)src_sorted, (const int64_t*)order,
+      (const uint8_t*)edge_ok, out_off, V, E);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  spf_segment_batch_kernel<false>
-      <<<rows, kBatchThreads, state, (cudaStream_t)stream>>>(
-          (const int32_t*)src, (const int32_t*)dst, (const float*)w,
-          (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
-          (const int32_t*)link_index, (const int32_t*)roots,
-          (const int32_t*)fail_area, (const int32_t*)fail_link,
-          (const int32_t*)seg_off, (float*)dist, (int8_t*)nh, nullptr, 0,
-          rows, A, V, E, D, S, big);
+  // the frontier state with the failed links, and the lane lists, each
+  // rounded up to whole 16-byte words
+  const size_t state_ints = (frontier_state_ints(V, cap, threads) + S + 3) / 4 * 4;
+  const size_t lists_ints = (lane_lists_ints(V, E) + 3) / 4 * 4;
+  const size_t shared_ints = layout == kSharedAll        ? state_ints + lists_ints
+                             : layout == kSharedFrontier ? state_ints
+                                                         : 0;
+  const size_t slice_ints = state_ints + lists_ints - shared_ints;
+  const size_t smem = shared_ints * 4;
+  segment_fill_kernel<<<fill_grid, 256, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)roots, has, (float*)dist, (int8_t*)nh, rows, A, V, D,
+      big);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(segment_frontier_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  segment_frontier_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      out_off, out_edge, out_link, (const uint8_t*)overloaded, (const int32_t*)roots,
+      (const int32_t*)fail_area, (const int32_t*)fail_link, (float*)dist,
+      (int8_t*)nh, (int32_t*)scratch, state_ints, slice_ints, layout, rows, A,
+      V, D, S, cap, big);
   return (int)cudaGetLastError();
 }
 

@@ -11,10 +11,27 @@ call (parent, change, change, parent):
     node a root (-1 in the areas it is absent from); kernels 12 and 14
     at (d) on the path the shape takes and again with
     ``spf.MAX_SHARED_BYTES`` lowered to 0 while the launch is bound (their
-    global-state paths; null where the checkout refuses the shape);
+    global-state paths; null where the checkout refuses the shape),
+    kernel 14 at (d) again and at its first 512 roots, each, where the
+    checkout has ``spf.BATCH_THREADS``, at 256, 512 and 1,024 threads
+    and, where it has ``spf.SEGMENT_ROUNDS_MAX_NODES``, in each form; and
+    kernel 14 at phase (f)'s shape: the multi-area what-if's batch
+    (``wan_multi_area_dbs(1024, 7)``, vantage m0_0, every single-link
+    failure of areas "0" and metro0 in one call, recorded from
+    ``MultiAreaWhatIfEngine.run``), where the checkout has
+    ``spf.SEGMENT_ROUNDS_MAX_NODES``, in its frontier form and its round
+    form;
   * ``hub``: kernel 14 at one row on phase (h)'s hub of 5,000 leaves
-    (V = 16,384, D = 8,192: the global-state path; null where the
-    checkout refuses the shape);
+    (V = 16,384, D = 8,192; null where the checkout refuses the shape), at
+    each thread count and form as above;
+  * ``rows``: kernel 14 at 8 rows of 1-3 failed links each on phase (g)'s
+    backbone (the wan_hierarchy class at 8,192 nodes, seed 7: V = 16,384,
+    E = 32,768; roots and links drawn with seed 3), at each thread count
+    and form as above;
+  * ``cold``: kernel 2 (``dense_spf_nexthop_lanes``) at the route build's
+    cold shape, the 64 x 64 grid from node0 (V = 4,096, K = 4, D = 4), on
+    the distances of its plain version; where the checkout has
+    ``spf.DENSE_LANES_THREADS``, at 256, 512 and 1,024 threads;
   * ``masked``: kernel 15 (``spf_distances_masked``), where the checkout
     has it, at phase (g)'s inputs: the wan_hierarchy class at 8,192
     nodes, seed 7, one row per destination of core0, each row's failed
@@ -30,14 +47,19 @@ call (parent, change, change, parent):
     checkout has ``spf.FLEET_THREADS``, at 256, 512 and 1,024 threads.
 
 Run from the root of the checkout to time, naming the groups (default:
-all four)::
+all of them)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [masked] [fattree]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
-pre-bound launch, median of 5 spans; 3 launches at the hub row and 5 at
-the fat-tree).
+pre-bound launch, median of 5 spans; 3 launches at the hub row, 5 at
+the (g) rows and the fat-tree).  Kernel 14 is also timed per call of
+``spf.spf_segment_batch`` (``..., per call``: the launcher's checks,
+derived layout and allocations, and the launch, as the main path pays
+them; CUDA events as above) and per bind of its launcher (``..., bind
+(host)``: host wall per call of the launcher alone, mean of as many
+back-to-back binds) at (d), (f), the hub row and the (g) rows.
 """
 
 from __future__ import annotations
@@ -47,6 +69,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -89,6 +112,20 @@ def fleet_roots(enc) -> np.ndarray:
     """[B, A] int32: every node a root, -1 in the areas it is absent from."""
     names = sorted(set().union(*[set(t.node_ids) for t in enc.topos]))
     return np.asarray([[t.node_ids.get(n, -1) for t in enc.topos] for n in names], np.int32)
+
+
+def bind_ms(make, binds: int = LAUNCHES) -> float:
+    """Host ms per call of ``make()`` (a launcher's bind: its checks,
+    derived layout and allocations), mean of ``binds`` back-to-back
+    calls after one warm-up."""
+    make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(binds):
+        make()
+    host = (time.perf_counter() - t0) * 1e3 / binds
+    torch.cuda.synchronize()
+    return host
 
 
 def timed(make, launches: int = LAUNCHES):
@@ -152,6 +189,11 @@ def fleet_kernels(dev) -> dict:
           {"FLEET_THREADS": (256, 512, 1024), "FLEET_SHARED_ALL_BYTES": (0, spf.MAX_SHARED_BYTES)},
           out)
     both_paths(lambda: spf.spf_segment_batch_launcher(*seg, r, D), "spf_segment_batch (d)", out)
+    segment_forms(lambda: spf.spf_segment_batch_launcher(*seg, r, D), "spf_segment_batch (d)", out,
+                  call=lambda: spf.spf_segment_batch(*seg, r, D))
+    half = r[:512]
+    segment_forms(lambda: spf.spf_segment_batch_launcher(*seg, half, D),
+                  "spf_segment_batch (d) 512 rows", out)
     # phase (e)'s 3-area world (its prefixes do not reach kernel 12)
     ring = [(f"b{i}", f"b{(i + 1) % 6}", 1) for i in range(6)]
     areas = {
@@ -167,7 +209,73 @@ def fleet_kernels(dev) -> dict:
         [getattr(enc, k) for k in ("in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded")], dev
     )
     out["fleet_spf_dense (e)"] = timed(lambda: spf.fleet_spf_dense_launcher(*dense, r, D))
+    args, kw = multiarea_call(dev)
+    out["(f) rows x areas"] = list(args[5].shape)
+    segment_forms(lambda: spf.spf_segment_batch_launcher(*args, **kw), "spf_segment_batch (f)", out,
+                  call=lambda: spf.spf_segment_batch(*args, **kw), threads=False)
     return out
+
+
+#: kernel 14's knobs, where the checkout has them: threads per block, and
+#: the frontier form or the round form (one block per pair) for every pair
+SEGMENT_KNOBS = {"BATCH_THREADS": (256, 512, 1024)}
+ROUND_FORM = {"SEGMENT_ROUNDS_MAX_NODES": (0, 1 << 30)}
+
+
+def segment_forms(make, label: str, out: dict, launches: int = LAUNCHES, call=None,
+                  threads: bool = True) -> None:
+    """Kernel 14 on the form the shape takes, per call of ``call()`` and
+    per bind where ``call`` is given, then (where the checkout has the
+    knobs) at each thread count of its frontier form unless ``threads``
+    is false (a shape the round form takes ignores them), and in each
+    form."""
+    out[label] = timed(make, launches)
+    if call is not None:
+        out[f"{label}, per call"] = launch_ms(call, launches)
+        out[f"{label}, bind (host)"] = bind_ms(make, launches)
+    if threads:
+        sweep(make, label, SEGMENT_KNOBS, out, launches)
+    sweep(make, label, ROUND_FORM, out, launches)
+
+
+def multiarea_call(dev):
+    """The (args, kwargs) of phase (f)'s kernel-14 call, recorded from
+    ``MultiAreaWhatIfEngine.run`` on the card (the call with the most
+    rows)."""
+    from openr_tpu_torch.decision import whatif_api
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.ops import fleet_tables
+    from openr_tpu_torch.types import PrefixEntry
+
+    area_dbs = topology.wan_multi_area_dbs(1024, 7)
+    me = "m0_0"
+    areas = {}
+    for area, dbs in area_dbs.items():
+        ls = LinkState(area, me)
+        for db in dbs.values():
+            ls.update_adjacency_database(db)
+        areas[area] = ls
+    nodes = sorted({n for dbs in area_dbs.values() for n in dbs})
+    ps = PrefixState()
+    for i, node in enumerate(nodes):
+        ps.update_prefix(node, topology.wan_area_of(node), PrefixEntry(f"10.{(i >> 8) & 255}.{i & 255}.1/32"))
+    enc = csr.encode_multi_area(areas, me)
+    by_area = dict(zip(enc.areas, enc.topos))
+    singles = [(l.n1, l.n2) for a in ("0", "metro0") for l in by_area[a].links]
+    calls = []
+    real = fleet_tables.spf_segment_batch
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    fleet_tables.spf_segment_batch = record
+    try:
+        whatif_api.MultiAreaWhatIfEngine(SpfSolver(me), device=dev).run(singles, areas, ps, 1)
+    finally:
+        fleet_tables.spf_segment_batch = real
+    return max(calls, key=lambda c: c[0][5].shape[0])
 
 
 def hub_kernel(dev) -> dict:
@@ -176,8 +284,47 @@ def hub_kernel(dev) -> dict:
     D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
     seg = tables_from_numpy([getattr(enc, k) for k in ("src", "dst", "w", "edge_ok", "overloaded")], dev)
     (roots,) = tables_from_numpy((enc.roots[None],), dev)
-    return {"spf_segment_batch, hub row": timed(lambda: spf.spf_segment_batch_launcher(*seg, roots, D), 3),
-            "hub D": D}
+    out = {"hub D": D}
+    segment_forms(lambda: spf.spf_segment_batch_launcher(*seg, roots, D), "spf_segment_batch, hub row",
+                  out, 3, call=lambda: spf.spf_segment_batch(*seg, roots, D))
+    return out
+
+
+def rows_kernel(dev) -> dict:
+    ls = link_state(topology._build_wan(8192, 7), "core0")
+    enc = csr.encode_multi_area({"0": ls}, "core0")
+    topo = enc.topos[0]
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    rng = np.random.default_rng(3)
+    B, S = 8, 3
+    picks = rng.choice(topo.num_nodes, B, replace=False).astype(np.int32)
+    fl = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        k = 1 + b % 3
+        fl[b, :k] = rng.choice(len(topo.links), k, replace=False)
+    fa = np.where(fl >= 0, 0, -1).astype(np.int32)
+    seg = tables_from_numpy([getattr(enc, k) for k in ("src", "dst", "w", "edge_ok", "overloaded")], dev)
+    roots, li, fa_t, fl_t = tables_from_numpy((picks[:, None], topo.link_index[None], fa, fl), dev)
+    kw = dict(link_index=li, fail_area=fa_t, fail_link=fl_t)
+    out = {"(g) rows D": D}
+    segment_forms(lambda: spf.spf_segment_batch_launcher(*seg, roots, D, **kw),
+                  "spf_segment_batch, (g) 8 rows", out, 5,
+                  call=lambda: spf.spf_segment_batch(*seg, roots, D, **kw))
+    return out
+
+
+def cold_kernel(dev) -> dict:
+    enc = csr.encode_multi_area({"0": link_state(topology.grid_edges(64), "node0")}, "node0")
+    D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    planes = tables_from_numpy(
+        [getattr(enc, k) for k in ("in_src", "in_w", "in_ok", "in_rank", "in_has", "overloaded", "roots")],
+        dev)
+    in_src, in_w, in_ok, _rank, _has, ovl, roots = planes
+    dist = spf.dense_spf_distances_plain(in_src, in_w, in_ok, ovl, roots)
+    make = lambda: spf.dense_spf_nexthop_lanes_launcher(*planes, dist, D)  # noqa: E731
+    out = {"grid D": D, "dense_spf_nexthop_lanes (grid)": timed(make)}
+    sweep(make, "dense_spf_nexthop_lanes (grid)", {"DENSE_LANES_THREADS": (256, 512, 1024)}, out)
+    return out
 
 
 def masked_rows(edges, dev):
@@ -254,12 +401,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    groups = sys.argv[1:] or ["fleet", "hub", "masked", "fattree"]
+    groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
     if "hub" in groups:
         out.update(hub_kernel(dev))
+    if "rows" in groups:
+        out.update(rows_kernel(dev))
+    if "cold" in groups:
+        out.update(cold_kernel(dev))
     if "masked" in groups and hasattr(spf, "spf_distances_masked_launcher"):
         out.update(masked_kernel(dev))
     if "fattree" in groups:

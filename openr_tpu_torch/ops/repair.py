@@ -612,6 +612,12 @@ def repair_sweep_plain(
 #: kernel 9 keeps two [V] int32 planes of a block in shared memory
 MAX_REPAIR_NODES = 16384
 
+#: the ctypes argument types of the C entry points of this module's
+#: kernels (``openr_<name>``), in order: pointers (and the stream) as
+#: c_void_p, then the ints and BIG
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+REPAIR_SWEEP_ARGTYPES = [_P] * 23 + [_I] * 7 + [_F, _P]
+
 
 def repair_sweep_launcher(
     src, dst, w, lid, transit_src_ok, fails, aff_link_table, base_dist,
@@ -663,11 +669,7 @@ def repair_sweep_launcher(
     # two lane planes (the lane rounds are synchronous: ping-pong)
     on_pull = torch.empty((Bw, V * din), dtype=torch.int32, device=dev)
     lanes_scratch = torch.empty((Bw, 3, V * D), dtype=torch.int32, device=dev)
-    fn = function(
-        "repair_sweep",
-        "openr_repair_sweep",
-        [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("repair_sweep", "openr_repair_sweep", REPAIR_SWEEP_ARGTYPES)
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(lid), ptr(transit_src_ok), ptr(fails),
         ptr(aff_link_table), ptr(base_dist), ptr(base_nh), ptr(nbr_flat),

@@ -59,6 +59,15 @@ I32_MAX = 2**31 - 1
 #: the kernel holds a row's candidate sets as 64-bit masks
 MAX_KERNEL_CANDIDATES = 64
 
+#: the ctypes argument types of the C entry points of this module's
+#: kernels (``openr_<name>``), in order: pointers (and the stream) as
+#: c_void_p, then the ints and BIG
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MULTI_AREA_SELECT_ARGTYPES = [_P] * 16 + [_I] * 6 + [_F, _P]
+MULTI_AREA_SELECT_DELTA_ARGTYPES = [_P] * 22 + [_I] * 6 + [_F, _P]
+FLEET_SELECT_ARGTYPES = [_P] * 21 + [_I] * 7 + [_F, _P]
+BATCHED_SELECT_ROUTES_ARGTYPES = [_P] * 17 + [_I] * 5 + [_F, _P]
+
 
 def select_routes_one(
     cand_node,  # [P, C] int32
@@ -290,11 +299,7 @@ def multi_area_select_from_tables_launcher(
         dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
         drain_metric, path_pref, source_pref, distance, cand_node_in_area,
     )
-    fn = function(
-        "route_select",
-        "openr_multi_area_select",
-        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("route_select", "openr_multi_area_select", MULTI_AREA_SELECT_ARGTYPES)
     args = (*ins, *(ptr(o) for o in outs), *dims, int(bool(per_area_distance)),
             BIG, stream(dist.device))
 
@@ -395,11 +400,7 @@ def multi_area_select_delta_from_tables_launcher(
     check_tensor("prev_valid", prev_valid, torch.bool, (P, A), dev)
     check_tensor("node_changed", node_changed, torch.bool, (A, V), dev)
     changed = torch.empty((P,), dtype=torch.bool, device=dev)
-    fn = function(
-        "route_select",
-        "openr_multi_area_select_delta",
-        [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("route_select", "openr_multi_area_select_delta", MULTI_AREA_SELECT_DELTA_ARGTYPES)
     prev = (prev_use, prev_shortest, prev_lanes, prev_valid, node_changed)
     args = (*ins, *(ptr(o) for o in outs), *(ptr(t) for t in prev), ptr(changed),
             *dims, int(bool(per_area_distance)), BIG, stream(dev))
@@ -493,11 +494,7 @@ def fleet_select_launcher(
                                  prev, outs):
             check_tensor(name, t, like.dtype, like.shape, dev)
         changed = torch.empty((B,), dtype=torch.bool, device=dev)
-    fn = function(
-        "route_select",
-        "openr_fleet_select",
-        [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("route_select", "openr_fleet_select", FLEET_SELECT_ARGTYPES)
     ins = (dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
            drain_metric, path_pref, source_pref, distance, cand_node_in_area)
     args = (
@@ -591,11 +588,7 @@ def batched_select_routes_launcher(
         torch.empty((B, P), dtype=torch.int32, device=dev),
         torch.empty((B, P, C), dtype=torch.bool, device=dev),
     )
-    fn = function(
-        "sweep_select",
-        "openr_batched_select_routes",
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("sweep_select", "openr_batched_select_routes", BATCHED_SELECT_ROUTES_ARGTYPES)
     args = (
         *(ptr(t) for t in (dist, nh, overloaded, soft, roots, *cand)),
         *(ptr(o) for o in outs), B, V, P, C, D, BIG, stream(dev),

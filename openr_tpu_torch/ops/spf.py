@@ -174,11 +174,7 @@ def dense_spf_distances_launcher(
     one launch."""
     A, V, K, dev = _check_planes(in_src, in_w, in_ok, overloaded, roots)
     dist = torch.empty((A, V), dtype=torch.float32, device=dev)
-    fn = function(
-        "spf_dense",
-        "openr_dense_spf_distances",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_dense", "openr_dense_spf_distances", DENSE_SPF_DISTANCES_ARGTYPES)
     args = (
         ptr(in_src), ptr(in_w), ptr(in_ok), ptr(overloaded), ptr(roots),
         ptr(dist), A, V, K, BIG, stream(dev),
@@ -199,11 +195,33 @@ def dense_spf_distances_cuda(in_src, in_w, in_ok, overloaded, roots) -> torch.Te
     return dist
 
 
+def dense_lanes_state_bytes(V: int, D: int, threads: int) -> int:
+    """Kernel 2's block state (``dense_lanes_state_ints``): distances, the
+    lane words (``ceil(D / 32)`` per vertex) and the scan counts."""
+    return 4 * (V + V * ((D + 31) // 32) + threads + 1)
+
+
+def dense_lanes_layout(V: int, K: int, D: int, threads: int):
+    """``(layout, slice_bytes)`` of kernel 2's block (``StateLayout``): the
+    state and the lane lists (room for a source in every in-slot) in shared
+    memory where both fit, else the lists, and past shared memory the
+    whole state, in the area's ``slice_bytes`` of a global scratch."""
+    state = 4 * _words16(dense_lanes_state_bytes(V, D, threads))
+    lists = 4 * _words16(fleet_lists_bytes(V, V * K))
+    if state + lists <= MAX_SHARED_BYTES:
+        return 0, 0
+    if state <= MAX_SHARED_BYTES:
+        return 1, lists
+    return 2, state + lists
+
+
 def dense_spf_nexthop_lanes_launcher(
     in_src, in_w, in_ok, in_rank, in_has, overloaded, roots, dist, max_degree: int
 ) -> Tuple[Callable[[], None], torch.Tensor]:
     """Like :func:`dense_spf_distances_launcher`: ``(launch, nh)`` with
-    ``nh`` [A, V, D] int8 written by each ``launch()``."""
+    ``nh`` [A, V, D] int8 written by each ``launch()``.  Each area's block
+    keeps its distances, lane words and scan counts in shared memory, and
+    its lane lists beside them where they fit (:func:`dense_lanes_layout`)."""
     A, V, K, dev = _check_planes(in_src, in_w, in_ok, overloaded, roots)
     check_tensor("in_rank", in_rank, torch.int32, (A, V, K), dev)
     check_tensor("in_has", in_has, torch.bool, (A, V), dev)
@@ -211,21 +229,19 @@ def dense_spf_nexthop_lanes_launcher(
     D = int(max_degree)
     if D < 1:
         raise ValueError(f"max_degree {D} must be >= 1")
+    T = DENSE_LANES_THREADS
+    layout, slice_bytes = dense_lanes_layout(V, K, D, T)
+    scratch = torch.empty(max(1, A * slice_bytes // 4), dtype=torch.int32, device=dev)
     nh = torch.empty((A, V, D), dtype=torch.int8, device=dev)
-    edge_class = torch.empty((A, V, K), dtype=torch.uint8, device=dev)
-    fn = function(
-        "spf_dense",
-        "openr_dense_spf_nexthop_lanes",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_dense", "openr_dense_spf_nexthop_lanes", DENSE_SPF_NEXTHOP_LANES_ARGTYPES)
     args = (
         ptr(in_src), ptr(in_w), ptr(in_ok), ptr(in_rank), ptr(in_has),
-        ptr(overloaded), ptr(roots), ptr(dist), ptr(edge_class), ptr(nh),
-        A, V, K, D, BIG, stream(dev),
+        ptr(overloaded), ptr(roots), ptr(dist), ptr(nh), ptr(scratch),
+        layout, T, A, V, K, D, V * K, BIG, stream(dev),
     )
 
     # the default argument keeps the scratch alive for every later launch
-    def launch(_scratch=edge_class) -> None:
+    def launch(_scratch=scratch) -> None:
         if A == 0:
             return
         check_launch("dense_spf_nexthop_lanes", fn(*args))
@@ -503,11 +519,7 @@ def warm_spf_distances_launcher(src, dst, w, edge_ok, overloaded, roots, d0):
     seg_end = torch.empty((A, V), dtype=torch.int32, device=dev)
     dist = torch.empty((A, V), dtype=torch.float32, device=dev)
     rounds = torch.empty((A,), dtype=torch.int32, device=dev)
-    fn = function(
-        "spf_warm",
-        "openr_warm_spf_distances",
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_warm", "openr_warm_spf_distances", WARM_SPF_DISTANCES_ARGTYPES)
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), ptr(roots),
         ptr(d0), ptr(seg_off), ptr(seg_end), ptr(dist), ptr(rounds), A, V, E,
@@ -539,11 +551,7 @@ def spf_nexthop_lanes_reset_launcher(
     edge_class = torch.empty((A, E), dtype=torch.uint8, device=dev)
     nh = torch.empty((A, V, D), dtype=torch.int8, device=dev)
     rounds = torch.empty((A,), dtype=torch.int32, device=dev)
-    fn = function(
-        "spf_warm",
-        "openr_spf_nexthop_lanes_reset",
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_warm", "openr_spf_nexthop_lanes_reset", SPF_NEXTHOP_LANES_RESET_ARGTYPES)
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), ptr(roots),
         ptr(dist), ptr(nh0), ptr(seg_off), ptr(seg_end), ptr(rank),
@@ -588,11 +596,7 @@ def warm_subgraph_repair_launcher(
     nh = torch.empty((A, V, D), dtype=torch.int8, device=dev)
     rounds_d = torch.empty((A,), dtype=torch.int32, device=dev)
     rounds_l = torch.empty((A,), dtype=torch.int32, device=dev)
-    fn = function(
-        "spf_warm",
-        "openr_warm_subgraph_repair",
-        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_warm", "openr_warm_subgraph_repair", WARM_SUBGRAPH_REPAIR_ARGTYPES)
     args = (
         ptr(src_sub), ptr(dst_sub), ptr(w_sub), ptr(ok_sub), ptr(rank_sub),
         ptr(prev_dist), ptr(prev_nh), ptr(reset), ptr(seg_off), ptr(seg_end),
@@ -823,8 +827,23 @@ def fleet_spf_dense_plain(in_src, in_w, in_ok, in_rank, in_has, overloaded, root
 
 #: the kernels' shared-memory budget per block (bytes)
 MAX_SHARED_BYTES = 232448
-#: threads per block of kernel 14
-BATCH_THREADS = 256
+#: threads per block of kernel 14's frontier form; None: by the pairs,
+#: the most of 1,024, 512 and 256 at which the card holds a block for
+#: every pair at once (a lone pair's solve is latency-bound, so more
+#: threads help it only while no pair waits for a block).  Each branch
+#: was the fastest of the three on the H100 where it applies: 1 and 8
+#: pairs (hub row, (g) rows), 512 and 1,024 pairs ((d); PERF.md)
+BATCH_THREADS = None
+#: kernel 14 solves pairs of at most this many vertices by its round form
+#: where its state fits shared memory (one block per pair, relaxation
+#: rounds over each vertex's in-edge run):
+#: on the H100 it beats the frontier form at phase (f)'s V = 256 (63 small
+#: areas) and loses at V = 1,024 (phase (d)'s world; PERF.md)
+SEGMENT_ROUNDS_MAX_NODES = 256
+#: threads per block (one area) of kernel 2
+DENSE_LANES_THREADS = 1024
+#: threads per block of kernel 14's fill
+FILL_THREADS = 256
 #: threads per block of kernel 12 (one (root, area) pair at a time)
 FLEET_THREADS = 512
 #: threads per block (one what-if row) of kernel 16
@@ -840,15 +859,17 @@ SM_THREADS = 2048
 #: (sm_90)
 SM_SHARED_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
-#: kernel 12 keeps its lane lists in shared memory beside its frontier
-#: state up to this many bytes a block (two blocks an SM)
+#: kernels 12 and 14 keep their lane lists in shared memory beside their
+#: frontier state up to this many bytes a block (two blocks an SM)
 FLEET_SHARED_ALL_BYTES = SM_SHARED_BYTES // 2 - BLOCK_RESERVED_BYTES
 
 
-def segment_batch_state_bytes(V: int, E: int, S: int) -> int:
-    """Kernel 14's per-block state: run ends, lane ranks, scan counts,
-    failed links, distances and edge classes."""
-    return 4 * (V + E + BATCH_THREADS + 1 + S) + 4 * V + E
+def segment_rounds_state_bytes(V: int, E: int, S: int) -> int:
+    """The per-block state of kernel 14's round form
+    (``segment_rounds_state_bytes`` in ``spf_warm.cu``): run ends, lane
+    ranks, the scan counts of its 256 threads, failed links, distances and
+    edge classes."""
+    return 4 * (V + E + 256 + 1 + S) + 4 * V + E
 
 
 def fleet_lists_bytes(V: int, M: int) -> int:
@@ -872,12 +893,21 @@ def masked_state_bytes(V: int, E: int, cap: int, threads: int) -> int:
     return frontier_state_bytes(V, cap, threads) + 4 * ((E + 31) // 32)
 
 
-#: the ctypes argument types of kernel 12's and kernel 15's C entry points
-#: (``openr_fleet_spf_dense``, ``openr_spf_distances_masked``), in order
-FLEET_SPF_DENSE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-SPF_DISTANCES_MASKED_ARGTYPES = (
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-)
+#: the ctypes argument types of the C entry points of this module's
+#: kernels (``openr_<name>``), in order: pointers (and the stream) as
+#: c_void_p, then the ints and BIG
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+DENSE_SPF_DISTANCES_ARGTYPES = [_P] * 6 + [_I] * 3 + [_F, _P]
+DENSE_SPF_NEXTHOP_LANES_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _P]
+WARM_SPF_DISTANCES_ARGTYPES = [_P] * 11 + [_I] * 3 + [_F, _P]
+SPF_NEXTHOP_LANES_RESET_ARGTYPES = [_P] * 14 + [_I] * 4 + [_F, _P]
+WARM_SUBGRAPH_REPAIR_ARGTYPES = [_P] * 15 + [_I] * 4 + [_F, _P]
+SWEEP_SPF_LINK_FAILURES_ARGTYPES = [_P] * 13 + [_I] * 5 + [_F, _P]
+FLEET_SPF_DENSE_ARGTYPES = [_P] * 9 + [_I] * 9 + [_F, _P]
+SPF_SEGMENT_BATCH_ARGTYPES = [_P] * 14 + [_I] * 11 + [_F, _P]
+SPF_SEGMENT_BATCH_ROUNDS_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _P]
+SPF_DISTANCES_MASKED_ARGTYPES = [_P] * 11 + [_I] * 9 + [_F, _P]
+BATCHED_SPF_ARGTYPES = [_P] * 5 + [_I] + [_P] * 9 + [_I] * 7 + [_F, _P]
 
 
 def _words16(nbytes: int) -> int:
@@ -895,23 +925,76 @@ def _resident_grid(rows: int, dev, threads: int, smem: int = 0) -> int:
     return max(1, min(rows, sms * max(per_sm, 1)))
 
 
-def _global_state(state_bytes: int, rows: int, dev, threads: int = BATCH_THREADS):
-    """(scratch, grid) of the global-state path of kernels 12, 14, 15 and
-    16: as many blocks of ``threads`` as the SMs hold at once (at most one
+def _global_state(state_bytes: int, rows: int, dev, threads: int):
+    """(scratch, grid) of the global-state path of kernels 15 and 16: as
+    many blocks of ``threads`` as the SMs hold at once (at most one
     per pair), each with a 16-byte-rounded slice of the scratch, walking
     the pairs in a grid-stride loop."""
     grid = _resident_grid(rows, dev, threads)
     return torch.empty(grid * _words16(state_bytes), dtype=torch.int32, device=dev), grid
 
 
+def _pair_layout(V: int, M: int, threads: int, extra_bytes: int = 0):
+    """``(layout, cap, smem, slice_bytes)`` of a frontier pair kernel's
+    block state (kernels 12 and 14, ``StateLayout`` in ``frontier.cuh``):
+    the frontier state (``extra_bytes`` after it) and the lane lists of
+    ``M`` sources in shared memory where two blocks still fit an SM, else
+    the frontier state alone there, else neither (the frontier then
+    listed whole)."""
+    cap = min(V, FRONTIER_CAP)
+    state = 4 * _words16(frontier_state_bytes(V, cap, threads) + extra_bytes)
+    lists = 4 * _words16(fleet_lists_bytes(V, M))
+    if state + lists <= min(MAX_SHARED_BYTES, FLEET_SHARED_ALL_BYTES):
+        return 0, cap, state + lists, 0
+    if state <= MAX_SHARED_BYTES:
+        return 1, cap, state, lists
+    state = 4 * _words16(frontier_state_bytes(V, V, threads) + extra_bytes)
+    return 2, V, 0, state + lists
+
+
+def _segment_threads(pairs: int, dev) -> int:
+    """Kernel 14's threads per block (``BATCH_THREADS``)."""
+    if BATCH_THREADS:
+        return BATCH_THREADS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return next((T for T in (1024, 512) if pairs <= sms * (SM_THREADS // T)), 256)
+
+
+def segment_work_ints(A: int, V: int, E: int) -> int:
+    """int32 words of kernel 14's derived layout (``work`` in
+    ``openr_spf_segment_batch``): the slots' (dst, w) pairs and link ids,
+    the out-edge offsets and the has bytes."""
+    return 3 * A * E + A * (V + 1) + (A * V + 3) // 4
+
+
+def segment_batch_layout(pairs: int, V: int, E: int, S: int, dev):
+    """``(threads, layout, cap, smem, slice_bytes)`` of kernel 14's
+    frontier form over ``pairs`` (row, area) pairs of ``V`` vertices and
+    ``E`` edge slots with failed sets of ``S`` members: the threads of
+    :func:`_segment_threads` and the block state of :func:`_pair_layout`,
+    its lane lists sized for every slot of an area."""
+    T = _segment_threads(pairs, dev)
+    return (T, *_pair_layout(V, E, T, 4 * S))
+
+
 def spf_segment_batch_launcher(
     src, dst, w, edge_ok, overloaded, roots, max_degree: int,
     link_index=None, fail_area=None, fail_link=None,
 ):
-    """Check the inputs, derive the segment offsets, allocate the outputs
-    (and the global path's scratch) and bind kernel 14 once.  Returns
-    ``(launch, (dist, nh))``: each ``launch()`` enqueues the kernel (no
-    synchronize) and counts one launch."""
+    """Check the inputs, sort each area's edges by source (stable, so each
+    source keeps edge order), allocate the outputs, kernel 14's derived
+    layout and the scratch of the resident blocks' state (placed as
+    :func:`segment_batch_layout` says) and bind kernel 14 once: from the
+    sorted edges, a CSR by source of each area's edges (each source's run
+    in segment order, so a slot's place in it is its lane rank; an
+    unusable edge relaxes nothing; each slot's link id where a failed set
+    is given) and which vertices have a run in the padded edge list; a
+    fill over the card; then the frontier solve of every (row, area)
+    pair.  Pairs of at most ``SEGMENT_ROUNDS_MAX_NODES``
+    vertices whose round-form state fits shared memory take the round form
+    instead (:func:`_segment_rounds_launcher`).  Nothing here waits for
+    the card.  Returns ``(launch, (dist, nh))``: each ``launch()``
+    enqueues the kernel (no synchronize) and counts one launch."""
     B = roots.shape[0]
     A, V, E, dev = _check_segments(src, dst, w, edge_ok, overloaded, roots, batch=B)
     D = int(max_degree)
@@ -923,28 +1006,62 @@ def spf_segment_batch_launcher(
         check_tensor("link_index", link_index, torch.int32, (A, E), dev)
         check_tensor("fail_area", fail_area, torch.int32, (B, S), dev)
         check_tensor("fail_link", fail_link, torch.int32, (B, S), dev)
-    # the shared path (one block per pair, its state in shared memory)
-    # where the state fits, else the global-state path
-    state = segment_batch_state_bytes(V, E, S)
-    scratch, grid = (None, B * A) if state <= MAX_SHARED_BYTES else _global_state(state, B * A, dev)
+    if V <= SEGMENT_ROUNDS_MAX_NODES and segment_rounds_state_bytes(V, E, S) <= MAX_SHARED_BYTES:
+        return _segment_rounds_launcher(
+            src, dst, w, edge_ok, overloaded, roots, D, link_index, fail_area, fail_link, S
+        )
+    src_sorted, order = torch.sort(src, dim=1, stable=True)
+    work = torch.empty(max(1, segment_work_ints(A, V, E)), dtype=torch.int32, device=dev)
+    T, layout, cap, smem, slice_bytes = segment_batch_layout(B * A, V, E, S, dev)
+    grid = _resident_grid(B * A, dev, T, smem)
+    scratch = torch.empty(max(1, grid * slice_bytes // 4), dtype=torch.int32, device=dev)
+    dist = torch.empty((B, A, V), dtype=torch.float32, device=dev)
+    nh = torch.empty((B, A, V, D), dtype=torch.int8, device=dev)
+    # the fill's blocks: as many as the card holds at once, at most one per
+    # FILL_THREADS 16-byte words
+    fill_grid = _resident_grid(max(1, -(-B * A * V * D // (16 * FILL_THREADS))), dev, FILL_THREADS)
+    fn = function("spf_warm", "openr_spf_segment_batch", SPF_SEGMENT_BATCH_ARGTYPES)
+    opt = lambda t: ptr(t) if S else None  # noqa: E731
+    args = (
+        ptr(src_sorted), ptr(order), ptr(dst), ptr(w), ptr(edge_ok), opt(link_index),
+        ptr(overloaded), ptr(roots), opt(fail_area), opt(fail_link), ptr(work), ptr(dist),
+        ptr(nh), ptr(scratch), layout, grid, fill_grid, T, B, A, V, E, D, S, cap, BIG,
+        stream(dev),
+    )
+
+    # the default argument keeps the sorted edges, the derived layout and
+    # the scratch alive
+    def launch(_held=(src_sorted, order, work, scratch)) -> None:
+        if B == 0 or A == 0:
+            return
+        check_launch("spf_segment_batch", fn(*args))
+        LAUNCHES["spf_segment_batch"] += 1
+
+    return launch, (dist, nh)
+
+
+def _segment_rounds_launcher(
+    src, dst, w, edge_ok, overloaded, roots, D, link_index, fail_area, fail_link, S
+):
+    """Kernel 14's round form, bound as :func:`spf_segment_batch_launcher`:
+    one block per pair with its state in shared memory."""
+    B = roots.shape[0]
+    A, V = overloaded.shape
+    E = src.shape[1]
+    dev = src.device
     seg_off = segment_offsets(dst, V)
     dist = torch.empty((B, A, V), dtype=torch.float32, device=dev)
     nh = torch.empty((B, A, V, D), dtype=torch.int8, device=dev)
-    fn = function(
-        "spf_warm",
-        "openr_spf_segment_batch",
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_warm", "openr_spf_segment_batch_rounds", SPF_SEGMENT_BATCH_ROUNDS_ARGTYPES)
     sets = (ptr(link_index), ptr(fail_area), ptr(fail_link)) if S else (None, None, None)
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), sets[0],
         ptr(roots), sets[1], sets[2], ptr(seg_off), ptr(dist), ptr(nh),
-        None if scratch is None else ptr(scratch), grid, B, A, V, E, D, S,
-        BIG, stream(dev),
+        B, A, V, E, D, S, BIG, stream(dev),
     )
 
-    # the default argument keeps the derived layout and the scratch alive
-    def launch(_held=(seg_off, scratch)) -> None:
+    # the default argument keeps the derived layout alive
+    def launch(_held=seg_off) -> None:
         if B == 0 or A == 0:
             return
         check_launch("spf_segment_batch", fn(*args))
@@ -995,19 +1112,7 @@ def fleet_spf_dense_launcher(
     out_off, out_edge, out_rank = dense_out_edge_csr(in_src, in_w, in_ok, in_rank)
     M = int((out_off[:, V] - out_off[:, 0]).max()) if A else 0
     T = FLEET_THREADS
-    cap = min(V, FRONTIER_CAP)
-    state = 4 * _words16(frontier_state_bytes(V, cap, T))
-    lists = 4 * _words16(fleet_lists_bytes(V, M))
-    # the whole state in shared memory where two blocks still fit an SM,
-    # else the frontier state alone, else neither (``FleetLayout``)
-    if state + lists <= min(MAX_SHARED_BYTES, FLEET_SHARED_ALL_BYTES):
-        layout, smem, slice_bytes = 0, state + lists, 0
-    elif state <= MAX_SHARED_BYTES:
-        layout, smem, slice_bytes = 1, state, lists
-    else:
-        cap = V
-        state = 4 * _words16(frontier_state_bytes(V, cap, T))
-        layout, smem, slice_bytes = 2, 0, state + lists
+    layout, cap, smem, slice_bytes = _pair_layout(V, M, T)
     grid = _resident_grid(B * A, dev, T, smem)
     scratch = torch.empty(max(1, grid * slice_bytes // 4), dtype=torch.int32, device=dev)
     dist = torch.empty((B, A, V), dtype=torch.float32, device=dev)
@@ -1324,11 +1429,7 @@ def sweep_spf_link_failures_launcher(
     nh = torch.empty((V, B, D), dtype=torch.int8, device=dev)
     rounds_d = torch.empty((words,), dtype=torch.int32, device=dev)
     rounds_l = torch.empty((words,), dtype=torch.int32, device=dev)
-    fn = function(
-        "spf_sweep",
-        "openr_sweep_spf_link_failures",
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_sweep", "openr_sweep_spf_link_failures", SWEEP_SPF_LINK_FAILURES_ARGTYPES)
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(link_index),
         ptr(failed_link), ptr(overloaded), ptr(lane_rank), ptr(seg_off),
@@ -1482,12 +1583,7 @@ def batched_spf_launcher(
     )
     dist = torch.empty((B, V), dtype=torch.float32, device=dev)
     nh = torch.empty((B, V, D), dtype=torch.int8, device=dev)
-    fn = function(
-        "spf_warm",
-        "openr_batched_spf",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("spf_warm", "openr_batched_spf", BATCHED_SPF_ARGTYPES)
     opt = lambda t: None if t is None else ptr(t)  # noqa: E731
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(seg_off), int(distinct),

@@ -197,6 +197,13 @@ def select_chunk_plain(
 #: kernel 10 runs one grid row per snapshot (CUDA's grid y limit)
 MAX_CHUNK_SNAPSHOTS = 65535
 
+#: the ctypes argument types of the C entry points of this module's
+#: kernels (``openr_<name>``), in order: pointers (and the stream) as
+#: c_void_p, then the ints and BIG
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SELECT_CHUNK_ARGTYPES = [_P] * 18 + [_I] * 6 + [_F, _P]
+COMPACT_DELTAS_ARGTYPES = [_P] * 12 + [_I] * 5 + [_P]
+
 
 def select_chunk_launcher(
     dist, nh, overloaded, soft, root: int, cand_node, cand_ok, drain_metric,
@@ -245,11 +252,7 @@ def select_chunk_launcher(
         ((b, Pw), (b, P), (b, P), (b, P, Dw)),
     ):
         check_tensor(name, t, dt, shape, dev)
-    fn = function(
-        "sweep_select",
-        "openr_select_chunk",
-        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = function("sweep_select", "openr_select_chunk", SELECT_CHUNK_ARGTYPES)
     ins = (dist, nh, overloaded, soft, cand_node, cand_ok, drain_metric,
            path_pref, source_pref, distance, min_nexthop, base_valid,
            base_metric, base_lanes)
@@ -346,11 +349,7 @@ def compact_deltas_launcher(changed, valid, metric, lanes, row_id, cap: int):
         torch.empty((cap,), dtype=torch.float32, device=dev),
         torch.empty((cap, Dw), dtype=torch.int32, device=dev),
     )
-    fn = function(
-        "sweep_select",
-        "openr_compact_deltas",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    )
+    fn = function("sweep_select", "openr_compact_deltas", COMPACT_DELTAS_ARGTYPES)
     args = (ptr(changed), ptr(valid), ptr(metric), ptr(lanes), ptr(row_id),
             ptr(block_sums), *(ptr(o) for o in outs), R, P, Dw, cap, blocks,
             stream(dev))

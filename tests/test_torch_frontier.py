@@ -18,7 +18,8 @@ the CPU.
   the kernels themselves are held against their plain versions by the
   ``cuda`` tests of ``tests/test_torch_kernels_cuda.py``.
 * The ctypes argument lists of the two kernels' C entry points against
-  their signatures in the sources.
+  their signatures in the sources, and of every kernel's C entry point
+  (one case per symbol) against the constant its launcher binds.
 
 Tolerance: exact equality (integer metrics keep every f32 sum exact).
 """
@@ -38,7 +39,10 @@ from openr_tpu.emulation.topology import _build_fattree, build_adj_dbs
 from openr_tpu.ops import csr as jcsr
 from openr_tpu.ops.route_select import multi_area_spf_tables_dense as jax_dense_tables
 from openr_tpu.ops.spf import batched_spf_distances_masked as jax_masked
+from openr_tpu_torch.ops import repair as trepair
+from openr_tpu_torch.ops import route_select as trs
 from openr_tpu_torch.ops import spf as tspf
+from openr_tpu_torch.ops import sweep_select as tsweep
 from openr_tpu_torch.ops.consts import BIG
 from openr_tpu_torch.ops.frontier import dense_out_edge_csr, live_nodes, out_edge_csr
 from tests.test_torch_fleet_tables import WORLDS as FLEET_WORLDS
@@ -267,3 +271,46 @@ def c_argtypes(source: str, symbol: str):
 ])
 def test_launcher_argtypes_match_the_c_entry_points(source, symbol, argtypes):
     assert c_argtypes(source, symbol) == argtypes
+
+
+def _entry_points():
+    """(source, symbol) of every ``extern "C"`` entry point in ``csrc``."""
+    return sorted(
+        (path.name, sym)
+        for path in CSRC.glob("*.cu")
+        for sym in re.findall(r'extern "C" int (\w+)\(', path.read_text())
+    )
+
+
+#: every kernel's C entry point and the module constant its launcher binds
+ARGTYPES = {
+    "openr_dense_spf_distances": tspf.DENSE_SPF_DISTANCES_ARGTYPES,
+    "openr_dense_spf_nexthop_lanes": tspf.DENSE_SPF_NEXTHOP_LANES_ARGTYPES,
+    "openr_multi_area_select": trs.MULTI_AREA_SELECT_ARGTYPES,
+    "openr_warm_spf_distances": tspf.WARM_SPF_DISTANCES_ARGTYPES,
+    "openr_spf_nexthop_lanes_reset": tspf.SPF_NEXTHOP_LANES_RESET_ARGTYPES,
+    "openr_warm_subgraph_repair": tspf.WARM_SUBGRAPH_REPAIR_ARGTYPES,
+    "openr_multi_area_select_delta": trs.MULTI_AREA_SELECT_DELTA_ARGTYPES,
+    "openr_sweep_spf_link_failures": tspf.SWEEP_SPF_LINK_FAILURES_ARGTYPES,
+    "openr_repair_sweep": trepair.REPAIR_SWEEP_ARGTYPES,
+    "openr_select_chunk": tsweep.SELECT_CHUNK_ARGTYPES,
+    "openr_compact_deltas": tsweep.COMPACT_DELTAS_ARGTYPES,
+    "openr_fleet_spf_dense": tspf.FLEET_SPF_DENSE_ARGTYPES,
+    "openr_fleet_select": trs.FLEET_SELECT_ARGTYPES,
+    "openr_spf_segment_batch": tspf.SPF_SEGMENT_BATCH_ARGTYPES,
+    "openr_spf_segment_batch_rounds": tspf.SPF_SEGMENT_BATCH_ROUNDS_ARGTYPES,
+    "openr_spf_distances_masked": tspf.SPF_DISTANCES_MASKED_ARGTYPES,
+    "openr_batched_spf": tspf.BATCHED_SPF_ARGTYPES,
+    "openr_batched_select_routes": trs.BATCHED_SELECT_ROUTES_ARGTYPES,
+}
+
+
+def test_every_entry_point_has_its_argtypes():
+    assert sorted(sym for _src, sym in _entry_points()) == sorted(ARGTYPES)
+
+
+@pytest.mark.parametrize("source, symbol", _entry_points(), ids=[s for _f, s in _entry_points()])
+def test_every_launcher_argtypes_match_its_c_entry_point(source, symbol):
+    """The module constant each launcher binds (``function(lib, symbol,
+    argtypes)``) against the parameters of its C entry point."""
+    assert c_argtypes(source, symbol) == ARGTYPES[symbol]

@@ -728,13 +728,14 @@ def _backbone(scale=8192):
 
 def test_fleet_kernels_at_the_16384_node_bucket_take_the_global_path(card):
     """The 8,192-node backbone (V = 16,384, E = 32,768, K = 32): both
-    kernels' block state exceeds shared memory, and the global path equals
-    the plain versions (kernel 14 with 1-3-link failed sets)."""
+    kernels' block state exceeds shared memory (kernel 14 keeps part of it
+    in its global scratch), and the global path equals the plain versions
+    (kernel 14 with 1-3-link failed sets)."""
     enc = csr.encode_multi_area({"0": _backbone()}, "core0")
     V, E = enc.overloaded.shape[1], enc.src.shape[1]
     K = enc.in_src.shape[2]
     assert (V, E) == (16384, 32768)
-    assert spf.segment_batch_state_bytes(V, E, 3) > spf.MAX_SHARED_BYTES
+    assert spf.segment_batch_layout(8, V, E, 3, card)[1] != 0
     assert spf.fleet_dense_state_bytes(V, K) > spf.MAX_SHARED_BYTES
     D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
     rng = np.random.default_rng(3)
@@ -770,7 +771,7 @@ def test_segment_kernel_hub_row_on_the_global_path_equals_plain(card):
         ls.update_adjacency_database(db)
     enc = csr.encode_multi_area({"0": ls}, "hub")
     V, E = enc.overloaded.shape[1], enc.src.shape[1]
-    assert V == 16384 and spf.segment_batch_state_bytes(V, E, 0) > spf.MAX_SHARED_BYTES
+    assert V == 16384 and spf.segment_batch_layout(1, V, E, 0, card)[1] != 0
     D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
     seg = tables_from_numpy([getattr(enc, f) for f in SEGMENT], card)
     (roots,) = tables_from_numpy((enc.roots[None],), card)
@@ -1018,3 +1019,117 @@ def test_graft_entry_on_card_equals_cpu(card):
     cpu_forward, cpu_args = graft_entry.entry(device="cpu")
     for g, w in zip(got, cpu_forward(*cpu_args)):
         assert torch.equal(g.cpu(), w)
+
+
+# -- kernels 2 and 14 as redesigned: lane words in shared memory (2), the
+# frontier solve with a fill over the card (14), on every layout ------------
+
+
+def _fan_areas(width=40):
+    """me with ``width`` equal-cost first hops to two sinks and a tail, and
+    a second area where me is absent-adjacent (A = 2)."""
+    me = "me"
+    edges = [(me, f"m{i}", 1) for i in range(width)]
+    edges += [(f"m{i}", sink, 1) for i in range(width) for sink in ("s0", "s1")]
+    edges += [("s0", "t0", 2), ("s1", "t0", 2), ("t0", "t1", 1)]
+    areas = {}
+    for a, e in (("1", edges), ("2", [("w0", "w1", 2), ("w1", "w2", 1)])):
+        ls = LinkState(a, me)
+        for db in build_adj_dbs(e, area=a, overloaded=["m3"] if a == "1" else []).values():
+            ls.update_adjacency_database(db)
+        areas[a] = ls
+    return areas, me
+
+
+def _lane_world(world):
+    if world == "fan":
+        return _fan_areas()
+    if world == "hub":
+        ls = LinkState("0", "hub")
+        for db in build_adj_dbs([("hub", f"leaf{i}", 1) for i in range(300)]).values():
+            ls.update_adjacency_database(db)
+        return {"0": ls}, "hub"
+    return _areas(world)
+
+
+def _dense_lanes_path(path, V, K, D, monkeypatch):
+    """Force a layout of kernel 2: the lane lists beside the state in
+    shared memory (default), in the global scratch (a budget that holds
+    the state alone), or the whole state there (a budget of 0)."""
+    if path == "lists":
+        T = spf.DENSE_LANES_THREADS
+        monkeypatch.setattr(spf, "MAX_SHARED_BYTES", spf.dense_lanes_state_bytes(V, D, T) + 15)
+    elif path == "global":
+        monkeypatch.setattr(spf, "MAX_SHARED_BYTES", 0)
+    want = {"shared": 0, "lists": 1, "global": 2}[path]
+    assert spf.dense_lanes_layout(V, K, D, spf.DENSE_LANES_THREADS)[0] == want
+
+
+@pytest.mark.parametrize("D", [0, 6, 33, 64])
+@pytest.mark.parametrize("path", ["shared", "lists", "global"])
+@pytest.mark.parametrize("world", ["grid", "multiarea_isolated", "fan"])
+def test_dense_lanes_word_kernel_equals_plain(card, world, path, D, monkeypatch):
+    """Kernel 2 (lane words in shared memory or the global scratch) against
+    its plain version: an overloaded transit node and a soft drain (grid),
+    A = 2 with vertices absent from an area (multiarea_isolated), 40 equal-
+    cost first hops (fan: lanes 32-39 in a second word); D the degree
+    bucket (0) or 6 (bytes, not whole words), 33 and 64 (two words)."""
+    areas, me = _lane_world(world)
+    enc = csr.encode_multi_area(areas, me)
+    D = D or csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    planes = tables_from_numpy([getattr(enc, f) for f in FIELDS], card)
+    in_src, in_w, in_ok, in_rank, in_has, ovl, roots = planes
+    dist = spf.dense_spf_distances_plain(in_src, in_w, in_ok, ovl, roots)
+    _dense_lanes_path(path, *in_src.shape[1:], D, monkeypatch)
+    reset_launch_counts()
+    got = spf.dense_spf_nexthop_lanes(*planes, dist, D)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dense_spf_nexthop_lanes"] == 1
+    want = spf.dense_spf_nexthop_lanes_plain(*planes, dist, D)
+    assert torch.equal(got, want)
+    assert bool((want == -128).any())  # padding vertices at least
+    if world == "fan" and D > 32:
+        assert int((want[0, :, 32:] == 1).sum()) > 0
+
+
+@pytest.mark.parametrize("D", [0, 6, 20, 48])
+@pytest.mark.parametrize("path", ["shared", "chunked", "lists", "global", "rounds"])
+@pytest.mark.parametrize("world", ["grid", "multiarea_isolated", "fan", "hub"])
+def test_segment_frontier_kernel_equals_plain(card, world, path, D, monkeypatch):
+    """Kernel 14's frontier form (fill over the card, frontier solve,
+    packed OR lanes) on every layout, and its round form, against its
+    plain version, every vantage root a row (-1 where absent: A = 2,
+    vertices absent from an area) and 40 rows of 1-3 failed links with -1
+    pads; D the degree bucket (0) or 6, 20 and 48 (fill stores of 1, 4
+    and 16 lanes; 48 > 32); the hub of 300 leaves at its bucket seeds 300
+    lanes of one row."""
+    monkeypatch.setattr(spf, "SEGMENT_ROUNDS_MAX_NODES", 1 << 30 if path == "rounds" else 0)
+    areas, me = _lane_world(world)
+    enc = csr.encode_multi_area(areas, me)
+    D = D or csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
+    seg = tables_from_numpy([getattr(enc, f) for f in SEGMENT], card)
+    roots = _fleet_roots(enc)
+    rng = np.random.default_rng(D)
+    B, S = 40, 3
+    fa = rng.integers(-1, enc.num_areas, (B, S)).astype(np.int32)
+    fl = rng.integers(-1, max(len(t.links) for t in enc.topos), (B, S)).astype(np.int32)
+    fa[0], fl[0] = -1, -1  # only pads
+    link_index = np.stack([t.link_index for t in enc.topos])
+    li, fa_t, fl_t = tables_from_numpy((link_index, fa, fl), card)
+    r_all, r_sets = tables_from_numpy((roots, np.repeat(enc.roots[None], B, axis=0)), card)
+    sets = dict(link_index=li, fail_area=fa_t, fail_link=fl_t)
+    _frontier_path(path, monkeypatch)
+    reset_launch_counts()
+    got = spf.spf_segment_batch(*seg, r_all, D)
+    got_s = spf.spf_segment_batch(*seg, r_sets, D, **sets)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spf_segment_batch"] == 2
+    want = spf.spf_segment_batch_plain(*seg, r_all, D)
+    want_s = spf.spf_segment_batch_plain(*seg, r_sets, D, **sets)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got_s[0], want_s[0]) and torch.equal(got_s[1], want_s[1])
+    if world == "multiarea_isolated":
+        assert bool((r_all < 0).any()) and bool((want[1] == -128).any())
+    if world == "hub" and D >= 300:
+        hub = int(np.nonzero(roots[:, 0] == enc.roots[0])[0][0])
+        assert int((got[1][hub, 0] == 1).sum()) == 300
