@@ -570,6 +570,10 @@ class KernelReport:
         self.zero_seed_ms = None
         #: the delta tick's changed-row gather (ms, rows, bytes, bound_ms)
         self.gather = None
+        #: (device ms, host-issue ms) per call of a kernel's entry point as
+        #: the main path calls it (its checks, derived layout and
+        #: allocations, and the launch), by label
+        self.per_call = {}
 
     def held(self, name, pairs):
         """Record and require exact agreement of (kernel, plain) output
@@ -1036,12 +1040,18 @@ def _plain_compact(*args, **kwargs):
     return (count.reshape(1), *rest)
 
 
+def _plain_repair(*args, exact_base=False, **kwargs):
+    """Kernel 9's plain version, called as ``repair.repair_sweep`` (the
+    plain version works every vertex, whatever the base)."""
+    return repair.repair_sweep_plain(*args, **kwargs)
+
+
 #: (module, attribute, kernel name, plain version) of each kernel entry
 #: point the what-if path calls
 WHATIF_ENTRIES = (
     (whatif_ops, "sweep_spf_link_failures", "sweep_spf_link_failures",
      spf.sweep_spf_link_failures_plain),
-    (repair, "repair_sweep", "repair_sweep", repair.repair_sweep_plain),
+    (repair, "repair_sweep", "repair_sweep", _plain_repair),
     (sweep_select, "select_chunk", "select_chunk", sweep_select.select_chunk_plain),
     (sweep_select, "compact_deltas", "compact_deltas", _plain_compact),
 )
@@ -1113,7 +1123,7 @@ def hold_whatif(report, rec):
         want = spf.sweep_spf_link_failures_plain(*args, **kw)
         report.held("sweep_spf_link_failures", [(outs[0], want[0]), (outs[1], want[1])])
     for args, kw, outs in rec.calls["repair_sweep"]:
-        want = repair.repair_sweep_plain(*args, **kw)
+        want = _plain_repair(*args, **kw)
         report.held("repair_sweep", [(outs[0], want[0]), (outs[1], want[1])])
     for args, kw, outs in rec.calls["select_chunk"]:
         kw = {k: v for k, v in kw.items() if k != "out"}
@@ -1146,16 +1156,19 @@ def time_whatif(report, rec):
         )
     if rec.calls["repair_sweep"] and "repair_sweep" not in report.timing:
         args, kw, outs = max(rec.calls["repair_sweep"], key=lambda c: c[0][5].shape[0])
-        _d, _n, r_d, r_l = repair.repair_sweep_plain(*args, **kw)
-        src, _dst, _w, lid, transit_src_ok, fails, aff_table, base_dist = args[:8]
+        _d, _n, r_d, r_l = _plain_repair(*args, **kw)
+        src, dst, _w, lid, transit_src_ok, fails, aff_table, base_dist = args[:8]
         V, D, Bw = outs[1].shape
-        # one relaxation per usable edge per snapshot (its set's links off),
-        # a max per lane
-        en = repair.repair_sweep_init(lid, fails, aff_table, base_dist, V)[2]
-        usable = int((en & transit_src_ok[:, None]).sum())
+        # what these snapshots need: one relaxation of each usable in-edge
+        # (its set's links off) of each affected vertex per snapshot, a max
+        # per lane; every vertex where the base is a warm seed
+        aff, _d0, en = repair.repair_sweep_init(lid, fails, aff_table, base_dist, V)
+        if not kw.get("exact_base"):
+            aff = torch.ones_like(aff)
+        usable = int((en & transit_src_ok[:, None] & aff[dst.long()]).sum())
         launch, _ = repair.repair_sweep_launcher(*args, **kw)
         report.time(
-            "repair_sweep", launch, lambda: repair.repair_sweep_plain(*args, **kw),
+            "repair_sweep", launch, lambda: _plain_repair(*args, **kw),
             nbytes(*args, outs[0], outs[1]), (2 + D) * usable,
             nbytes(*args[:5]) + 2 * nbytes(outs[0]), r_d + r_l,
         )
@@ -1252,13 +1265,17 @@ def whatif_phases(report, rng, grid_areas, grid_ps):
     )
     check(eng.base_source == "device", "the cold base did not come from the sweep kernel")
     time_whatif(report, rec)
+    # kernel 9 per call of RepairSweep.solve at the main run's largest chunk
+    chunk = max(rec.calls["repair_sweep"], key=lambda c: c[0][5].shape[0])[0][5].cpu().numpy()
+    rs_engine = eng.repair_sweep()
+    report.per_call[f"repair_sweep, RepairSweep.solve at (a)'s chunk of {len(chunk)}"] = (
+        per_launch_ms(lambda: rs_engine.solve(chunk)))
     solves = len(np.unique(deltas.snap_row)) - 1
     print(f"[whatif:headline-cold] {WHATIF_FAILURES} failures, {solves} unique on-DAG solves, "
           f"{deltas.num_deltas} route deltas, fetch groups {deltas.fetch_groups}", flush=True)
     check(deltas.num_deltas > 0 and deltas.fetch_groups >= 1, "headline sweep found no deltas")
 
     # the repair tables against the cold kernel's, on COLD_HOLD failures
-    rs_engine = eng.repair_sweep()
     hold = fails[:COLD_HOLD]
     r_dist, r_nh, _, _ = rs_engine.solve(hold)
     c_dist, c_nh, _, _ = spf.sweep_spf_link_failures(
@@ -2167,6 +2184,8 @@ def time_flagship(report, rec, mask, rows_d):
     launch, _ = spf.batched_spf_launcher(src, dst, w, ok, ovl, roots, D, edge_enabled=mask)
     report.time("batched_spf", launch, lambda: spf.batched_spf_plain(*args), t_bytes,
                 2 * usable + lanes, nbytes(src, w, ok), 1, launches=20, plain_spans=2)
+    report.per_call[f"batched_spf, spf.batched_spf at {B} rows"] = per_launch_ms(
+        lambda: spf.batched_spf(*args), launches=20)
     (args, _kw, outs), = rec.calls["batched_select_routes"]
     P, C = args[0].shape
     launch, _ = rs.batched_select_routes_launcher(*args)
@@ -2354,6 +2373,8 @@ def main():
         print(f"kernel {key}: {t['ms']:.4f} ms per launch (host issue {t['host_issue_ms']:.4f}), "
               f"plain {t['plain_ms']:.4f} ms, bound {bound:.5f} ms ({bound_by}), rounds "
               f"{t['rounds']} ({smi})", flush=True)
+    for key, (dev_ms, host_ms) in report.per_call.items():
+        print(f"per call {key}: {dev_ms:.4f} ms (host issue {host_ms:.4f}) ({smi})", flush=True)
     print(f"kernel spf_nexthop_lanes_reset from an all-zero seed (undrain tick's input): "
           f"{report.zero_seed_ms:.4f} ms per launch ({smi})", flush=True)
     t = report.timing["compact_deltas"]

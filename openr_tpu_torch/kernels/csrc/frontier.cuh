@@ -2,12 +2,12 @@
 // spf_dense.cu: the warp-shuffle block scan (block_offsets, block_ranks),
 // the packed OR lane loop (or_lanes), frontier relaxation over a compact
 // out-edge list (frontier_distances) and the whole solve of one (root,
-// area) pair over that list (frontier_pair, kernels 12 and 14).
+// area) pair over that list (frontier_pair, kernels 12, 14 and 16).
 //
-// Frontier relaxation (kernels 12, 14 and 15).  The topology is a CSR by
+// Frontier relaxation (kernels 12, 14, 15 and 16).  The topology is a CSR by
 // SOURCE of the usable edges only (edge_ok false and padding dropped by
-// the launcher; kernel 14's list keeps them as self-loops of +inf, which
-// lower nothing): vertex u's out-edges are the slots [off[u], off[u + 1]),
+// the launcher; the lists of kernels 14 and 16 keep them as self-loops of
+// +inf, which lower nothing): vertex u's out-edges are the slots [off[u], off[u + 1]),
 // each an int2 {dst, bits of w}, so one 8-byte load gives both.  Round 0's
 // frontier is the root alone; each round relaxes only the out-edges of the
 // vertices whose distance fell in the round before, and the solve ends
@@ -21,7 +21,7 @@
 // L2.  The transit rule (an
 // overloaded vertex other than the root relaxes nothing) is checked once
 // per frontier vertex, as a degree of 0; a per-slot filter (kernel 15's
-// row edge bit, by the slot's edge id; kernel 14's failed set, by the
+// and 16's row edge bit, by the slot's edge id; kernel 14's failed set, by the
 // slot's link id) once per pair.  d[v] falls by an integer atomicMin on the
 // float's bits: distances are >= 0, so integer order is float order.
 // Only vertices with d < BIG are ever in a frontier, so BIG + BIG (+inf)
@@ -100,7 +100,8 @@ __device__ int block_ranks(int32_t* counts, int n, Pred pred, Emit emit) {
       [&](int i, int k) { emit(i, pred(i) ? k : -1); });
 }
 
-// The packed OR lane loop of kernels 12 and 16: the moving vertices
+// The packed OR lane loop of frontier_pair (kernels 12, 14 and 16) where
+// the live lanes exceed one word: the moving vertices
 // (moving[k], k < num_moving) OR-accumulate, over their first L lanes, the
 // lanes of their propagating in-edges' sources psrc[poff[k], poff[k + 1]),
 // in place until a round changes nothing.  This is the reference's own

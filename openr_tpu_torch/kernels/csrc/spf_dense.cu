@@ -69,7 +69,7 @@
 // transit) is packed as a propagating source of its dst, and OR rounds run
 // over the vertices with a propagating source and only the lanes a seed
 // can reach, as one bit word a vertex where those lanes fit 32, else on
-// the table by kernel 16's loop (frontier_pair, shared with kernel 14).
+// the table by or_lanes (frontier_pair, shared with kernels 14 and 16).
 // A root of -1 (the vantage is
 // absent from the area) writes dist BIG and lanes 0 over its whole slice
 // without solving: the reference masks the slice after the fact

@@ -88,7 +88,7 @@
 //     seeds when its source is the root), and a binary search over the
 //     dst-sorted list says which vertices have a run.  A fill kernel, launched
 //     from the same entry point on a grid that covers the card, writes
-//     dist BIG and the lanes' -128 / 0 (16 lanes a store where D allows);
+//     dist BIG and the lanes' -128 / 0 (whole 16-byte words);
 //     then blocks walk the pairs in a grid-stride loop, each solving its
 //     pair by frontier_pair (frontier.cuh, kernel 12's solve) with the
 //     failed set filtered per slot by link id, writing the distances of
@@ -130,26 +130,33 @@
 // nine barrier phases waiting on shared memory or L2 (about 2.6 out-edge
 // visits per usable edge per row); not bytes (PERF.md).
 //
-// Kernel 16 (batched_spf) is kernel 14's round-form solve, one block of
-// 512 threads per what-if row b (its lane rounds over a packed list of
-// each moving vertex's propagating sources, OR-accumulating as the reference's cold
-// lanes do), with everything per row that kernel 14 shares: the
-// root roots[b], the hard-drain row overloaded[b] (an overloaded node
-// relaxes only when it is that row's root), and the row's edge bits in
-// shared memory (kernel 15's: from its [E] bool mask row, or its failed
-// link ids through the link CSR, or all set).  The edge list is shared or,
-// for batched_spf_distinct, row b's own (row stride E, per-row segment
-// offsets).  Each row ranks its own root's out-edges (all of them, usable
-// or not, in edge order: the reference's lane numbering), so rows with
-// different roots never share lanes.  The state, 4(2V + E + 514 + E/32) +
-// 4V + E bytes (56,328 at the flagship's V = 1,024, E = 8,192: 4 blocks
-// of 512 threads fill an SM), lives in shared memory where it fits, else
-// in a global scratch, one slice per resident block, with a grid-stride
-// loop over the rows.  The lane rounds run on the output rows (L1/L2-resident): a row's
-// lanes in shared memory too were no faster at 512 threads (PERF.md).  What bounds it: latency, as
-// kernel 14 — a row's rounds run on one SM; the bound counts one
-// relaxation per usable edge per row against the [B, V, D] lane output's
-// bytes (PERF.md).
+// Kernel 16 (batched_spf) is kernel 14's frontier form with everything
+// per row that kernel 14 shares: the root roots[b], the hard-drain row
+// overloaded[b] (an overloaded node relaxes only when it is that row's
+// root) and the row's edge bits (kernel 15's: from its [E] bool mask row,
+// read 32 bytes a thread, or its failed link ids through the link CSR, or
+// none).  The launcher sorts the edges by source (stable; each row's own
+// list for batched_spf_distinct), and the same layout kernel builds on the
+// card a CSR by source of ALL the edges, an unusable edge a self-loop of
+// +inf, each slot with its edge's position in the list (the row's mask
+// bit).  A slot's place in its source's run is its lane: its rank among
+// ALL of the source's edges in edge order, the reference's numbering
+// (is_root_out = src == root, disabled edges included), so rows with
+// different roots never share lanes.  A shared list has one layout for
+// every row (L2-resident).  The fill kernel writes dist BIG and the
+// -128 / 0 lanes over the card in whole 16-byte words of the flat table
+// (D = 17 on the flagship world breaks the rows' alignment, so a word's
+// bytes walk the rows they cover); then blocks walk the rows in a
+// grid-stride loop, each row a frontier_pair solve (frontier.cuh) with
+// its edge bits after the frontier state, its lanes as bit words where
+// the live lanes fit 32 (D = 17).  Threads per block follow kernel 14's
+// rule; the lane lists join the frontier state in shared memory only where
+// an SM still holds as many blocks as its threads allow, else they go to
+// a global scratch, and past shared memory the whole state does
+// (ops/spf.py batched_spf_layout).  What bounds
+// it: a row's latency (its frontier rounds, then the lane rounds, on one
+// SM), against the bound of one relaxation per usable edge per row and
+// the [B, V, D] lane output's bytes (PERF.md).
 //
 // What bounds kernels 4-6: latency, not bytes.  Each round re-reads the
 // area's edge arrays (L2-resident at these sizes) and the loop runs for
@@ -416,9 +423,6 @@ struct MaskedEdges {
 // kernel 14's round form: threads per pair (the 256 of the
 // scan counts in ops/spf.py segment_rounds_state_bytes)
 constexpr int kBatchThreads = 256;
-// kernel 16's threads per row (512: the fastest of 256, 512 and 1,024 at
-// the flagship shape on the H100, PERF.md)
-constexpr int kRowThreads = 512;
 
 // Kernel 14's round-form per-block state in dynamic shared memory: run
 // ends [V], lane ranks [E], scan counts [T + 1], failed links [S],
@@ -556,22 +560,24 @@ __device__ __forceinline__ int lower_bound(const int32_t* __restrict__ a,
   return lo;
 }
 
-// Kernel 14's out-edge CSR, from each area's edges stably sorted by
-// source (src_sorted [A, E]; order [A, E], their positions in the area's
-// segment list), over the whole card: slot a E + i holds sorted position
-// i's {dst, bits of w} where the edge is usable, else a self-loop of +inf
-// (it lowers no distance and is on no shortest-path DAG), and its link
-// id; out_off[a][u] = a E + the first sorted position of source
-// u, so each source's run holds ALL of its edges in edge order and a
-// slot's lane rank is its place in its run (frontier_pair with a null
-// out_rank).  Sources out of [0, V) sort outside every run.
-// out_off[a][V] is segment_trim_kernel's.  has[a][v]: v is the dst of an
-// edge of the padded, dst-sorted list.
+// The out-edge CSR of kernels 14 and 16, from each area's edges stably
+// sorted by source (src_sorted [A, E]; order [A, E], their positions in
+// the area's segment list), over the whole card: slot a E + i holds sorted
+// position i's {dst, bits of w} where the edge is usable, else a self-loop
+// of +inf (it lowers no distance and is on no shortest-path DAG), and, in
+// out_id where it is given, the slot's link id (kernel 14, where
+// link_index is given) or its edge's position in the area's edge list
+// (kernel 16: the row's mask bit); out_off[a][u] = a E + the first sorted
+// position of source u, so each source's run holds ALL of its edges in
+// edge order and a slot's lane rank is its place in its run
+// (frontier_pair with a null out_rank).  Sources out of [0, V) sort
+// outside every run.  out_off[a][V] is segment_trim_kernel's.  has[a][v]:
+// v is the dst of an edge of the padded, dst-sorted list.
 __global__ void __launch_bounds__(256) segment_layout_kernel(
     const int32_t* __restrict__ src_sorted, const int64_t* __restrict__ order,
     const int32_t* __restrict__ dst, const float* __restrict__ w,
     const uint8_t* __restrict__ edge_ok, const int32_t* __restrict__ link_index,
-    int2* __restrict__ out_edge, int32_t* __restrict__ out_link,
+    int2* __restrict__ out_edge, int32_t* __restrict__ out_id,
     int32_t* __restrict__ out_off, uint8_t* __restrict__ has, int A, int V,
     int E) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
@@ -580,7 +586,7 @@ __global__ void __launch_bounds__(256) segment_layout_kernel(
     const size_t e = s / E * E + order[s];
     out_edge[s] = edge_ok[e] ? make_int2(dst[e], __float_as_int(w[e]))
                              : make_int2(src_sorted[s], 0x7f800000);
-    if (link_index) out_link[s] = link_index[e];
+    if (out_id) out_id[s] = link_index ? link_index[e] : (int)order[s];
   }
   for (size_t s = first; s < (size_t)A * V; s += stride) {
     const size_t a = s / V;
@@ -612,11 +618,14 @@ __global__ void __launch_bounds__(1024) segment_trim_kernel(
   if (threadIdx.x == 0) out_off[blockIdx.x * (size_t)(V + 1) + V] = (int)at + end;
 }
 
-// Kernel 14's fill, spread over the card before the solve: dist BIG over
-// every (row, area) pair, and lanes 0 on the pairs of a -1 root, else -128
-// where the vertex's run in the padded edge list is empty (has false) and
-// 0 elsewhere (16 lanes a store where whole rows of D lanes fill 16-byte
-// words, 4 where they fill 4-byte ones).
+// The fill of kernels 14 and 16, spread over the card before the solve:
+// dist BIG over every (row, area) pair, and the lanes -128 where the
+// vertex's run in the padded edge list is empty (has false) and 0
+// elsewhere, or 0 throughout on a pair of a -1 root where roots is given
+// (kernel 14).  The flat table is written in whole 16-byte words: where
+// whole rows of D lanes fill them, one fill byte a word; else (D = 17 on
+// the flagship world) each word's bytes walk the rows they cover, and the
+// last partial word byte by byte.
 __global__ void __launch_bounds__(256) segment_fill_kernel(
     const int32_t* __restrict__ roots, const uint8_t* __restrict__ has,
     float* __restrict__ dist, int8_t* __restrict__ nh, int rows, int A, int V,
@@ -629,22 +638,41 @@ __global__ void __launch_bounds__(256) segment_fill_kernel(
   const auto fill = [&](size_t rv) -> uint32_t {
     const size_t r = rv / V;
     const int v = (int)(rv - r * V);
-    return roots[r] < 0 || has[(r % A) * V + v] ? 0u : 0x80u;
+    return (roots && roots[r] < 0) || has[(r % A) * V + v] ? 0u : 0x80u;
   };
+  uint4* out = reinterpret_cast<uint4*>(nh);
   if (D % 16 == 0) {
-    uint4* out = reinterpret_cast<uint4*>(nh);
     const size_t per = D / 16;
     for (size_t i = first; i < RV * per; i += stride) {
       const uint32_t x = fill(i / per) * 0x01010101u;
       out[i] = make_uint4(x, x, x, x);
     }
-  } else if (D % 4 == 0) {
-    uint32_t* out = reinterpret_cast<uint32_t*>(nh);
-    const size_t per = D / 4;
-    for (size_t i = first; i < RV * per; i += stride) out[i] = fill(i / per) * 0x01010101u;
-  } else {
-    for (size_t i = first; i < RV * D; i += stride) nh[i] = (int8_t)fill(i / D);
+    return;
   }
+  const size_t total = RV * D;
+  for (size_t i = first; i < total / 16; i += stride) {
+    size_t rv = i * 16 / D;
+    int at = (int)(i * 16 - rv * D);  // the first byte's lane in its row
+    uint32_t x = fill(rv);
+    uint32_t word[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t packed = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (at == D) {
+          at = 0;
+          x = fill(++rv);
+        }
+        packed |= x << (8 * k);
+        ++at;
+      }
+      word[q] = packed;
+    }
+    out[i] = make_uint4(word[0], word[1], word[2], word[3]);
+  }
+  for (size_t i = total / 16 * 16 + first; i < total; i += stride)
+    nh[i] = (int8_t)fill(i / D);
 }
 
 // Kernel 14 over rows = B * A pairs: block b walks pairs b, b + grid, ...
@@ -701,19 +729,6 @@ __global__ void __launch_bounds__(1024) segment_frontier_kernel(
   }
 }
 
-// kernel 16's usability: the transit rule of FullEdges, and the row's bit
-// of the edge in `enabled` (one bit per edge, from row_edge_bits)
-struct BitMaskedEdges {
-  const uint8_t* edge_ok;
-  const uint8_t* overloaded;
-  const uint32_t* enabled;
-  int root;
-  __device__ bool usable(int e, int s) const {
-    return edge_ok[e] && ((enabled[e >> 5] >> (e & 31)) & 1u) &&
-           (!overloaded[s] || s == root);
-  }
-};
-
 // Row b's edge bits (one per edge, bit e % 32 of word e / 32): its row of
 // edge_enabled [B, E] bool packed 32 to a word, or, when that is null,
 // every edge but those of its failed link ids fail_link [B, S] (-1 pads
@@ -727,10 +742,21 @@ __device__ void row_edge_bits(uint32_t* bits, int b, int E,
   const int words = (E + 31) / 32;
   if (edge_enabled) {
     const uint8_t* row = edge_enabled + (size_t)b * E;
+    // whole 32-byte runs of a 16-byte-aligned row as two 16-byte loads
+    const bool vec = ((uintptr_t)row & 15) == 0;
     for (int i = threadIdx.x; i < words; i += blockDim.x) {
       uint32_t word = 0;
-      for (int j = 0, e = i * 32; j < 32 && e < E; ++j, ++e)
-        word |= (uint32_t)(row[e] != 0) << j;
+      if (vec && i * 32 + 32 <= E) {
+        const uint4* at = reinterpret_cast<const uint4*>(row + i * 32);
+        const uint4 lo = at[0], hi = at[1];
+        const uint32_t q[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          word |= (uint32_t)(((q[j >> 2] >> (8 * (j & 3))) & 0xffu) != 0) << j;
+      } else {
+        for (int j = 0, e = i * 32; j < 32 && e < E; ++j, ++e)
+          word |= (uint32_t)(row[e] != 0) << j;
+      }
       bits[i] = word;
     }
   } else {
@@ -827,130 +853,52 @@ __global__ void __launch_bounds__(1024) spf_distances_masked_kernel(
   }
 }
 
-// Kernel 16's per-block state, carved from `base` (dynamic shared memory,
-// or the block's slice of a global scratch): run ends [V], lane ranks [E]
-// (then the packed propagating sources), scan counts [T + 1], the moving
-// vertices' source offsets [V + 1], the row's edge bits [ceil(E / 32)],
-// distances [V] (then the moving vertices) and edge classes [E].
-__host__ __device__ inline size_t batched_spf_state_bytes(int V, int E) {
-  return (size_t)(V + E + kRowThreads + 1 + V + 1 + (E + 31) / 32) * 4 +
-         (size_t)V * sizeof(float) + (size_t)E;
-}
-
-// Kernel 16's work on row b: distances and lanes from roots[b] over the
-// row's edge list (the shared one, or row b's when `distinct`), usable
-// where edge_ok, the row's edge bit and the transit rule of its own
-// overloaded row allow.  Lanes as kernel 14's: the rank of an edge among
-// ALL of the row root's out-edges in edge order (disabled ones included,
-// as the reference's is_root_out = src == root), an empty run -128, the
-// seeds set before the rounds, the rounds over the vertices with a
-// propagating in-edge only, on the output rows in device memory.
-__device__ __forceinline__ void batched_spf_row(
-    int32_t* state, int b, bool distinct, const int32_t* __restrict__ src,
-    const int32_t* __restrict__ dst, const float* __restrict__ w,
-    const uint8_t* __restrict__ edge_ok, const int32_t* __restrict__ seg_off,
-    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
-    const uint8_t* __restrict__ edge_enabled,
-    const int32_t* __restrict__ fail_link,
-    const int32_t* __restrict__ link_off,
+// Kernel 16 over B rows, after the layout and the fill: block g walks
+// rows g, g + grid, ... with its state placed by `layout` (StateLayout;
+// slice_ints: its slice of `scratch`): the frontier state, the row's edge
+// bits [ceil(E / 32)] after it (row_edge_bits: from its mask row, or its
+// failed link ids through the link CSR; none where neither is given), and
+// the lane lists.  Row b solves from roots[b] over area b % A's out-edge
+// CSR (A = 1: the shared list; A = B: row b's own), a slot kept where the
+// row's bit of its edge (out_id) is set, with its own hard-drain row
+// overloaded[b]; a root outside [0, V) keeps the fill (the reference's
+// all-BIG row, -128 / 0 lanes).
+__global__ void __launch_bounds__(1024) batched_frontier_kernel(
+    const int32_t* __restrict__ out_off, const int2* __restrict__ out_edge,
+    const int32_t* __restrict__ out_id, const uint8_t* __restrict__ overloaded,
+    const int32_t* __restrict__ roots, const uint8_t* __restrict__ edge_enabled,
+    const int32_t* __restrict__ fail_link, const int32_t* __restrict__ link_off,
     const int32_t* __restrict__ link_edges, float* __restrict__ dist_out,
-    int8_t* nh, int V, int E, int D, int S, int L, float big) {
-  const int words = (E + 31) / 32;
-  int32_t* end = state;
-  int32_t* rank = end + V;
-  int32_t* counts = rank + E;
-  int32_t* poff = counts + blockDim.x + 1;
-  uint32_t* bits = reinterpret_cast<uint32_t*>(poff + V + 1);
-  float* d = reinterpret_cast<float*>(bits + words);
-  uint8_t* cls = reinterpret_cast<uint8_t*>(d + V);
-  const int VD = V * D;
-  const int root = roots[b];
-  const size_t edges_at = distinct ? (size_t)b * E : 0;
-  const int32_t* off = seg_off + (distinct ? (size_t)b * (V + 1) : 0);
-  const int32_t* esrc = src + edges_at;
-  float* dist = dist_out + (size_t)b * V;
-  int8_t* lanes = nh + (size_t)b * V * D;
-  row_edge_bits(bits, b, E, edge_enabled, fail_link, S, link_off, link_edges,
-                L);
-  const int root_out = block_ranks(
-      counts, E, [&](int e) { return esrc[e] == root; },
-      [&](int e, int k) { rank[e] = k; });
-  for (int v = threadIdx.x; v < V; v += blockDim.x)
-    d[v] = v == root ? 0.f : big;
-  enabled_run_ends(end, off, dst + edges_at, edge_ok + edges_at, V, E);
-  const BitMaskedEdges edges{edge_ok + edges_at, overloaded + (size_t)b * V,
-                             bits, root};
-  relax_distances(d, off, end, esrc, w + edges_at, edges, nullptr, V, big);
-  for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = d[v];
-  classify_edges(cls, d, off, end, esrc, w + edges_at, rank, edges, nullptr,
-                 V, big);
-  // D need not be a multiple of 4 (17 on the flagship world): byte stores
-  for (int i = threadIdx.x; i < VD; i += blockDim.x) {
-    const int v = i / D;
-    lanes[i] = off[v] < off[v + 1] ? 0 : -128;
-  }
-  __syncthreads();
-  const int Lr = root_out < D ? root_out : D;
-  for (int v = threadIdx.x; v < V; v += blockDim.x)
-    for (int e = off[v]; e < end[v]; ++e)
-      if (cls[e] == kSeed && rank[e] < Lr) lanes[(size_t)v * D + rank[e]] = 1;
-  int32_t* moving = reinterpret_cast<int32_t*>(d);
-  const auto propagating = [&](int v) {
-    int c = 0;
-    for (int e = off[v]; e < end[v]; ++e) c += cls[e] == kPropagate;
-    return c;
-  };
-  const int num_moving = block_ranks(
-      counts, V, [&](int v) { return propagating(v) > 0; },
-      [&](int v, int k) {
-        if (k >= 0) moving[k] = v;
-      });
-  // pack the moving vertices' propagating sources in the lane ranks' place
-  // (the seeds, the last readers of the ranks, are behind the barriers)
-  int32_t* psrc = rank;
-  const int num_prop = block_offsets(
-      counts, num_moving, [&](int k) { return propagating(moving[k]); },
-      [&](int k, int o) {
-        const int v = moving[k];
-        poff[k] = o;
-        for (int e = off[v]; e < end[v]; ++e)
-          if (cls[e] == kPropagate) psrc[o++] = esrc[e];
-      });
-  if (threadIdx.x == 0) poff[num_moving] = num_prop;
-  __syncthreads();
-  or_lanes(lanes, moving, num_moving, poff, psrc, V, Lr, D);
-}
-
-// Kernel 16 over B rows: one block per row with its state in dynamic
-// shared memory (kGlobal false), or a fixed grid walking the rows with
-// each block's state in its slice of `scratch` (state_ints each).
-template <bool kGlobal>
-__global__ void __launch_bounds__(kRowThreads) batched_spf_kernel(
-    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
-    const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
-    const int32_t* __restrict__ seg_off, int distinct,
-    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
-    const uint8_t* __restrict__ edge_enabled,
-    const int32_t* __restrict__ fail_link,
-    const int32_t* __restrict__ link_off,
-    const int32_t* __restrict__ link_edges, float* __restrict__ dist_out,
-    int8_t* nh, int32_t* scratch, size_t state_ints, int B, int V, int E,
-    int D, int S, int L, float big) {
-  if constexpr (!kGlobal) {
-    extern __shared__ int32_t shared_ints[];
-    batched_spf_row(shared_ints, blockIdx.x, distinct != 0, src, dst, w,
-                    edge_ok, seg_off, overloaded, roots, edge_enabled,
-                    fail_link, link_off, link_edges, dist_out, nh, V, E, D, S,
-                    L, big);
-  } else {
-    int32_t* state = scratch + blockIdx.x * state_ints;
-    for (int b = blockIdx.x; b < B; b += gridDim.x) {
-      batched_spf_row(state, b, distinct != 0, src, dst, w, edge_ok, seg_off,
-                      overloaded, roots, edge_enabled, fail_link, link_off,
-                      link_edges, dist_out, nh, V, E, D, S, L, big);
-      // the next row rewrites the state this one's threads may still read
-      __syncthreads();
+    int8_t* nh, int32_t* scratch, size_t state_ints, size_t slice_ints,
+    int layout, int B, int A, int V, int E, int D, int S, int L, int cap,
+    float big) {
+  extern __shared__ int32_t shared_ints[];
+  __shared__ int lanes_used;
+  int32_t* slice = scratch ? scratch + blockIdx.x * slice_ints : nullptr;
+  int32_t* state = layout == kGlobalAll ? slice : shared_ints;
+  const Frontier f(state, V, cap);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(state + frontier_state_ints(V, cap, blockDim.x));
+  int32_t* lists = layout == kSharedAll         ? shared_ints + state_ints
+                   : layout == kSharedFrontier ? slice
+                                               : slice + state_ints;
+  const bool masked = edge_enabled || fail_link;
+  // the set form's bits are cleared by atomics: read them past the L1
+  const volatile uint32_t* vbits = bits;
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int root = roots[b];
+    if (root >= 0 && root < V) {
+      const int a = b % A;
+      if (masked)
+        row_edge_bits(bits, b, E, edge_enabled, fail_link, S, link_off, link_edges, L);
+      frontier_pair(
+          f, lists, lanes_used, root, out_off + (size_t)a * (V + 1), out_edge, nullptr,
+          masked ? out_id : nullptr,
+          [&](int e) { return ((vbits[e >> 5] >> (e & 31)) & 1u) != 0; }, nullptr,
+          overloaded + (size_t)b * V, dist_out + (size_t)b * V, nh + (size_t)b * V * D, V, D,
+          big, true);
     }
+    // the next row rewrites the state this one's threads may still read
+    __syncthreads();
   }
 }
 
@@ -959,6 +907,42 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
+
+// The derived layout of kernels 14 and 16 in `work` (int32 words; ops/spf.py
+// segment_work_ints): the slots' {dst, bits of w} [A E] (int2) and ids
+// [A E], the out-edge offsets [A (V + 1)] and the has bytes [A V].
+struct SegmentLayout {
+  int2* out_edge;
+  int32_t* out_id;
+  int32_t* out_off;
+  uint8_t* has;
+
+  SegmentLayout(void* work, int A, int V, int E) {
+    const size_t AE = (size_t)A * E;
+    int32_t* ints = (int32_t*)work;
+    out_edge = (int2*)ints;
+    out_id = ints + 2 * AE;
+    out_off = ints + 3 * AE;
+    has = (uint8_t*)(out_off + (size_t)A * (V + 1));
+  }
+
+  // Build it on `stream` (fill_grid blocks over the card, then one block
+  // per area to trim V - 1's run); the slot ids are written where `ids`
+  // (link ids where link_index is given, else edge positions).
+  cudaError_t build(const void* src_sorted, const void* order, const void* dst,
+                    const void* w, const void* edge_ok, const void* link_index,
+                    bool ids, int fill_grid, int A, int V, int E,
+                    void* stream) const {
+    segment_layout_kernel<<<fill_grid, 256, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)src_sorted, (const int64_t*)order, (const int32_t*)dst,
+        (const float*)w, (const uint8_t*)edge_ok, (const int32_t*)link_index,
+        out_edge, ids ? out_id : nullptr, out_off, has, A, V, E);
+    segment_trim_kernel<<<A, 1024, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)src_sorted, (const int64_t*)order, (const uint8_t*)edge_ok,
+        out_off, V, E);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -1048,23 +1032,9 @@ extern "C" int openr_spf_segment_batch(
     int cap, float big, void* stream) {
   if (B == 0 || A == 0) return (int)cudaSuccess;
   const int rows = B * A;
-  // the derived layout, built first, in `work` (int32 words; ops/spf.py
-  // segment_work_ints): the slots' {dst, bits of w} [A E] (int2) and link
-  // ids [A E], the out-edge offsets [A (V + 1)] and the has bytes [A V]
-  const size_t AE = (size_t)A * E;
-  int32_t* ints = (int32_t*)work;
-  int2* out_edge = (int2*)ints;
-  int32_t* out_link = link_index ? ints + 2 * AE : nullptr;
-  int32_t* out_off = ints + 3 * AE;
-  uint8_t* has = (uint8_t*)(out_off + (size_t)A * (V + 1));
-  segment_layout_kernel<<<fill_grid, 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)src_sorted, (const int64_t*)order, (const int32_t*)dst,
-      (const float*)w, (const uint8_t*)edge_ok, (const int32_t*)link_index,
-      out_edge, out_link, out_off, has, A, V, E);
-  segment_trim_kernel<<<A, 1024, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)src_sorted, (const int64_t*)order,
-      (const uint8_t*)edge_ok, out_off, V, E);
-  cudaError_t err = cudaGetLastError();
+  const SegmentLayout lay(work, A, V, E);
+  cudaError_t err = lay.build(src_sorted, order, dst, w, edge_ok, link_index,
+                              link_index != nullptr, fill_grid, A, V, E, stream);
   if (err != cudaSuccess) return (int)err;
   // the frontier state with the failed links, and the lane lists, each
   // rounded up to whole 16-byte words
@@ -1076,15 +1046,15 @@ extern "C" int openr_spf_segment_batch(
   const size_t slice_ints = state_ints + lists_ints - shared_ints;
   const size_t smem = shared_ints * 4;
   segment_fill_kernel<<<fill_grid, 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)roots, has, (float*)dist, (int8_t*)nh, rows, A, V, D,
+      (const int32_t*)roots, lay.has, (float*)dist, (int8_t*)nh, rows, A, V, D,
       big);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(segment_frontier_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   segment_frontier_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      out_off, out_edge, out_link, (const uint8_t*)overloaded, (const int32_t*)roots,
-      (const int32_t*)fail_area, (const int32_t*)fail_link, (float*)dist,
+      lay.out_off, lay.out_edge, link_index ? lay.out_id : nullptr, (const uint8_t*)overloaded,
+      (const int32_t*)roots, (const int32_t*)fail_area, (const int32_t*)fail_link, (float*)dist,
       (int8_t*)nh, (int32_t*)scratch, state_ints, slice_ints, layout, rows, A,
       V, D, S, cap, big);
   return (int)cudaGetLastError();
@@ -1126,35 +1096,37 @@ extern "C" int openr_spf_distances_masked(
 }
 
 extern "C" int openr_batched_spf(
-    const void* src, const void* dst, const void* w, const void* edge_ok,
-    const void* seg_off, int distinct, const void* overloaded,
-    const void* roots, const void* edge_enabled, const void* fail_link,
-    const void* link_off, const void* link_edges, void* dist, void* nh,
-    void* scratch, int grid, int B, int V, int E, int D, int S, int L,
-    float big, void* stream) {
+    const void* src_sorted, const void* order, const void* dst, const void* w,
+    const void* edge_ok, const void* overloaded, const void* roots,
+    const void* edge_enabled, const void* fail_link, const void* link_off,
+    const void* link_edges, void* work, void* dist, void* nh, void* scratch,
+    int layout, int grid, int fill_grid, int threads, int B, int A, int V,
+    int E, int D, int S, int L, int cap, float big, void* stream) {
   if (B == 0) return (int)cudaSuccess;
-  const size_t state = batched_spf_state_bytes(V, E);
-  if (scratch) {
-    // the global-state path: each block's state in its slice of scratch
-    // (grid slices, each rounded up to whole 16-byte words)
-    const size_t state_ints = (state + 15) / 16 * 4;
-    batched_spf_kernel<true><<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)src, (const int32_t*)dst, (const float*)w,
-        (const uint8_t*)edge_ok, (const int32_t*)seg_off, distinct,
-        (const uint8_t*)overloaded, (const int32_t*)roots,
-        (const uint8_t*)edge_enabled, (const int32_t*)fail_link,
-        (const int32_t*)link_off, (const int32_t*)link_edges, (float*)dist,
-        (int8_t*)nh, (int32_t*)scratch, state_ints, B, V, E, D, S, L, big);
-    return (int)cudaGetLastError();
-  }
-  cudaError_t err = allow_smem(batched_spf_kernel<false>, state);
+  const bool masked = edge_enabled || fail_link;
+  const SegmentLayout lay(work, A, V, E);
+  cudaError_t err = lay.build(src_sorted, order, dst, w, edge_ok, nullptr, masked,
+                              fill_grid, A, V, E, stream);
   if (err != cudaSuccess) return (int)err;
-  batched_spf_kernel<false><<<B, kRowThreads, state, (cudaStream_t)stream>>>(
-      (const int32_t*)src, (const int32_t*)dst, (const float*)w,
-      (const uint8_t*)edge_ok, (const int32_t*)seg_off, distinct,
-      (const uint8_t*)overloaded, (const int32_t*)roots,
-      (const uint8_t*)edge_enabled, (const int32_t*)fail_link,
-      (const int32_t*)link_off, (const int32_t*)link_edges, (float*)dist,
-      (int8_t*)nh, nullptr, 0, B, V, E, D, S, L, big);
+  // the frontier state with the row's edge bits, and the lane lists, each
+  // rounded up to whole 16-byte words
+  const size_t state_ints = (frontier_state_ints(V, cap, threads) + ((size_t)E + 31) / 32 + 3) / 4 * 4;
+  const size_t lists_ints = (lane_lists_ints(V, E) + 3) / 4 * 4;
+  const size_t shared_ints = layout == kSharedAll        ? state_ints + lists_ints
+                             : layout == kSharedFrontier ? state_ints
+                                                         : 0;
+  const size_t slice_ints = state_ints + lists_ints - shared_ints;
+  const size_t smem = shared_ints * 4;
+  segment_fill_kernel<<<fill_grid, 256, 0, (cudaStream_t)stream>>>(
+      nullptr, lay.has, (float*)dist, (int8_t*)nh, B, A, V, D, big);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(batched_frontier_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  batched_frontier_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      lay.out_off, lay.out_edge, lay.out_id, (const uint8_t*)overloaded,
+      (const int32_t*)roots, (const uint8_t*)edge_enabled, (const int32_t*)fail_link,
+      (const int32_t*)link_off, (const int32_t*)link_edges, (float*)dist, (int8_t*)nh,
+      (int32_t*)scratch, state_ints, slice_ints, layout, B, A, V, E, D, S, L, cap, big);
   return (int)cudaGetLastError();
 }

@@ -44,12 +44,32 @@ call (parent, change, change, parent):
   * ``fattree``: kernel 12 over phase (h)'s fat-tree (the
     fattree_multipod class at 2,048: 2,064 roots, V = 4,096, K = 64),
     on the path the shape takes, with a budget of 0 and, where the
-    checkout has ``spf.FLEET_THREADS``, at 256, 512 and 1,024 threads.
+    checkout has ``spf.FLEET_THREADS``, at 256, 512 and 1,024 threads;
+  * ``flagship``: kernel 16 (``batched_spf``) at ``chip_smoke.py``'s
+    phase (i) inputs (the headline WAN, 4,096 rows of
+    ``chip_smoke.flagship_rows``, the per-row mask), per launch, per call
+    of ``spf.batched_spf`` and per bind; where the checkout has
+    ``spf.batched_spf_layout``, at 128, 256, 512 and 1,024 threads, with a
+    shared-memory budget of 0, with the lane lists in the global scratch
+    and with a frontier cap of 256 and 512 (at 256 and 512 threads); and
+    the step's wall (``spf_and_select``,
+    kernels 16 then 17, on ``chip_smoke.flagship_world``'s candidates with
+    a generator of seed 0: host clock to a synchronize, median of 5);
+  * ``repair``: kernel 9 (``repair_sweep``) at phase (a)'s largest chunk
+    (the headline WAN, 10,240 failures drawn with seed 0 through
+    ``LinkFailureSweep.run``), per launch, per call of
+    ``RepairSweep.solve`` and per bind; where the checkout has
+    ``repair.REPAIR_CLUSTER``, at 256, 512 and 1,024 threads by clusters
+    of 1, 2, 4 and 8 blocks, and with every vertex listed (the warm-seed
+    mode); and the walls of phase (a)'s cold sweep and warm-seeded
+    second generation (``LinkFailureSweep.run`` then
+    ``SweepRouteSelector.run`` on fresh engines, host clock to a
+    synchronize, median of 3).
 
 Run from the root of the checkout to time, naming the groups (default:
 all of them)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
@@ -150,22 +170,23 @@ def both_paths(make, label: str, out: dict) -> None:
         spf.MAX_SHARED_BYTES = saved
 
 
-def sweep(make, label: str, knobs: dict, out: dict, launches: int = LAUNCHES) -> None:
-    """Where the checkout has every ``spf.<knob>`` of ``knobs`` (knob ->
+def sweep(make, label: str, knobs: dict, out: dict, launches: int = LAUNCHES, mod=spf) -> None:
+    """Where the checkout has every ``<mod>.<knob>`` of ``knobs`` (knob ->
     values: a kernel's threads per block, its frontier cap, a layout
-    budget), time the launch ``make()`` binds at each combination."""
-    if not all(hasattr(spf, k) for k in knobs):
+    budget; ``mod`` is ``ops/spf.py`` unless given), time the launch
+    ``make()`` binds at each combination."""
+    if not all(hasattr(mod, k) for k in knobs):
         return
-    saved = {k: getattr(spf, k) for k in knobs}
+    saved = {k: getattr(mod, k) for k in knobs}
     try:
         for values in itertools.product(*knobs.values()):
             for k, v in zip(knobs, values):
-                setattr(spf, k, v)
+                setattr(mod, k, v)
             tag = ", ".join(f"{k}={v}" for k, v in zip(knobs, values))
             out[f"{label}, {tag}"] = timed(make, launches)
     finally:
         for k, v in saved.items():
-            setattr(spf, k, v)
+            setattr(mod, k, v)
 
 
 def encoded(areas: dict, me: str, dev):
@@ -391,6 +412,106 @@ def fattree_kernel(dev) -> dict:
     return out
 
 
+def wall_ms(fn, runs: int) -> float:
+    """Host ms of ``fn()`` to a synchronize, median of ``runs`` after one
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def flagship_kernel(dev) -> dict:
+    import chip_smoke as cs
+    from openr_tpu_torch.ops import route_select as rs
+
+    _edges, _ls, topo, cands = cs.flagship_world(np.random.default_rng(0))
+    failed, ovl, soft, roots = cs.flagship_rows(topo)
+    mask = csr.link_failure_batch(topo, [[int(f)] for f in failed])
+    D = topo.max_out_degree()
+    args = tables_from_numpy([topo.src, topo.dst, topo.w, topo.edge_ok, mask, ovl, roots], dev)
+    src, dst, w, ok, m, o, r = args
+    out = {"flagship rows": int(r.shape[0]), "flagship D": D}
+    make = lambda: spf.batched_spf_launcher(src, dst, w, ok, o, r, D, edge_enabled=m)  # noqa: E731
+    out["batched_spf (i)"] = timed(make, 20)
+    out["batched_spf (i), per call"] = launch_ms(lambda: spf.batched_spf(*args, D), 20)
+    out["batched_spf (i), bind (host)"] = bind_ms(make, 20)
+    if hasattr(spf, "batched_spf_layout"):
+        sweep(make, "batched_spf (i)", {"ROW_THREADS": (128, 256, 512, 1024)}, out, 20)
+        sweep(make, "batched_spf (i)", {"MAX_SHARED_BYTES": (0,)}, out, 5)
+        sweep(make, "batched_spf (i)", {"ROW_THREADS": (256, 512), "FLEET_SHARED_ALL_BYTES": (0,)},
+              out, 20)
+        sweep(make, "batched_spf (i)", {"ROW_THREADS": (256, 512), "FRONTIER_CAP": (256, 512)},
+              out, 20)
+    cand = [cands.cand_node, cands.cand_ok, cands.drain_metric, cands.path_pref,
+            cands.source_pref, cands.distance, cands.min_nexthop]
+    step = tables_from_numpy([topo.src, topo.dst, topo.w, topo.edge_ok, mask, ovl, soft, roots]
+                             + cand, dev)
+    out["flagship step wall (host ms)"] = wall_ms(lambda: rs.spf_and_select(*step, max_degree=D), 5)
+    return out
+
+
+def repair_kernel(dev) -> dict:
+    import chip_smoke as cs
+    from openr_tpu_torch.ops import repair, sweep_select
+    from openr_tpu_torch.ops import whatif as whatif_ops
+
+    _ls, _ps, topo = cs.headline_world()
+    fails = np.random.default_rng(0).integers(0, len(topo.links), size=cs.WHATIF_FAILURES)
+    fails = fails.astype(np.int32)
+    calls = []
+    real = repair.repair_sweep
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    eng = whatif_ops.LinkFailureSweep(topo, "node0", device=dev)
+    repair.repair_sweep = record
+    try:
+        eng.run(fails, fetch=False)
+        torch.cuda.synchronize()
+    finally:
+        repair.repair_sweep = real
+    args, kw = max(calls, key=lambda c: c[0][5].shape[0])
+    out = {"(a) chunk": int(args[5].shape[0])}
+    make = lambda: repair.repair_sweep_launcher(*args, **kw)  # noqa: E731
+    out["repair_sweep (a)"] = timed(make)
+    chunk = args[5].cpu().numpy()
+    engine = eng.repair_sweep()
+    out["repair_sweep (a), per call"] = launch_ms(lambda: engine.solve(chunk))
+    out["repair_sweep (a), bind (host)"] = bind_ms(make)
+    if hasattr(repair, "REPAIR_CLUSTER"):
+        sweep(make, "repair_sweep (a)",
+              {"REPAIR_THREADS": (256, 512, 1024), "REPAIR_CLUSTER": (1, 2, 4, 8)}, out,
+              mod=repair)
+        every = dict(kw, exact_base=False)
+        out["repair_sweep (a), every vertex listed"] = timed(
+            lambda: repair.repair_sweep_launcher(*args, **every))
+    cands = sweep_select.SweepCandidates.single_advertiser(np.arange(topo.num_nodes))
+
+    def sweep_once(t, engine):
+        sel = sweep_select.SweepRouteSelector(t, "node0", cands, max_degree=engine.D)
+        return sel.run(engine.run(fails, fetch=False))
+
+    out["(a) cold sweep wall (host ms)"] = wall_ms(
+        lambda: sweep_once(topo, whatif_ops.LinkFailureSweep(topo, "node0", device=dev)), 3)
+    _ls2, _ps2, topo2 = cs.headline_world(metric_bump=5)
+
+    def warm_once():
+        eng2 = whatif_ops.LinkFailureSweep(topo2, "node0", device=dev)
+        assert eng2.seed_base_from(eng)
+        return sweep_once(topo2, eng2)
+
+    out["(a) warm-seeded sweep wall (host ms)"] = wall_ms(warm_once, 3)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_batch_kernels: no CUDA device available", file=sys.stderr)
@@ -401,7 +522,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree"]
+    groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree", "flagship",
+                              "repair"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
@@ -415,6 +537,10 @@ def main() -> int:
         out.update(masked_kernel(dev))
     if "fattree" in groups:
         out.update(fattree_kernel(dev))
+    if "flagship" in groups:
+        out.update(flagship_kernel(dev))
+    if "repair" in groups:
+        out.update(repair_kernel(dev))
     print(json.dumps(out), flush=True)
     return 0
 

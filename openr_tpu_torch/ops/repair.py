@@ -609,26 +609,76 @@ def repair_sweep_plain(
     return d, nh, rounds_d, rounds_l
 
 
-#: kernel 9 keeps two [V] int32 planes of a block in shared memory
+#: kernel 9 keeps the ranks of its words' lists (two ints per 32
+#: vertices) in shared memory
 MAX_REPAIR_NODES = 16384
+#: threads per block of kernel 9, and blocks of its thread block cluster
+#: per 32-snapshot word (1, 2, 4 or 8): a launch lasts as long as its
+#: deepest word's rounds, which spread over the cluster; 1,024 threads by
+#: 8 blocks was the fastest of 256 / 512 / 1,024 by 1 / 2 / 4 / 8 at the
+#: what-if sweep's chunk on the H100 (PERF.md)
+REPAIR_THREADS = 1024
+REPAIR_CLUSTER = 8
+#: kernel 9's dynamic shared memory per block, at most: a block's 227 KB
+#: (an SM holds one block of 1,024 threads at the kernel's 64 registers a
+#: thread) less room for its static shared memory
+REPAIR_SHARED_BYTES = 232448 - 256
 
 #: the ctypes argument types of the C entry points of this module's
 #: kernels (``openr_<name>``), in order: pointers (and the stream) as
 #: c_void_p, then the ints and BIG
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-REPAIR_SWEEP_ARGTYPES = [_P] * 23 + [_I] * 7 + [_F, _P]
+REPAIR_SWEEP_ARGTYPES = [_P] * 21 + [_I] * 10 + [_F, _P]
+
+
+def repair_head_ints(V: int, K: int, threads: int) -> int:
+    """int32 words of kernel 9's fixed shared head (``head_ints`` in
+    ``repair_sweep.cu``): the word's sets, the list's union words and
+    their ranks, the scan counts, rounded up to 16 bytes."""
+    return (32 * K + 2 * ((V + 31) // 32) + threads + 1 + 3) // 4 * 4
+
+
+def repair_vertex_ints(D: int, din: int) -> int:
+    """int32 words of one listed vertex's state in kernel 9
+    (``vertex_ints``): 32 distance columns, its vertex, two counts and its
+    not-affected word, then its listed in-edges (four words each) for the
+    distance rounds, over which its active lane sources (two words each),
+    its pull slots' membership words, its seed words and two lane planes;
+    rounded up to even."""
+    return (32 + 4 + max(4 * din, 3 * din + 3 * D) + 1) // 2 * 2
+
+
+def repair_layout(Bw: int, V: int, K: int, D: int, din: int):
+    """``(threads, cluster, cap_shared, scratch_ints)`` of kernel 9 over
+    ``Bw`` words: a word's cluster of ``REPAIR_CLUSTER`` blocks holds up to
+    ``cap_shared`` listed vertices a block in shared memory
+    (``REPAIR_SHARED_BYTES``); a word whose list exceeds them keeps its
+    state in a global scratch of ``scratch_ints`` words (``Bw`` x
+    ``cluster`` slices of ceil(V / cluster) vertices)."""
+    T = REPAIR_THREADS
+    C = REPAIR_CLUSTER
+    per = repair_vertex_ints(D, din)
+    free = max(0, REPAIR_SHARED_BYTES // 4 - repair_head_ints(V, K, T))
+    cap_shared = min(free // per, -(-V // C))
+    return T, C, cap_shared, Bw * C * -(-V // C) * per
 
 
 def repair_sweep_launcher(
     src, dst, w, lid, transit_src_ok, fails, aff_link_table, base_dist,
     base_nh, nbr_flat, pull_perm, pull_valid, nbr_is_root, seed_v, seed_r,
-    seed_slot, d_lanes: int, din: int,
+    seed_slot, d_lanes: int, din: int, exact_base: bool = False,
 ):
-    """Check the inputs, derive the segment layout, allocate the outputs
-    and scratch and bind kernel 9 (``kernels/csrc/repair_sweep.cu``) once.
-    Returns ``(launch, (dist, nh, rounds_d, rounds_l))`` with the round
-    counts per 32-snapshot word; each ``launch()`` enqueues the kernel
-    (no synchronize) and counts one launch."""
+    """Check the inputs, derive the segment offsets, allocate the outputs
+    and the global scratch and bind kernel 9
+    (``kernels/csrc/repair_sweep.cu``) once.  With
+    ``exact_base`` (the plan's base is the topology's own solve, as
+    ``PLAN_CACHE.plan`` builds it) each word's rounds run over the union
+    of its snapshots' affected vertices only; else (a warm seed: an
+    over-estimate that added or cheapened links lower anywhere) over every
+    vertex.  Nothing here waits for the card.  Returns ``(launch, (dist,
+    nh, rounds_d, rounds_l))`` with the round counts per 32-snapshot word;
+    each ``launch()`` enqueues the kernel (no synchronize) and counts one
+    launch."""
     dev = src.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called on {dev}")
@@ -660,41 +710,40 @@ def repair_sweep_launcher(
     for name, t in (("seed_v", seed_v), ("seed_r", seed_r), ("seed_slot", seed_slot)):
         check_tensor(name, t, torch.int32, (S,), dev)
     Bw = B // 32
+    T, C, cap_shared, scratch_ints = repair_layout(Bw, V, K, D, din)
     seg_off = segment_offsets(dst[None], V)[0].contiguous()
     dist = torch.empty((V, B), dtype=torch.float32, device=dev)
     nh = torch.empty((V, D, Bw), dtype=torch.int32, device=dev)
     rounds_d = torch.empty((Bw,), dtype=torch.int32, device=dev)
     rounds_l = torch.empty((Bw,), dtype=torch.int32, device=dev)
-    # per word: DAG-membership word of every pull slot, the seed words and
-    # two lane planes (the lane rounds are synchronous: ping-pong)
-    on_pull = torch.empty((Bw, V * din), dtype=torch.int32, device=dev)
-    lanes_scratch = torch.empty((Bw, 3, V * D), dtype=torch.int32, device=dev)
+    scratch = torch.empty((max(1, scratch_ints),), dtype=torch.int32, device=dev)
     fn = function("repair_sweep", "openr_repair_sweep", REPAIR_SWEEP_ARGTYPES)
     args = (
-        ptr(src), ptr(dst), ptr(w), ptr(lid), ptr(transit_src_ok), ptr(fails),
+        ptr(src), ptr(w), ptr(lid), ptr(transit_src_ok), ptr(fails),
         ptr(aff_link_table), ptr(base_dist), ptr(base_nh), ptr(nbr_flat),
         ptr(pull_perm), ptr(pull_valid), ptr(nbr_is_root), ptr(seed_v),
-        ptr(seed_r), ptr(seed_slot), ptr(seg_off), ptr(on_pull),
-        ptr(lanes_scratch), ptr(dist), ptr(nh), ptr(rounds_d), ptr(rounds_l),
-        V, E, B, K, D, din, S, BIG, stream(dev),
+        ptr(seed_r), ptr(seed_slot), ptr(seg_off), ptr(scratch), ptr(dist), ptr(nh), ptr(rounds_d),
+        ptr(rounds_l), V, B, K, D, din, S, int(not exact_base), T, C, cap_shared, BIG,
+        stream(dev),
     )
 
-    # the default argument keeps the derived layout and scratch alive
-    def launch(_held=(seg_off, on_pull, lanes_scratch)) -> None:
+    # the default argument keeps the derived layout and the scratch alive
+    def launch(_held=(seg_off, scratch)) -> None:
         check_launch("repair_sweep", fn(*args))
         LAUNCHES["repair_sweep"] += 1
 
     return launch, (dist, nh, rounds_d, rounds_l)
 
 
-def repair_sweep(*args, **kwargs):
+def repair_sweep(*args, exact_base: bool = False, **kwargs):
     """The warm repair of B failure sets (arguments of
-    :func:`repair_sweep_plain`): kernel 9 for CUDA tensors, the plain
+    :func:`repair_sweep_plain`; ``exact_base`` as
+    :func:`repair_sweep_launcher`): kernel 9 for CUDA tensors, the plain
     version for CPU tensors.  Exact either way: both loops reach unique
     fixed points, so only the round counts differ."""
     if args[0].device.type == "cpu":
         return repair_sweep_plain(*args, **kwargs)
-    launch, outs = repair_sweep_launcher(*args, **kwargs)
+    launch, outs = repair_sweep_launcher(*args, exact_base=exact_base, **kwargs)
     launch()
     return outs
 
@@ -717,11 +766,16 @@ class RepairSweep:
 
     batch_granularity = 32
 
-    def __init__(self, topo, plan: RepairPlan, device, edges=None) -> None:
+    def __init__(self, topo, plan: RepairPlan, device, edges=None,
+                 exact_base: bool = False) -> None:
         """``edges``: the (src, dst, w, link_index) tensors the sweep
-        engine already holds on ``device``, to avoid a second copy."""
+        engine already holds on ``device``, to avoid a second copy.
+        ``exact_base``: the plan's base is the topology's own solve (a plan
+        of ``PLAN_CACHE``), so kernel 9 works on each word's affected
+        vertices only; False for a warm seed (``_warm_base_solve``)."""
         self.topo = topo
         self.plan = plan
+        self.exact_base = exact_base
         self.device = torch.device(device)
         if edges is None:
             edges = tables_from_numpy(
@@ -747,5 +801,5 @@ class RepairSweep:
         (fails_t,) = tables_from_numpy((fails,), self.device)
         return repair_sweep(
             src, dst, w, lid, self._tsok, fails_t, *self._plan_t,
-            d_lanes=self.plan.lanes, din=self.plan.din,
+            d_lanes=self.plan.lanes, din=self.plan.din, exact_base=self.exact_base,
         )

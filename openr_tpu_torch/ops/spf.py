@@ -846,8 +846,9 @@ DENSE_LANES_THREADS = 1024
 FILL_THREADS = 256
 #: threads per block of kernel 12 (one (root, area) pair at a time)
 FLEET_THREADS = 512
-#: threads per block (one what-if row) of kernel 16
-ROW_THREADS = 512
+#: threads per block of kernel 16 (one what-if row at a time); None: by
+#: the rows, as kernel 14's rule (:func:`_segment_threads`)
+ROW_THREADS = None
 #: threads per block (one row) of kernel 15
 MASKED_THREADS = 256
 #: frontier vertices kernels 12 and 15 list at a time where their frontier
@@ -907,7 +908,7 @@ FLEET_SPF_DENSE_ARGTYPES = [_P] * 9 + [_I] * 9 + [_F, _P]
 SPF_SEGMENT_BATCH_ARGTYPES = [_P] * 14 + [_I] * 11 + [_F, _P]
 SPF_SEGMENT_BATCH_ROUNDS_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _P]
 SPF_DISTANCES_MASKED_ARGTYPES = [_P] * 11 + [_I] * 9 + [_F, _P]
-BATCHED_SPF_ARGTYPES = [_P] * 5 + [_I] + [_P] * 9 + [_I] * 7 + [_F, _P]
+BATCHED_SPF_ARGTYPES = [_P] * 15 + [_I] * 12 + [_F, _P]
 
 
 def _words16(nbytes: int) -> int:
@@ -926,7 +927,7 @@ def _resident_grid(rows: int, dev, threads: int, smem: int = 0) -> int:
 
 
 def _global_state(state_bytes: int, rows: int, dev, threads: int):
-    """(scratch, grid) of the global-state path of kernels 15 and 16: as
+    """(scratch, grid) of the global-state path of kernel 15: as
     many blocks of ``threads`` as the SMs hold at once (at most one
     per pair), each with a 16-byte-rounded slice of the scratch, walking
     the pairs in a grid-stride loop."""
@@ -934,17 +935,20 @@ def _global_state(state_bytes: int, rows: int, dev, threads: int):
     return torch.empty(grid * _words16(state_bytes), dtype=torch.int32, device=dev), grid
 
 
-def _pair_layout(V: int, M: int, threads: int, extra_bytes: int = 0):
+def _pair_layout(V: int, M: int, threads: int, extra_bytes: int = 0,
+                 all_bytes: int = None):
     """``(layout, cap, smem, slice_bytes)`` of a frontier pair kernel's
-    block state (kernels 12 and 14, ``StateLayout`` in ``frontier.cuh``):
-    the frontier state (``extra_bytes`` after it) and the lane lists of
-    ``M`` sources in shared memory where two blocks still fit an SM, else
-    the frontier state alone there, else neither (the frontier then
-    listed whole)."""
+    block state (kernels 12, 14 and 16, ``StateLayout`` in
+    ``frontier.cuh``): the frontier state (``extra_bytes`` after it) and
+    the lane lists of ``M`` sources in shared memory up to ``all_bytes``
+    (default: where two blocks still fit an SM), else the frontier state
+    alone there, else neither (the frontier then listed whole)."""
     cap = min(V, FRONTIER_CAP)
     state = 4 * _words16(frontier_state_bytes(V, cap, threads) + extra_bytes)
     lists = 4 * _words16(fleet_lists_bytes(V, M))
-    if state + lists <= min(MAX_SHARED_BYTES, FLEET_SHARED_ALL_BYTES):
+    if all_bytes is None:
+        all_bytes = FLEET_SHARED_ALL_BYTES
+    if state + lists <= min(MAX_SHARED_BYTES, FLEET_SHARED_ALL_BYTES, all_bytes):
         return 0, cap, state + lists, 0
     if state <= MAX_SHARED_BYTES:
         return 1, cap, state, lists
@@ -952,18 +956,19 @@ def _pair_layout(V: int, M: int, threads: int, extra_bytes: int = 0):
     return 2, V, 0, state + lists
 
 
-def _segment_threads(pairs: int, dev) -> int:
-    """Kernel 14's threads per block (``BATCH_THREADS``)."""
-    if BATCH_THREADS:
-        return BATCH_THREADS
+def _segment_threads(pairs: int, dev, fixed) -> int:
+    """Threads per block of kernel 14 (``fixed``: ``BATCH_THREADS``) or 16
+    (``ROW_THREADS``): ``fixed`` where it is set, else by the pairs."""
+    if fixed:
+        return fixed
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return next((T for T in (1024, 512) if pairs <= sms * (SM_THREADS // T)), 256)
 
 
 def segment_work_ints(A: int, V: int, E: int) -> int:
-    """int32 words of kernel 14's derived layout (``work`` in
-    ``openr_spf_segment_batch``): the slots' (dst, w) pairs and link ids,
-    the out-edge offsets and the has bytes."""
+    """int32 words of the derived layout of kernels 14 and 16 (``work``,
+    ``SegmentLayout`` in ``spf_warm.cu``): the slots' (dst, w) pairs and
+    ids, the out-edge offsets and the has bytes."""
     return 3 * A * E + A * (V + 1) + (A * V + 3) // 4
 
 
@@ -973,7 +978,7 @@ def segment_batch_layout(pairs: int, V: int, E: int, S: int, dev):
     ``E`` edge slots with failed sets of ``S`` members: the threads of
     :func:`_segment_threads` and the block state of :func:`_pair_layout`,
     its lane lists sized for every slot of an area."""
-    T = _segment_threads(pairs, dev)
+    T = _segment_threads(pairs, dev, BATCH_THREADS)
     return (T, *_pair_layout(V, E, T, 4 * S))
 
 
@@ -1528,24 +1533,45 @@ def batched_spf_distinct_plain(src, dst, w, edge_ok, overloaded, roots, max_degr
     )
 
 
-def batched_spf_state_bytes(V: int, E: int) -> int:
-    """Kernel 16's per-block state: run ends, lane ranks, scan counts, the
-    moving vertices' source offsets, the row's edge bits, distances and
-    edge classes."""
-    return 4 * (V + E + ROW_THREADS + 1 + V + 1 + (E + 31) // 32) + 4 * V + E
+def batched_spf_layout(B: int, V: int, E: int, dev):
+    """``(threads, layout, cap, smem, slice_bytes)`` of kernel 16 over ``B``
+    rows of ``V`` vertices and ``E`` edge slots: the threads of
+    :func:`_segment_threads` (``ROW_THREADS``) and the block state of
+    :func:`_pair_layout`, the row's edge bits after the frontier state and
+    the lane lists sized for every slot, in shared memory only where an SM
+    still holds as many blocks as its threads allow (else the lists go to
+    the global scratch: at the flagship shape and 256 threads, 8 rows an
+    SM instead of 3, 14 % faster on the H100, PERF.md)."""
+    T = _segment_threads(B, dev, ROW_THREADS)
+    return (T, *batched_spf_state(V, E, T))
+
+
+def batched_spf_state(V: int, E: int, threads: int):
+    """``(layout, cap, smem, slice_bytes)`` of kernel 16's block state at
+    ``threads`` (:func:`batched_spf_layout`)."""
+    all_bytes = SM_SHARED_BYTES // max(1, SM_THREADS // threads) - BLOCK_RESERVED_BYTES
+    return _pair_layout(V, E, threads, 4 * ((E + 31) // 32), all_bytes)
 
 
 def batched_spf_launcher(
     src, dst, w, edge_ok, overloaded, roots, max_degree: int,
     edge_enabled=None, link_index=None, failed=None,
 ):
-    """Check the inputs, derive the segment offsets (and, in the set form,
-    the link id -> edges CSR), allocate the outputs (and the global path's
-    scratch) and bind kernel 16 once.  The edge arrays are [E] (shared;
-    pass ``edge_enabled`` [B, E] bool, or ``link_index`` [E] and ``failed``
-    [B, S] int32, or neither) or [B, E] (row b's own list, no mask).
-    Returns ``(launch, (dist, nh))``: each ``launch()`` enqueues the
-    kernel (no synchronize) and counts one launch."""
+    """Check the inputs, sort the edges by source (stable; per row for
+    per-row lists), allocate the outputs, kernel 16's derived layout (and,
+    in the set form, the link id -> edges CSR) and the scratch of the
+    resident blocks' state (placed as :func:`batched_spf_layout` says) and
+    bind kernel 16 once: on the card, a CSR by source of every edge of the
+    list (each source's run in edge order, so a slot's place in it is its
+    lane rank; an unusable edge relaxes nothing; each slot's edge position
+    for the row's mask bit), shared by every row of a shared list (one
+    area) or one per row; a fill over the card; then the frontier solve of
+    every row.  The edge arrays are [E] (shared; pass ``edge_enabled``
+    [B, E] bool, or ``link_index`` [E] and ``failed`` [B, S] int32, or
+    neither) or [B, E] (row b's own list, no mask).  Nothing here waits
+    for the card but the set form's ``link_index.max()``.  Returns
+    ``(launch, (dist, nh))``: each ``launch()`` enqueues the kernel (no
+    synchronize) and counts one launch."""
     if src.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on {src.device}")
     dev = src.device
@@ -1572,28 +1598,32 @@ def batched_spf_launcher(
         S = failed.shape[1]
         check_tensor("link_index", link_index, torch.int32, (E,), dev)
         check_tensor("failed", failed, torch.int32, (B, S), dev)
+        # the one host sync of the bind: the link CSR's size
         L = int(link_index.max()) + 1 if E else 0
         link_off, link_edges = link_edge_csr(link_index, L)
-    seg_off = segment_offsets(dst if distinct else dst[None], V)
-    # the shared path (one block per row, its state in shared memory)
-    # where the state fits, else the global path
-    state = batched_spf_state_bytes(V, E)
-    scratch, grid = (
-        (None, B) if state <= MAX_SHARED_BYTES else _global_state(state, B, dev, ROW_THREADS)
-    )
+    A = B if distinct else 1
+    src_sorted, order = torch.sort(src if distinct else src[None], dim=1, stable=True)
+    work = torch.empty(max(1, segment_work_ints(A, V, E)), dtype=torch.int32, device=dev)
+    T, layout, cap, smem, slice_bytes = batched_spf_layout(B, V, E, dev)
+    grid = _resident_grid(B, dev, T, smem)
+    scratch = torch.empty(max(1, grid * slice_bytes // 4), dtype=torch.int32, device=dev)
     dist = torch.empty((B, V), dtype=torch.float32, device=dev)
     nh = torch.empty((B, V, D), dtype=torch.int8, device=dev)
+    # the layout's and the fill's blocks: as many as the card holds at
+    # once, at most one per FILL_THREADS 16-byte words of the table
+    fill_grid = _resident_grid(max(1, -(-B * V * D // (16 * FILL_THREADS))), dev, FILL_THREADS)
     fn = function("spf_warm", "openr_batched_spf", BATCHED_SPF_ARGTYPES)
     opt = lambda t: None if t is None else ptr(t)  # noqa: E731
     args = (
-        ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(seg_off), int(distinct),
-        ptr(overloaded), ptr(roots), opt(edge_enabled), opt(failed), opt(link_off),
-        opt(link_edges), ptr(dist), ptr(nh), opt(scratch), grid, B, V, E, D, S, L,
+        ptr(src_sorted), ptr(order), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded),
+        ptr(roots), opt(edge_enabled), opt(failed), opt(link_off), opt(link_edges), ptr(work),
+        ptr(dist), ptr(nh), ptr(scratch), layout, grid, fill_grid, T, B, A, V, E, D, S, L, cap,
         BIG, stream(dev),
     )
 
-    # the default argument keeps the derived layout and the scratch alive
-    def launch(_held=(seg_off, link_off, link_edges, scratch, failed)) -> None:
+    # the default argument keeps the sorted edges, the derived layouts and
+    # the scratch alive
+    def launch(_held=(src_sorted, order, work, link_off, link_edges, scratch, failed)) -> None:
         if B == 0:
             return
         check_launch("batched_spf", fn(*args))

@@ -177,7 +177,9 @@ class LinkFailureSweep:
             transit_src_ok=self.topo.edge_ok & transit[self.topo.src],
             **pt,
         )
-        rs = RepairSweep(self.topo, plan, self.device, edges=self._edges())
+        # the seed is an over-estimate, not the topology's own solve: every
+        # vertex is worked
+        rs = RepairSweep(self.topo, plan, self.device, edges=self._edges(), exact_base=False)
         dist, nh, _, _ = rs.solve(np.full(rs.batch_granularity, -1, np.int32))
         return (
             dist[:, 0].cpu().numpy(),
@@ -217,7 +219,10 @@ class LinkFailureSweep:
 
     def repair_sweep(self) -> RepairSweep:
         if self._repair is None:
-            self._repair = RepairSweep(self.topo, self.plan(), self.device, edges=self._edges())
+            # the plan's base is this topology's own solve
+            self._repair = RepairSweep(
+                self.topo, self.plan(), self.device, edges=self._edges(), exact_base=True
+            )
         return self._repair
 
     def on_dag_links(self) -> np.ndarray:

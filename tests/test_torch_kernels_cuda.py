@@ -1133,3 +1133,203 @@ def test_segment_frontier_kernel_equals_plain(card, world, path, D, monkeypatch)
     if world == "hub" and D >= 300:
         hub = int(np.nonzero(roots[:, 0] == enc.roots[0])[0][0])
         assert int((got[1][hub, 0] == 1).sum()) == 300
+
+
+# -- kernels 16 and 9 as redesigned: kernel 16's frontier form over a layout
+# built on the card, kernel 9's work lists on thread block clusters --------
+
+
+def _flagship_world(world):
+    """A 300-node WAN (V = 512 > 256) with a drained node; "fan" adds 40
+    leaves at metric 1 from node0, each also linked onwards, so rows rooted
+    at node0 seed 40+ lanes (past one word)."""
+    from openr_tpu_torch.decision.link_state import LinkState as _LS
+
+    edges = random_connected_edges(300, 500, seed=11)
+    if world == "fan":
+        edges += [("node0", f"x{i}", 1) for i in range(40)]
+        edges += [(f"x{i}", f"node{1 + (i * 7) % 299}", 3) for i in range(40)]
+    ls = _LS("0")
+    for db in build_adj_dbs(edges, overloaded=["node5"]).values():
+        ls.update_adjacency_database(db)
+    return csr.encode_link_state(ls)
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("path", ["shared", "chunked", "lists", "global"])
+@pytest.mark.parametrize("world", ["wan", "fan"])
+def test_batched_frontier_kernel_on_every_path_equals_plain(card, world, path, threads, monkeypatch):
+    """Kernel 16's frontier form on a world of more than 256 vertices, per-row
+    masks, drains and roots (half the rows at node0), in its mask and set
+    forms, on every state layout (the frontier listed 4 at a time, the lane
+    lists or the whole state in the global scratch) and thread count; the
+    fan's node0 rows use more than 32 lanes (the table's OR loop), the
+    WAN's fewer (bit words)."""
+    topo = _flagship_world(world)
+    assert topo.padded_nodes > 256
+    monkeypatch.setattr(spf, "ROW_THREADS", threads)
+    _frontier_path(path, monkeypatch)
+    rng = np.random.default_rng(threads)
+    B = 70
+    roots, ovl, _soft, mask = _batched_rows(topo, B, rng)
+    roots[::2] = topo.node_id("node0")
+    D = max(topo.max_out_degree(), 1)
+    edges = tables_from_numpy([topo.src, topo.dst, topo.w, topo.edge_ok], card)
+    r, o, m = tables_from_numpy([roots, ovl, mask], card)
+    failed = rng.integers(-1, len(topo.links), B).astype(np.int32)
+    li, f = tables_from_numpy([topo.link_index, failed], card)
+    reset_launch_counts()
+    got = spf.batched_spf(*edges, m, o, r, D)
+    got_s = spf.batched_spf_link_failures(*edges, li, f, o, r, D)
+    torch.cuda.synchronize()
+    assert LAUNCHES["batched_spf"] == 2
+    want = spf.batched_spf_plain(*edges, m, o, r, D)
+    want_s = spf.batched_spf_link_failures_plain(*edges, li, f, o, r, D)
+    for g, w in zip(got + got_s, want + want_s):
+        assert torch.equal(g, w)
+    wide = int((want_s[1][::2, :, 32:] == 1).sum()) if D > 32 else 0
+    assert (wide > 0) == (world == "fan")
+
+
+def _repair_batch(topo, plan, rng):
+    """[B, 3] failure sets, word by word: all -1 pads (an empty word); the
+    32 links of largest affected sets (a large union); then sets of 1-3
+    links with -1 pads."""
+    L = len(topo.links)
+    sizes = np.array([sum(bin(int(x)).count("1") for x in row) for row in plan.aff_link_words])
+    batch = np.full((128, 3), -1, np.int32)
+    batch[32:64, 0] = np.argsort(-sizes, kind="stable")[:32]
+    for i in range(64, 128):
+        m = int(rng.integers(1, 4))
+        batch[i, :m] = rng.choice(L, size=m, replace=False)
+    return batch
+
+
+@pytest.mark.parametrize("budget", ["shared", "global"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("threads", [256, 1024])
+@pytest.mark.parametrize("world", ["wan", "grid"])
+def test_repair_worklist_kernel_equals_plain(card, world, threads, cluster, budget, monkeypatch):
+    """Kernel 9 over each word's affected list, on clusters of 1-8 blocks,
+    its state in shared memory or (a budget of 0) the global scratch: an
+    empty word, a word of the largest unions, sets with -1 pads; and the
+    list's cold singles equal kernel 8's tables."""
+    from openr_tpu_torch.ops import repair as rp
+    from openr_tpu_torch.ops.whatif import LinkFailureSweep
+
+    monkeypatch.setattr(rp, "REPAIR_THREADS", threads)
+    monkeypatch.setattr(rp, "REPAIR_CLUSTER", cluster)
+    if budget == "global":
+        monkeypatch.setattr(rp, "REPAIR_SHARED_BYTES", 0)
+    ls, _ps = _whatif_world(world)
+    topo = csr.encode_link_state(ls)
+    eng = LinkFailureSweep(topo, "node0", device=card)
+    rs = eng.repair_sweep()
+    assert rs.exact_base
+    batch = _repair_batch(topo, rs.plan, np.random.default_rng(cluster))
+    reset_launch_counts()
+    kd, kn, _, _ = rs.solve(batch)
+    torch.cuda.synchronize()
+    assert LAUNCHES["repair_sweep"] == 1
+    src, dst, w, lid = rs._edges
+    fails_t = tables_from_numpy([batch], card)[0]
+    args = (src, dst, w, lid, rs._tsok, fails_t, *rs._plan_t)
+    qd, qn, _, _ = rp.repair_sweep_plain(*args, d_lanes=rs.plan.lanes, din=rs.plan.din)
+    assert torch.equal(kd, qd) and torch.equal(kn, qn)
+    # singles against the cold kernel
+    fails = np.concatenate([_whatif_fails(topo, size=26), np.full(32, -1, np.int32)])
+    fails = np.concatenate([fails, np.full(-len(fails) % 32, -1, np.int32)])
+    kd, kn, _, _ = rs.solve(fails)
+    edges = tables_from_numpy([topo.src, topo.dst, topo.w, topo.edge_ok, topo.link_index], card)
+    ovl, f = tables_from_numpy([topo.overloaded, fails], card)
+    cd, cn, _, _ = spf.sweep_spf_link_failures(*edges, f, ovl, 0, eng.D)
+    B = len(fails)
+    bits = (kn[:, :, torch.arange(B, device=card) // 32] >> (torch.arange(B, device=card) % 32)) & 1
+    assert torch.equal(kd, cd)
+    assert torch.equal(bits.permute(0, 2, 1).to(torch.int8), (cn > 0).to(torch.int8))
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_repair_kernel_warm_base_mode_lists_every_vertex(card, cluster, monkeypatch):
+    """The warm base solve of a second generation (a link added, one
+    cheapened, one raised; lanes seeded from the old plan, then from zero)
+    runs kernel 9 with every vertex listed: its table equals the plain
+    version's and the cold base, where the union of the (empty) plan's
+    affected sets would leave the over-estimate."""
+    from openr_tpu_torch.decision.link_state import LinkState as _LS
+    from openr_tpu_torch.ops import repair as rp
+    from openr_tpu_torch.ops.whatif import LinkFailureSweep
+
+    monkeypatch.setattr(rp, "REPAIR_CLUSTER", cluster)
+    edges = random_connected_edges(96, 160, seed=7)
+    gen2 = [(u, v, m + 7 if i == 3 else max(1, m - 2) if i == 20 else m)
+            for i, (u, v, m) in enumerate(edges)] + [("node10", "node90", 1)]
+
+    def encode(e):
+        ls = _LS("0", "node0")
+        for db in build_adj_dbs(e).values():
+            ls.update_adjacency_database(db)
+        return csr.encode_link_state(ls)
+
+    old = LinkFailureSweep(encode(edges), "node0", device=card)
+    old.plan()
+    topo2 = encode(gen2)
+    calls = []
+    real = rp.repair_sweep
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(rp, "repair_sweep", record)
+    eng = LinkFailureSweep(topo2, "node0", device=card)
+    assert eng.seed_base_from(old)
+    reset_launch_counts()
+    base = eng.base_solve()
+    torch.cuda.synchronize()
+    assert eng.base_source == "warm" and LAUNCHES["repair_sweep"] == 1
+    (args, kw), = calls
+    assert kw["exact_base"] is False
+    cold = LinkFailureSweep(topo2, "node0", device=card).base_solve()
+    assert np.array_equal(base[0], cold[0]) and np.array_equal(base[1], cold[1])
+    plain_kw = {k: v for k, v in kw.items() if k != "exact_base"}
+    for seed in ("plan", "zero"):
+        a = list(args)
+        if seed == "zero":
+            a[8] = torch.zeros_like(a[8])
+        launch, (kd, kn, _, _) = rp.repair_sweep_launcher(*a, **kw)
+        launch()
+        qd, qn, _, _ = rp.repair_sweep_plain(*a, **plain_kw)
+        assert torch.equal(kd, qd) and torch.equal(kn, qn)
+        assert np.array_equal(kd[:, 0].cpu().numpy(), cold[0])
+        # the union-only mode keeps the over-estimate: a wrong table here
+        launch, (ud, _un, _, _) = rp.repair_sweep_launcher(*a, **dict(kw, exact_base=True))
+        launch()
+        assert not torch.equal(ud, qd)
+
+
+def test_spf_and_select_enqueues_without_a_host_sync(card):
+    """The flagship step binds and enqueues kernels 16 and 17 with no host
+    synchronization (the mask form's launcher derives its layout on the
+    card): under the sync debug mode any synchronizing call raises."""
+    topo = _batched_world()
+    rng = np.random.default_rng(18)
+    B = 64
+    roots, ovl, soft, mask = _batched_rows(topo, B, rng)
+    cand = _batched_cands(topo, rng)
+    D = max(topo.max_out_degree(), 1)
+    edges = tables_from_numpy([topo.src, topo.dst, topo.w, topo.edge_ok], card)
+    m, o, s, r = tables_from_numpy([mask, ovl, soft, roots], card)
+    ct = tables_from_numpy(cand, card)
+    want = rs.spf_and_select(*edges, m, o, s, r, *ct, max_degree=D)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rs.spf_and_select(*edges, m, o, s, r, *ct, max_degree=D)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert {k for k, v in LAUNCHES.items() if v} == {"batched_spf", "batched_select_routes"}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
