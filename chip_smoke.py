@@ -159,6 +159,8 @@ import numpy as np
 import torch
 
 from openr_tpu_torch import graft_entry
+from openr_tpu_torch.decision import backend as backend_mod
+from openr_tpu_torch.decision import fleet as fleet_mod
 from openr_tpu_torch.decision import ksp2 as ksp2_mod
 from openr_tpu_torch.decision import whatif_api
 from openr_tpu_torch.decision.backend import DEGREE_BUCKETS, CudaBackend
@@ -559,6 +561,50 @@ def select_ops(P, C, A, D):
     return P * C * (48 + A * (4 + D))
 
 
+def dense_distances_bytes(in_src, in_ok, ovl, roots, dist):
+    """Bytes kernel 1 must move on these planes: ``in_ok`` whole, the
+    source and weight (8 bytes) of each usable slot, the source of each ok
+    slot whose source may not transit, ``overloaded``, ``roots`` and the
+    distances once; not the planes' padding."""
+    ok = int(in_ok.sum())
+    usable = int(spf.transit_ok(in_src, in_ok, ovl, roots).sum())
+    return nbytes(in_ok, ovl, roots, dist) + 8 * usable + 4 * (ok - usable)
+
+
+def select_bytes(args, kw, outs):
+    """Bytes kernel 13 must move on these inputs: the candidate tables,
+    drains, ``prev_*`` and outputs once; per batch row, the distance of
+    each cell a candidate names in its own area and of each cell a
+    surviving candidate (``use``) resolves to in an area that holds a
+    winner, and the D lane bytes of each cell a min-cost winner of a
+    (row, area) pair resolves to (its distance equals the pair's
+    ``shortest``); not the whole [B, A, V, D] tables."""
+    dist, nh, overloaded, soft, cand_area, cand_node, *rest = args
+    cnia = rest[5]
+    use, shortest = outs[0], outs[1]
+    B, A, V = dist.shape
+    D = nh.shape[-1]
+    dev = dist.device
+    area = torch.arange(A, device=dev)
+    own = (cand_area.long() * V + cand_node.long()).reshape(-1)
+    cell = area * V + cnia.clamp(min=0).long()  # [P, C, A]
+    named = cnia >= 0
+    winner_area = cand_area.long()[:, :, None] == area  # [P, C, A]
+    cells = 0
+    for b in range(B):
+        read = use[b][:, :, None] & named
+        read &= (use[b][:, :, None] & winner_area).any(dim=1)[:, None, :]
+        d = dist[b].reshape(-1)[cell]
+        mc = read & (d < BIG) & (d == shortest[b][:, None, :])
+        seen = torch.zeros(A * V, dtype=torch.bool, device=dev)
+        seen[own] = True
+        seen[cell[read]] = True
+        lanes = torch.zeros(A * V, dtype=torch.bool, device=dev)
+        lanes[cell[mc]] = True
+        cells += 4 * int(seen.sum()) + D * int(lanes.sum())
+    return nbytes(overloaded, soft, cand_area, cand_node, *rest, *kw.values(), *outs) + cells
+
+
 class KernelReport:
     def __init__(self):
         self.launches = {n: 0 for n in KERNEL_NAMES}
@@ -656,7 +702,7 @@ class KernelReport:
         launch_n, _ = spf.dense_spf_nexthop_lanes_launcher(*planes, dist_p, D)
         self.time(
             "dense_spf_distances", launch_d, p_dist,
-            nbytes(in_src, in_w, in_ok, ovl, roots, dist_p), 2 * int(usable.sum()),
+            dense_distances_bytes(in_src, in_ok, ovl, roots, dist_p), 2 * int(usable.sum()),
             nbytes(in_src, in_w, in_ok) + 2 * nbytes(dist_p), r_d,
         )
         self.time(
@@ -1489,6 +1535,7 @@ def time_fleet(report, name, call, key=None, force_global=False, launches=TIMED_
         B, A, _V = args[0].shape
         P, C = args[4].shape
         D = args[1].shape[-1]
+        t_bytes = select_bytes(args, kw, outs)
         ops = B * select_ops(P, C, A, D)
         per_round, r_d, r_l = t_bytes, 1, 0
         launcher = rs.fleet_select_launcher
@@ -2285,6 +2332,23 @@ def flagship_phase(report, rng):
     return walls
 
 
+#: calls of ``gather_selection_rows`` (four ``torch.index_select`` each) by
+#: the port's callers, the backend's delta build and the fleet decode;
+#: the timing calls in ``KernelReport._check_delta`` are not counted
+GATHER_CALLS = [0]
+
+
+def count_gathers():
+    """Count every call of the changed-row gather through the names the
+    backend and the fleet engine call it by."""
+    def counted(*args, _fn=rs.gather_selection_rows):
+        GATHER_CALLS[0] += 1
+        return _fn(*args)
+
+    backend_mod.gather_selection_rows = counted
+    fleet_mod.gather_selection_rows = counted
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2293,6 +2357,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     rng = np.random.default_rng(args.seed)
+    count_gathers()
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -2382,7 +2447,8 @@ def main():
           f"{t['library_ms']:.4f} ms ({smi})", flush=True)
     g = report.gather
     print(f"gather_selection_rows (torch.index_select, drain delta tick): {g['ms']:.4f} ms per "
-          f"call for {g['rows']} rows, byte bound {g['bound_ms']:.6f} ms ({smi})", flush=True)
+          f"call for {g['rows']} rows, byte bound {g['bound_ms']:.6f} ms; calls on the main path "
+          f"{GATHER_CALLS[0]} (four index_select launches each) ({smi})", flush=True)
     print("what-if and fleet walls: " + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
           + f" ({smi})", flush=True)
     print(report.json_line(), flush=True)

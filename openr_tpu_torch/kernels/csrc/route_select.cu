@@ -26,11 +26,30 @@
 // candidate's own-area cell and every area's cell it resolves to
 // (cand_node_in_area >= 0).  The host re-decodes only the flagged rows.
 //
-// Design: one thread per row, looping over C, A and D; the row's
-// candidate sets are bitmasks in a register (C <= 64, the largest
-// candidate bucket).  What bounds it: bytes.  Each row reads its [C] and
-// [C, A] candidate columns once and writes its outputs once; the SPF
+// Kernels 3 and 7: one thread per row, looping over C, A and D; the
+// row's candidate sets are bitmasks in a register (C <= 64, the largest
+// candidate bucket).  What bounds them: bytes.  Each row reads its [C]
+// and [C, A] candidate columns once and writes its outputs once; the SPF
 // tables it gathers from are small and stay in L2.
+//
+// Kernel 13: a block per tile of TP consecutive prefix rows of one batch
+// row b, so each of the tile's outputs (use [TP, C], shortest and valid
+// [TP, A], lanes [TP, A, D]) is one contiguous span.  Phase 1: a thread
+// per row runs the chain to the winner mask, every key compared in
+// registers (the not-drained key is a 0/1 mask, no indexed local array);
+// then a thread per (row, area) pair finds the pair's min-cost winners
+// and shortest metric and writes the shortest at once (consecutive pairs,
+// consecutive addresses).  Phase 2: the block sweeps the tile's lane span,
+// W bytes a thread (W = 16, 8, 4 or 1: the most that divides D and the
+// pointers' alignment): each byte is the int32 SUM over the pair's
+// min-cost winners of nh[b, a, n, l], then > 0, so a winner's -128 fill
+// cancels as it does in the reference; a winner's W lane bytes are one
+// load (a node's D bytes are contiguous) and the stores are coalesced.
+// Phase 3: valid (= winners and a set lane) and use from shared memory,
+// coalesced.  The diff variant compares each output with prev_* as it
+// writes it, and votes per block into changed[b] (zeroed before the
+// launch).  What bounds it: bytes, the lane table written once, and the
+// nh rows and distances of the winners gathered once each.
 //
 // Traps reproduced exactly:
 //   * keep_max starts from INT32_MIN, keep_min from INT32_MAX, and both
@@ -48,6 +67,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+// threads of a kernel-13 block: 128 was within 3 % of the fastest of
+// 64-256 at (d) cold, its delta and the fat-tree (PERF.md)
+constexpr int kSelectThreads = 128;
+// dynamic shared memory a kernel-13 block may take
+constexpr size_t kSelectDynamicSmem = 232448;
 
 __device__ __forceinline__ uint64_t bit(int c) { return 1ull << c; }
 
@@ -221,13 +245,74 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
   changed_out[p] = changed;
 }
 
-// Kernel 13: the chain for every (batch row b, prefix row p); row b reads
-// its own tables dist [b, A, V] and nh [b, A, V, D] and writes its own
-// outputs, the candidate tables are shared.  With kDiff, changed[b] (zeroed
-// before the launch) is set when any output of the row's P rows differs
-// from prev_* [b, ...]: a block vote, then one store per block.
-template <bool kDiff>
-__global__ void __launch_bounds__(kThreads) fleet_select_kernel(
+// Kernel 13's chain of row p (steps 1-4) to its winner mask, in registers.
+__device__ __forceinline__ uint64_t fleet_row_use(
+    size_t row, const float* __restrict__ dist,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
+    const int32_t* __restrict__ cand_area, const int32_t* __restrict__ cand_node,
+    const uint8_t* __restrict__ cand_ok,
+    const int32_t* __restrict__ drain_metric,
+    const int32_t* __restrict__ path_pref,
+    const int32_t* __restrict__ source_pref,
+    const int32_t* __restrict__ distance, int C, int V, int per_area, float big) {
+  const int32_t* area = cand_area + row;
+  // 1-2. reachability, hard-drain filter with all-drained fallback, and
+  // the not-drained key as a mask (advertised drain metric or soft-drained
+  // node clear it)
+  uint64_t reach = 0, nonhard = 0, not_drained = 0;
+  for (int c = 0; c < C; ++c) {
+    const size_t node = (size_t)area[c] * V + cand_node[row + c];
+    if (cand_ok[row + c] && dist[node] < big) {
+      reach |= bit(c);
+      if (!overloaded[node]) nonhard |= bit(c);
+    }
+    if (!(drain_metric[row + c] > 0 || soft[node] > 0)) not_drained |= bit(c);
+  }
+  uint64_t use = nonhard ? nonhard : reach;
+  // 3. metric chain: a 0/1 key keeps the 1s where any is kept
+  if (use & not_drained) use &= not_drained;
+  use = keep_max(use, path_pref + row, C);
+  use = keep_max(use, source_pref + row, C);
+  // 4. SHORTEST_DISTANCE, globally or per area
+  const int32_t* dd = distance + row;
+  uint64_t kept = 0;
+  if (per_area) {
+    for (uint64_t m = use; m; m &= m - 1) {
+      const int c = __ffsll(m) - 1;
+      int32_t best = INT32_MAX;
+      for (uint64_t m2 = use; m2; m2 &= m2 - 1) {
+        const int c2 = __ffsll(m2) - 1;
+        if (area[c2] == area[c] && dd[c2] < best) best = dd[c2];
+      }
+      if (dd[c] == best) kept |= bit(c);
+    }
+  } else {
+    int32_t best = INT32_MAX;
+    for (uint64_t m = use; m; m &= m - 1) best = min(best, dd[__ffsll(m) - 1]);
+    for (uint64_t m = use; m; m &= m - 1) {
+      const int c = __ffsll(m) - 1;
+      if (dd[c] == best) kept |= bit(c);
+    }
+  }
+  return kept;
+}
+
+// W lane bytes as one register load or store (W = 1, 4, 8 or 16)
+template <int W> struct Lanes;
+template <> struct Lanes<1> { using T = uint8_t; };
+template <> struct Lanes<4> { using T = uint32_t; };
+template <> struct Lanes<8> { using T = uint2; };
+template <> struct Lanes<16> { using T = uint4; };
+template <int W> union LaneBytes {
+  typename Lanes<W>::T v;
+  int8_t s[W];
+  uint8_t u[W];
+};
+
+// Kernel 13 over tiles of TP prefix rows: block (b, tile) with its winner
+// masks and lane flags in dynamic shared memory (fleet_select_smem).
+template <bool kDiff, int W>
+__global__ void __launch_bounds__(kSelectThreads) fleet_select_kernel(
     const float* __restrict__ dist, const int8_t* __restrict__ nh,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
     const int32_t* __restrict__ cand_area, const int32_t* __restrict__ cand_node,
@@ -242,24 +327,161 @@ __global__ void __launch_bounds__(kThreads) fleet_select_kernel(
     const float* __restrict__ prev_shortest,
     const uint8_t* __restrict__ prev_lanes,
     const uint8_t* __restrict__ prev_valid, uint8_t* __restrict__ changed_out,
-    int blocks_per_row, int P, int C, int A, int V, int D, int per_area,
+    int tiles, int TP, int P, int C, int A, int V, int D, int per_area,
     float big) {
-  const int b = blockIdx.x / blocks_per_row;
-  const int p = (blockIdx.x - b * blocks_per_row) * blockDim.x + threadIdx.x;
-  const size_t sel = (size_t)b * P;  // this row's first output row
-  const size_t tables = (size_t)b * A * V;
+  using Vec = typename Lanes<W>::T;
+  extern __shared__ uint64_t smem64[];
+  uint64_t* use_s = smem64;                                 // [TP]
+  uint64_t* mc_s = use_s + TP;                              // [TP * A]
+  int32_t* lit_s = reinterpret_cast<int32_t*>(mc_s + (size_t)TP * A);  // [TP * A]
+  constexpr int T = kSelectThreads;
+  const int b = blockIdx.x / tiles;
+  const int p0 = (blockIdx.x - b * tiles) * TP;
+  const int np = min(TP, P - p0);
+  const float* dist_b = dist + (size_t)b * A * V;
+  const int8_t* nh_b = nh + (size_t)b * A * V * D;
+  const size_t out0 = (size_t)b * P + p0;  // the tile's first output row
   bool changed = false;
-  if (p < P)
-    changed = select_row<kDiff>(
-        p, dist + tables, nh + tables * D, overloaded, soft, cand_area,
-        cand_node, cand_ok, drain_metric, path_pref, source_pref, distance,
-        cand_node_in_area, use_out + sel * C, shortest_out + sel * A,
-        lanes_out + sel * A * D, valid_out + sel * A,
-        kDiff ? prev_use + sel * C : nullptr,
-        kDiff ? prev_shortest + sel * A : nullptr,
-        kDiff ? prev_lanes + sel * A * D : nullptr,
-        kDiff ? prev_valid + sel * A : nullptr, C, A, V, D, per_area, big);
+
+  // 1. the chain, a thread per row; then a thread per (row, area) pair:
+  // its min-cost winners (only areas holding a winner advertisement) and
+  // shortest metric over the winners' node names resolved in the area
+  for (int r = threadIdx.x; r < np; r += T)
+    use_s[r] = fleet_row_use((size_t)(p0 + r) * C, dist_b, overloaded, soft, cand_area,
+                             cand_node, cand_ok, drain_metric, path_pref, source_pref,
+                             distance, C, V, per_area, big);
+  __syncthreads();
+  for (int i = threadIdx.x; i < np * A; i += T) {
+    const int r = i / A;
+    const int a = i - r * A;
+    const size_t row = (size_t)(p0 + r) * C;
+    const uint64_t use = use_s[r];
+    bool has_winner = false;
+    for (uint64_t m = use; m; m &= m - 1)
+      if (cand_area[row + __ffsll(m) - 1] == a) has_winner = true;
+    float shortest = big;
+    uint64_t reached = 0;
+    if (has_winner) {
+      for (uint64_t m = use; m; m &= m - 1) {
+        const int c = __ffsll(m) - 1;
+        const int n = cand_node_in_area[(row + c) * A + a];
+        if (n < 0) continue;
+        const float x = dist_b[(size_t)a * V + n];
+        if (x < big) {
+          reached |= bit(c);
+          shortest = fminf(shortest, x);
+        }
+      }
+    }
+    uint64_t mc = 0;
+    for (uint64_t m = reached; m; m &= m - 1) {
+      const int c = __ffsll(m) - 1;
+      const int n = cand_node_in_area[(row + c) * A + a];
+      if (dist_b[(size_t)a * V + n] == shortest) mc |= bit(c);
+    }
+    mc_s[i] = mc;
+    lit_s[i] = 0;
+    const size_t o = out0 * A + i;
+    shortest_out[o] = shortest;
+    if (kDiff) changed |= shortest != prev_shortest[o];
+  }
+  __syncthreads();
+
+  // 2. the lane span [np, A, D], W bytes a thread: the int32 sum over the
+  // pair's min-cost winners of their lane bytes, then > 0
+  const int per_pair = D / W;
+  const int chunks = np * A * per_pair;
+  Vec* lanes_t = reinterpret_cast<Vec*>(lanes_out + out0 * A * D);
+  const Vec* prev_t = kDiff ? reinterpret_cast<const Vec*>(prev_lanes + out0 * A * D) : nullptr;
+  for (int k = threadIdx.x; k < chunks; k += T) {
+    const int pair = k / per_pair;
+    const int l0 = (k - pair * per_pair) * W;
+    const int r = pair / A;
+    const int a = pair - r * A;
+    const int32_t* nia = cand_node_in_area + (size_t)(p0 + r) * C * A + a;
+    int sum[W];
+#pragma unroll
+    for (int t = 0; t < W; ++t) sum[t] = 0;
+    for (uint64_t m = mc_s[pair]; m; m &= m - 1) {
+      const int n = nia[(size_t)(__ffsll(m) - 1) * A];
+      LaneBytes<W> x;
+      x.v = *reinterpret_cast<const Vec*>(nh_b + ((size_t)a * V + n) * D + l0);
+#pragma unroll
+      for (int t = 0; t < W; ++t) sum[t] += x.s[t];
+    }
+    LaneBytes<W> out;
+    bool lit = false;
+#pragma unroll
+    for (int t = 0; t < W; ++t) {
+      out.u[t] = sum[t] > 0;
+      lit |= sum[t] > 0;
+    }
+    lanes_t[k] = out.v;
+    if (lit) lit_s[pair] = 1;
+    if (kDiff) {
+      LaneBytes<W> prev;
+      prev.v = prev_t[k];
+#pragma unroll
+      for (int t = 0; t < W; ++t) changed |= (prev.u[t] != 0) != (out.u[t] != 0);
+    }
+  }
+  __syncthreads();
+
+  // 3. valid and use, coalesced from shared memory
+  for (int i = threadIdx.x; i < np * A; i += T) {
+    const bool valid = mc_s[i] != 0 && lit_s[i] != 0;
+    const size_t o = out0 * A + i;
+    valid_out[o] = valid;
+    if (kDiff) changed |= valid != (prev_valid[o] != 0);
+  }
+  for (int i = threadIdx.x; i < np * C; i += T) {
+    const int r = i / C;
+    const uint8_t u = (use_s[r] >> (i - r * C)) & 1;
+    const size_t o = out0 * C + i;
+    use_out[o] = u;
+    if (kDiff) changed |= u != prev_use[o];
+  }
   if (kDiff && __syncthreads_or(changed) && threadIdx.x == 0) changed_out[b] = 1;
+}
+
+// Dynamic shared bytes of a kernel-13 block: use [TP], winners [TP, A]
+// (64-bit masks), lane flags [TP, A] (int32).
+__host__ __device__ inline size_t fleet_select_smem(int TP, int A) {
+  return (size_t)TP * 8 + (size_t)TP * A * 12;
+}
+
+template <bool kDiff, int W>
+int launch_fleet_select(const void* const* p, int B, int P, int C, int A, int V, int D,
+                        int per_area, int TP, float big, cudaStream_t stream) {
+  const int tiles = (P + TP - 1) / TP;
+  const size_t smem = fleet_select_smem(TP, A);
+  const auto kernel = fleet_select_kernel<kDiff, W>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * tiles, kSelectThreads, smem, stream>>>(
+      (const float*)p[0], (const int8_t*)p[1], (const uint8_t*)p[2], (const int32_t*)p[3],
+      (const int32_t*)p[4], (const int32_t*)p[5], (const uint8_t*)p[6], (const int32_t*)p[7],
+      (const int32_t*)p[8], (const int32_t*)p[9], (const int32_t*)p[10],
+      (const int32_t*)p[11], (uint8_t*)p[12], (float*)p[13], (uint8_t*)p[14],
+      (uint8_t*)p[15], (const uint8_t*)p[16], (const float*)p[17], (const uint8_t*)p[18],
+      (const uint8_t*)p[19], (uint8_t*)p[20], tiles, TP, P, C, A, V, D, per_area, big);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDiff>
+int launch_fleet_select_w(const void* const* p, int B, int P, int C, int A, int V, int D,
+                          int per_area, int TP, float big, cudaStream_t stream) {
+  // the widest lane vector that divides D and every lane pointer's alignment
+  int W = 16;
+  const auto fits = [&](const void* q) { return q == nullptr || (uintptr_t)q % W == 0; };
+  while (W > 1 && (D % W || !fits(p[1]) || !fits(p[14]) || !fits(p[18]))) W = W > 4 ? W / 2 : 1;
+  switch (W) {
+    case 16: return launch_fleet_select<kDiff, 16>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+    case 8: return launch_fleet_select<kDiff, 8>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+    case 4: return launch_fleet_select<kDiff, 4>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+    default: return launch_fleet_select<kDiff, 1>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+  }
 }
 
 template <bool kDelta>
@@ -332,26 +554,23 @@ extern "C" int openr_fleet_select(
     void* shortest, void* lanes, void* valid, const void* prev_use,
     const void* prev_shortest, const void* prev_lanes, const void* prev_valid,
     void* changed, int B, int P, int C, int A, int V, int D, int per_area,
-    float big, void* stream) {
-  if (C > 64) return (int)cudaErrorInvalidValue;
+    int tile_rows, float big, void* stream) {
+  const int TP = tile_rows < P ? tile_rows : P;
+  // a tile's winner masks and lane flags must fit shared memory
+  if (C > 64 || tile_rows < 1 || fleet_select_smem(TP, A) > kSelectDynamicSmem)
+    return (int)cudaErrorInvalidValue;
   const bool diff = prev_use != nullptr;
   if (diff) {
     cudaError_t err = cudaMemsetAsync(changed, 0, (size_t)B, (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (B == 0 || P == 0) return (int)cudaSuccess;
-  const int per_row = (P + kThreads - 1) / kThreads;
-  const auto kernel = diff ? fleet_select_kernel<true> : fleet_select_kernel<false>;
-  kernel<<<B * per_row, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
-      (const int32_t*)soft, (const int32_t*)cand_area,
-      (const int32_t*)cand_node, (const uint8_t*)cand_ok,
-      (const int32_t*)drain_metric, (const int32_t*)path_pref,
-      (const int32_t*)source_pref, (const int32_t*)distance,
-      (const int32_t*)cand_node_in_area, (uint8_t*)use, (float*)shortest,
-      (uint8_t*)lanes, (uint8_t*)valid, (const uint8_t*)prev_use,
-      (const float*)prev_shortest, (const uint8_t*)prev_lanes,
-      (const uint8_t*)prev_valid, (uint8_t*)changed, per_row, P, C, A, V, D,
-      per_area, big);
-  return (int)cudaGetLastError();
+  const void* p[21] = {dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+                       drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+                       use, shortest, lanes, valid, prev_use, prev_shortest, prev_lanes,
+                       prev_valid, changed};
+  return diff ? launch_fleet_select_w<true>(p, B, P, C, A, V, D, per_area, TP, big,
+                                            (cudaStream_t)stream)
+              : launch_fleet_select_w<false>(p, B, P, C, A, V, D, per_area, TP, big,
+                                             (cudaStream_t)stream);
 }

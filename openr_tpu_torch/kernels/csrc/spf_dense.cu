@@ -19,19 +19,43 @@
 //      from the padded edge list (in_has false) hold int8 -128, exactly as
 //      the reference's segment reduction leaves them.
 //
-// Kernel 1: one thread block per area.  The area's distance vector lives
-// in dynamic shared memory (V <= 16384 -> at most 64 KB, above the 48 KB
-// default, hence cudaFuncSetAttribute), relaxation rounds loop inside the
-// kernel and end on a block-wide "changed" vote (__syncthreads_or), so
-// there are no host round trips.  Updates are in place (Gauss-Seidel): the
-// iteration is monotone with a unique fixed point (integral link metrics
-// keep every f32 path sum exact), so in-place updates and racy reads of a
-// neighbour's value within a round reach the reference's table bit for
-// bit.  What bounds it: latency, not bytes.  Each round re-reads the
-// [V, K] in-edge planes (L2-resident at these sizes) and the loop runs for
-// the hop diameter; with A = 1 the whole solve runs on 1 of the card's 132
-// SMs.
-//
+// Kernel 1: a packed in-edge list per block, and a thread block cluster
+// per area where the area is large.  An area's vertices are split into C
+// slices of S = ceil(V / C) (C = 1, 2, 4 or 8, the launcher's rule from V
+// and the plane's slot count V * K, or forced); block r of the area's
+// cluster owns slice r.  The block first packs its slice's usable
+// in-slots, the transit rule folded in (in_ok and its source not
+// overloaded or the root: the reference's `ok`, openr_tpu/ops/spf.py:304),
+// into one 8-byte record {source, bits of w} each, so padding and down
+// slots are never read again.  The records are stored by group of 32
+// consecutive vertices, as many rows of 32 as the group's largest usable
+// in-degree: a vertex's u-th record at its group's run + 32 u + its lane,
+// so a warp's lanes read consecutive records (no bank conflict), and each
+// vertex's head {first record, in-degree} is one 8-byte load.  The
+// records live in shared memory where the block's count fits what the
+// launcher left (`cap_shared`), else in the block's slice of a global
+// scratch that the launcher holds; the block decides from its own count,
+// which only the card knows.  Every block holds the whole area's
+// distances in shared memory, so a relaxation reads only local memory: a
+// block relaxes its own slice, and each improvement it makes is stored
+// into the other blocks' copies too (distributed shared memory; nothing
+// waits on those stores).  Rounds run in place (Gauss-Seidel), `sweeps`
+// of them between two votes, a block-wide __syncthreads_or and, with
+// C > 1, a flag that a block which changed something sets in every block
+// (two slots, by vote parity), read past one cluster.sync(), which also
+// makes every remote store before it visible.  A vote's rounds in which
+// no block changed anything read a constant state, every copy equal to
+// its owners' values, so all blocks stop together and only then.
+// In-place updates and racy reads of a neighbour's value reach the
+// reference's table bit for bit: the iteration is monotone with a unique
+// fixed point, and integral link metrics keep every f32 path sum exact.
+// Skipping an unusable slot is exact too: its term d[src] + BIG is never
+// below the current value.  What bounds it: latency, one vote every
+// `sweeps` rounds for the hop depth from the root (126 rounds from node0
+// on the 64 x 64 grid, 48 on the KSP2 backbone); a round costs the
+// instructions of its relaxations (a few per usable slot, the records'
+// loads batched so they overlap), a vote the barriers.
+
 // Kernel 2: one thread block per area, its lanes as bit words.  The
 // thread that owns a vertex classifies its K in-slots once against the
 // distances (shared memory): a DAG slot out of the root sets its seed bit
@@ -87,60 +111,213 @@
 // w = +inf.  min/compare must treat inf exactly, so this file is never
 // built with --use_fast_math.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "frontier.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kMaxCluster = 8;
+// dynamic shared memory a kernel-1 block may take beside its static bytes
+constexpr size_t kDenseDynamicSmem = 232448 - 256;
 
 __device__ __forceinline__ bool can_transit(const uint8_t* ovl, int s,
                                             int root) {
   return !ovl[s] || s == root;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    dense_spf_distances_kernel(const int32_t* __restrict__ in_src,
-                               const float* __restrict__ in_w,
-                               const uint8_t* __restrict__ in_ok,
-                               const uint8_t* __restrict__ overloaded,
-                               const int32_t* __restrict__ roots,
-                               float* __restrict__ dist_out, int V, int K,
-                               float big) {
-  extern __shared__ float d[];  // [V] this area's distances
-  const int a = blockIdx.x;
+// Kernel 1's block state (dense_dist_fixed_ints), in 16-byte words: the
+// area's distances [V] (during the packing, the slice's usable-slot masks
+// where it takes 4-slot words), its slice's vertices' heads [S] {first record, usable
+// in-degree}, the first record of each 32-vertex group [ceil(S / 32) + 1]
+// and scan counts [kThreads + 1]; then room for `cap_shared` records
+// (int2) where the launcher left it.
+__host__ __device__ inline size_t dense_dist_fixed_ints(int V, int S) {
+  const size_t G = ((size_t)S + 31) / 32;
+  return ((size_t)V + (V & 1) + 2 * (size_t)S + G + 1 + kThreads + 1 + 3) / 4 * 4;
+}
+
+// records a thread loads at once in a round, so their loads overlap
+constexpr int kRecordBatch = 4;
+
+template <bool kCluster>
+__global__ void __launch_bounds__(kThreads) dense_spf_distances_kernel(
+    const int32_t* __restrict__ in_src, const float* __restrict__ in_w,
+    const uint8_t* __restrict__ in_ok, const uint8_t* __restrict__ overloaded,
+    const int32_t* __restrict__ roots, float* __restrict__ dist_out,
+    int2* scratch, int V, int K, int C, int S, int cap_shared, int sweeps, float big) {
+  extern __shared__ int32_t smem[];
+  __shared__ int votes[2];
+  __shared__ float* copies[kMaxCluster];
+  constexpr int T = kThreads;
+  int rank = 0;
+  if constexpr (kCluster) rank = (int)cg::this_cluster().block_rank();
+  const int a = blockIdx.x / C;
+  const int lo = rank * S;
+  const int n = max(0, min(S, V - lo));  // the owned slice [lo, lo + n)
+  const int G = (n + 31) / 32;
+  float* d = reinterpret_cast<float*>(smem);             // the area's [V]
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem);  // d's room, until d is set
+  int2* heads = reinterpret_cast<int2*>(smem + V + (V & 1));
+  int32_t* gbase = reinterpret_cast<int32_t*>(heads + S);
+  int32_t* counts = gbase + (S + 31) / 32 + 1;
   const int root = roots[a];
   const size_t plane = (size_t)a * V * K;
   const int32_t* src = in_src + plane;
   const float* w = in_w + plane;
   const uint8_t* ok = in_ok + plane;
   const uint8_t* ovl = overloaded + (size_t)a * V;
+  // slot e usable: ok and its source s free to transit
+  const auto usable = [&](size_t e, int& s) -> bool {
+    if (!ok[e]) return false;
+    s = src[e];
+    return !ovl[s] || s == root;
+  };
+  // up to 32 slots a vertex in 4-slot words (the degree buckets' K, where
+  // the planes' alignment allows): its usable ones as a bit mask, the ok
+  // bytes and sources 4 slots a load; else slot by slot
+  const bool by_word = K <= 32 && K % 4 == 0 && (uintptr_t)ok % 4 == 0 && (uintptr_t)src % 16 == 0;
 
-  for (int v = threadIdx.x; v < V; v += blockDim.x) d[v] = v == root ? 0.f : big;
-  __syncthreads();
-  // the reference stops after at most V rounds; a shortest path has at
-  // most V - 1 edges, so the fixed point is always reached first
-  for (int round = 0; round < V; ++round) {
-    int changed = 0;
-    for (int v = threadIdx.x; v < V; v += blockDim.x) {
-      const float cur = d[v];
-      float best = cur;
-      const size_t row = (size_t)v * K;
-      for (int k = 0; k < K; ++k) {
-        const int s = src[row + k];
-        const bool usable = ok[row + k] && can_transit(ovl, s, root);
-        best = fminf(best, d[s] + (usable ? w[row + k] : big));
+  // 1. each owned vertex's usable slots and in-degree
+  for (int j = threadIdx.x; j < n; j += T) {
+    const size_t row = (size_t)(lo + j) * K;
+    int c = 0;
+    if (by_word) {
+      uint32_t m = 0;
+      for (int q = 0; q < K / 4; ++q) {
+        const uint32_t okw = __vcmpne4(reinterpret_cast<const uint32_t*>(ok + row)[q], 0u);
+        if (!okw) continue;
+        const int4 s4 = reinterpret_cast<const int4*>(src + row)[q];
+        const int s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (((okw >> (8 * t)) & 1u) && (!ovl[s[t]] || s[t] == root)) m |= 1u << (4 * q + t);
       }
-      if (best < cur) {
-        d[v] = best;
-        changed = 1;
-      }
+      masks[j] = m;
+      c = __popc(m);
+    } else {
+      int s;
+      for (int k = 0; k < K; ++k) c += usable(row + k, s);
     }
-    if (!__syncthreads_or(changed)) break;
+    heads[j].y = c;
   }
-  for (int v = threadIdx.x; v < V; v += blockDim.x) dist_out[(size_t)a * V + v] = d[v];
+  __syncthreads();
+  // 2. each group's run, 32 records a row of as many rows as its largest
+  // in-degree (a block scan over the groups), and where the records live:
+  // shared memory where the block's count fits
+  const int M = block_offsets(
+      counts, G,
+      [&](int g) {
+        int most = 0;
+        const int end = min(n, g * 32 + 32);
+        for (int j = g * 32; j < end; ++j) most = max(most, heads[j].y);
+        return 32 * most;
+      },
+      [&](int g, int o) { gbase[g] = o; });
+  int2* rec = M <= cap_shared
+                  ? reinterpret_cast<int2*>(smem + dense_dist_fixed_ints(V, S))
+                  : scratch + (size_t)blockIdx.x * ((S + 31) / 32 * 32) * K;
+  // 3. the records {source, bits of w}: a vertex's u-th usable slot at
+  // its group's run + 32 u + its lane, so the lanes of a warp read
+  // consecutive records
+  for (int j = threadIdx.x; j < n; j += T) {
+    const size_t row = (size_t)(lo + j) * K;
+    const int at = gbase[j >> 5] + (j & 31);
+    const int dj = heads[j].y;
+    heads[j].x = at;
+    uint32_t m = by_word ? masks[j] : 0u;
+    for (int u = 0, k = 0; u < dj; ++u, ++k) {
+      int s;
+      if (by_word) {
+        k = __ffs(m) - 1;
+        m &= m - 1;
+        s = src[row + k];
+      } else {
+        while (!usable(row + k, s)) ++k;
+      }
+      rec[at + 32 * u] = make_int2(s, __float_as_int(w[row + k]));
+    }
+  }
+  __syncthreads();
+  // every block holds the whole area's distances: its own slice's are
+  // its own, the others' arrive by the owners' remote stores
+  for (int v = threadIdx.x; v < V; v += T) d[v] = v == root ? 0.f : big;
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if ((int)threadIdx.x < C) copies[threadIdx.x] = cluster.map_shared_rank(d, (int)threadIdx.x);
+    if (threadIdx.x < 2) votes[threadIdx.x] = 0;
+    // no block stores into another before that one has set its distances
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+
+  // 4. sweeps over the records, in place, `sweeps` between two votes,
+  // until no block changes in a vote's sweeps (the distances were then
+  // constant while every vertex was relaxed).  Between votes no thread
+  // waits for another, so only a vote's first sweep is sure to see every
+  // write before it: each vote advances at least one synchronous round.
+  // The reference stops after at most V rounds, and a shortest path has
+  // at most V - 1 edges, so the fixed point is always reached first
+  for (int vote = 0; vote < V; ++vote) {
+    int changed = 0;
+    for (int sweep = 0; sweep < sweeps; ++sweep) {
+      for (int j = threadIdx.x; j < n; j += T) {
+        const int2 h = heads[j];
+        const int v = lo + j;
+        const float cur = d[v];
+        float best = cur;
+        // kRecordBatch records at a time: their loads, then their
+        // sources' distances, so the loads overlap
+        for (int u0 = 0; u0 < h.y; u0 += kRecordBatch) {
+          int2 r[kRecordBatch];
+#pragma unroll
+          for (int q = 0; q < kRecordBatch; ++q)
+            r[q] = u0 + q < h.y ? rec[h.x + 32 * (u0 + q)] : make_int2(0, 0);
+#pragma unroll
+          for (int q = 0; q < kRecordBatch; ++q)
+            if (u0 + q < h.y) best = fminf(best, d[r[q].x] + __int_as_float(r[q].y));
+        }
+        if (best < cur) {
+          d[v] = best;
+          changed = 1;
+          if constexpr (kCluster) {
+            // the other blocks' copies, by stores that nothing waits on
+            for (int r = 0; r < C; ++r)
+              if (r != rank) reinterpret_cast<volatile float*>(copies[r])[v] = best;
+          }
+        }
+      }
+      // later sweeps reload what other threads (and blocks) wrote
+      if (sweep + 1 < sweeps) __threadfence_block();
+    }
+    int any;
+    if constexpr (kCluster) {
+      // a block that changed something sets the vote's slot (by parity)
+      // in every block; past the cluster barrier (which also makes every
+      // remote store of the sweeps visible) each block reads its own.  The
+      // other slot, the next vote's, was last read before this barrier and
+      // is next written past the cluster barrier, so it is cleared here
+      cg::cluster_group cluster = cg::this_cluster();
+      const int mine = __syncthreads_or(changed);
+      if (threadIdx.x == 0) votes[(vote + 1) & 1] = 0;
+      if (mine && (int)threadIdx.x < C)
+        *reinterpret_cast<volatile int*>(cluster.map_shared_rank(&votes[vote & 1], (int)threadIdx.x)) = 1;
+      cluster.sync();
+      any = *reinterpret_cast<volatile int*>(&votes[vote & 1]);
+    } else {
+      any = __syncthreads_or(changed);
+    }
+    if (!any) break;
+  }
+  for (int j = threadIdx.x; j < n; j += T) dist_out[(size_t)a * V + lo + j] = d[lo + j];
+  // no block leaves while another may still store into its shared memory
+  if constexpr (kCluster) cg::this_cluster().sync();
 }
 
 // Kernel 2's block state (dense_lanes_state_ints), carved from `base`
@@ -339,21 +516,41 @@ __global__ void __launch_bounds__(1024) fleet_spf_dense_kernel(
 
 }  // namespace
 
-extern "C" int openr_dense_spf_distances(const void* in_src, const void* in_w,
-                                         const void* in_ok,
-                                         const void* overloaded,
-                                         const void* roots, void* dist, int A,
-                                         int V, int K, float big,
-                                         void* stream) {
-  const size_t smem = (size_t)V * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_spf_distances_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+extern "C" int openr_dense_spf_distances(
+    const void* in_src, const void* in_w, const void* in_ok,
+    const void* overloaded, const void* roots, void* dist, void* scratch,
+    int A, int V, int K, int cluster, int cap_shared, int sweeps, float big,
+    void* stream) {
+  if (A == 0) return (int)cudaSuccess;
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) || sweeps < 1 ||
+      cap_shared < 0)
+    return (int)cudaErrorInvalidValue;
+  const int S = (V + cluster - 1) / cluster;
+  // the distances, the slice's heads and the shared records must fit
+  const size_t smem = dense_dist_fixed_ints(V, S) * 4 + (size_t)cap_shared * 8;
+  if (smem > kDenseDynamicSmem) return (int)cudaErrorInvalidValue;
+  const auto kernel =
+      cluster > 1 ? dense_spf_distances_kernel<true> : dense_spf_distances_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dense_spf_distances_kernel<<<A, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)in_src, (const float*)in_w, (const uint8_t*)in_ok,
-      (const uint8_t*)overloaded, (const int32_t*)roots, (float*)dist, V, K,
-      big);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(A * cluster));
+  cfg.blockDim = dim3((unsigned)kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const int32_t*)in_src, (const float*)in_w,
+                           (const uint8_t*)in_ok, (const uint8_t*)overloaded,
+                           (const int32_t*)roots, (float*)dist, (int2*)scratch, V, K,
+                           cluster, S, cap_shared, sweeps, big);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

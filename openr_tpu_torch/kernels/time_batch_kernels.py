@@ -64,12 +64,31 @@ call (parent, change, change, parent):
     mode); and the walls of phase (a)'s cold sweep and warm-seeded
     second generation (``LinkFailureSweep.run`` then
     ``SweepRouteSelector.run`` on fresh engines, host clock to a
-    synchronize, median of 3).
+    synchronize, median of 3);
+  * ``dense``: kernel 1 (``dense_spf_distances``) at each shape the run
+    gives it: the route build's 64 x 64 grid from node0 ([1, 4,096, 4]),
+    the 3-area world of ``chip_smoke.three_area_world`` and the KSP2
+    backbone's cold planes (``_build_wan(8192, 7)`` from core0:
+    [1, 16,384, 32]), each with its synchronous relaxation rounds, usable
+    slots and bound, per launch and per call of
+    ``spf.dense_spf_distances``; where the checkout has
+    ``spf.DENSE_CLUSTER``, at clusters of 1, 2, 4 and 8 blocks an area
+    with the records in shared memory and (a budget of 0) in the global
+    scratch, and (where it has ``spf.DENSE_SWEEPS``) at 1-16 rounds
+    between votes;
+  * ``select``: kernel 13 (``fleet_select``) at each shape the run gives
+    it, recorded from the engines on ``chip_smoke``'s worlds: (d) cold and
+    the (d) delta (the diff variant, one link raised by 7), (e) the 3-area
+    fleet and the hub of 1,025 leaves, (f) the 63-area batch of 203
+    failures and the homing set, and (h) the fat-tree fleet; each with its
+    B, P, C, A and D and bound, per launch and per call of
+    ``rs.fleet_select``; where the checkout has ``rs.SELECT_TILE_ROWS``,
+    at tiles of 16-512 rows.
 
 Run from the root of the checkout to time, naming the groups (default:
 all of them)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
@@ -150,10 +169,12 @@ def bind_ms(make, binds: int = LAUNCHES) -> float:
 
 def timed(make, launches: int = LAUNCHES):
     """ms per launch of the launch ``make()`` binds; None where the
-    checkout refuses the shape (ValueError)."""
+    checkout refuses the shape (a ValueError of its launcher, or a C
+    entry that refuses the launch: RuntimeError)."""
     try:
         launch, _ = make()
-    except ValueError:
+        launch()
+    except (ValueError, RuntimeError):
         return None
     return launch_ms(launch, launches)
 
@@ -512,6 +533,136 @@ def repair_kernel(dev) -> dict:
     return out
 
 
+def bound_ms(t_bytes: int, ops: int) -> float:
+    """The least time of the work, with ``chip_smoke``'s rates: its bytes
+    (inputs read once, outputs written once) over the HBM rate or its
+    operations over the f32 rate."""
+    import chip_smoke as cs
+
+    return max(t_bytes / cs.HBM_BYTES_PER_S, ops / cs.F32_OPS_PER_S) * 1e3
+
+
+def dense_shape(label: str, planes, out: dict) -> None:
+    """Kernel 1 on one shape: its rounds, usable slots and bound, per
+    launch and per call, and the knobs' sweep."""
+    import chip_smoke as cs
+
+    in_src, in_w, in_ok, ovl, roots = planes
+    dist = spf.dense_spf_distances_plain(*planes)
+    usable = int(spf.transit_ok(in_src, in_ok, ovl, roots).sum())
+    out[f"{label} shape"] = list(in_src.shape)
+    out[f"{label} rounds"] = cs.relax_rounds(*planes)
+    out[f"{label} usable slots"] = usable
+    out[f"{label} bound ms"] = bound_ms(cs.dense_distances_bytes(in_src, in_ok, ovl, roots, dist),
+                                        2 * usable)
+    make = lambda: spf.dense_spf_distances_launcher(*planes)  # noqa: E731
+    out[label] = timed(make)
+    out[f"{label}, per call"] = launch_ms(lambda: spf.dense_spf_distances(*planes))
+    if hasattr(spf, "DENSE_CLUSTER"):
+        out[f"{label} rule cluster"] = spf.dense_cluster_size(in_src.shape[1], in_src.shape[2])
+        sweep(make, label, {"DENSE_CLUSTER": (1, 2, 4, 8),
+                            "MAX_SHARED_BYTES": (spf.MAX_SHARED_BYTES, 0)}, out)
+        sweep(make, label, {"DENSE_CLUSTER": (1, 4, 8), "DENSE_SWEEPS": (1, 2, 4, 8, 16)}, out)
+
+
+def dense_kernel(dev) -> dict:
+    import chip_smoke as cs
+
+    fields = ("in_src", "in_w", "in_ok", "overloaded", "roots")
+    out = {}
+    for label, areas, me in (
+        ("dense_spf_distances (grid)", {"0": link_state(topology.grid_edges(64), "node0")}, "node0"),
+        ("dense_spf_distances (3-area)", *cs.three_area_world()[::2]),
+        ("dense_spf_distances (g) cold", {"0": link_state(topology._build_wan(8192, 7), "core0")},
+         "core0"),
+    ):
+        enc = csr.encode_multi_area(areas, me)
+        dense_shape(label, tables_from_numpy([getattr(enc, k) for k in fields], dev), out)
+    return out
+
+
+def recorded_selects(dev) -> dict:
+    """label -> (args, kwargs) of kernel 13's call (the largest where a run
+    makes several) in each phase of ``chip_smoke`` that runs it."""
+    import chip_smoke as cs
+    from openr_tpu_torch.decision import whatif_api
+    from openr_tpu_torch.decision.fleet import FleetRibEngine
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.ops import fleet_tables
+    from openr_tpu_torch.types import PrefixEntry
+
+    calls = []
+    real = fleet_tables.fleet_select
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    def take(run):
+        calls.clear()
+        run()
+        torch.cuda.synchronize()
+        return max(calls, key=lambda c: c[0][0].shape[0] * c[0][4].shape[0])
+
+    fleet_tables.fleet_select = record
+    out = {}
+    try:
+        areas, ps, _nodes = cs.fleet_world()
+        eng = FleetRibEngine(SpfSolver("node0"), device=dev)
+        out["(d) cold"] = take(lambda: eng.fleet_summary(areas, ps, 1))
+        areas2, ps2, _ = cs.fleet_world(metric_bump=7)
+        out["(d) delta"] = take(lambda: eng.fleet_summary(areas2, ps2, 2))
+        a3, ps3, me = cs.three_area_world()
+        out["(e) 3-area"] = take(
+            lambda: FleetRibEngine(SpfSolver(me), device=dev).fleet_summary(a3, ps3, 1))
+        hub = link_state([("hub", f"leaf{i}", 1) for i in range(cs.HUB_LEAVES)], "hub")
+        hub_ps = PrefixState()
+        for i in range(64):
+            hub_ps.update_prefix(f"leaf{i}", "0", PrefixEntry(f"10.3.{i}.0/24"))
+        out["(e) hub"] = take(
+            lambda: FleetRibEngine(SpfSolver("hub"), device=dev).fleet_summary({"0": hub}, hub_ps, 1))
+        am, psm, mm = cs.multiarea_world()
+        enc = csr.encode_multi_area(am, mm)
+        by_area = dict(zip(enc.areas, enc.topos))
+        singles = [(l.n1, l.n2) for a in ("0", "metro0") for l in by_area[a].links]
+        homing = [(l.n1, l.n2) for l in by_area["0"].links
+                  if topology.wan_area_of(l.n1) == "metro0" or topology.wan_area_of(l.n2) == "metro0"]
+        weng = whatif_api.MultiAreaWhatIfEngine(SpfSolver(mm), device=dev)
+        out["(f) singles"] = take(lambda: weng.run(singles, am, psm, 1))
+        out["(f) homing set"] = take(lambda: weng.run(homing, am, psm, 1, simultaneous=True))
+        af, psf, _ = cs.fattree_world()
+        out["(h) fat-tree"] = take(
+            lambda: FleetRibEngine(SpfSolver("rsw0_0"), device=dev).fleet_summary(af, psf, 1))
+    finally:
+        fleet_tables.fleet_select = real
+    return out
+
+
+def select_kernel(dev) -> dict:
+    import chip_smoke as cs
+    from openr_tpu_torch.ops import route_select as rs
+
+    out = {}
+    for label, (args, kw) in recorded_selects(dev).items():
+        key = f"fleet_select {label}"
+        B, A, _V = args[0].shape
+        P, C = args[4].shape
+        D = args[1].shape[-1]
+        launch, outs = rs.fleet_select_launcher(*args, **kw)
+        out[f"{key} B,P,C,A,D"] = [B, P, C, A, D]
+        # the bound counts the winners' cells: the kernel's outputs (equal
+        # to the plain version's, which chip_smoke holds it to) name them
+        launch()
+        out[f"{key} bound ms"] = bound_ms(cs.select_bytes(args, kw, outs),
+                                          B * cs.select_ops(P, C, A, D))
+        out[key] = launch_ms(launch)
+        out[f"{key}, per call"] = launch_ms(lambda: rs.fleet_select(*args, **kw))
+        make = lambda: rs.fleet_select_launcher(*args, **kw)  # noqa: E731
+        sweep(make, key, {"SELECT_TILE_ROWS": (16, 32, 64, 128, 256, 512)}, out, mod=rs)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_batch_kernels: no CUDA device available", file=sys.stderr)
@@ -523,7 +674,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree", "flagship",
-                              "repair"]
+                              "repair", "dense", "select"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
@@ -541,6 +692,10 @@ def main() -> int:
         out.update(flagship_kernel(dev))
     if "repair" in groups:
         out.update(repair_kernel(dev))
+    if "dense" in groups:
+        out.update(dense_kernel(dev))
+    if "select" in groups:
+        out.update(select_kernel(dev))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -59,13 +59,17 @@ I32_MAX = 2**31 - 1
 #: the kernel holds a row's candidate sets as 64-bit masks
 MAX_KERNEL_CANDIDATES = 64
 
+#: prefix rows per block (tile) of kernel 13; None: by the rule of
+#: :func:`fleet_select_tile_rows`
+SELECT_TILE_ROWS = None
+
 #: the ctypes argument types of the C entry points of this module's
 #: kernels (``openr_<name>``), in order: pointers (and the stream) as
 #: c_void_p, then the ints and BIG
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MULTI_AREA_SELECT_ARGTYPES = [_P] * 16 + [_I] * 6 + [_F, _P]
 MULTI_AREA_SELECT_DELTA_ARGTYPES = [_P] * 22 + [_I] * 6 + [_F, _P]
-FLEET_SELECT_ARGTYPES = [_P] * 21 + [_I] * 7 + [_F, _P]
+FLEET_SELECT_ARGTYPES = [_P] * 21 + [_I] * 8 + [_F, _P]
 BATCHED_SELECT_ROUTES_ARGTYPES = [_P] * 17 + [_I] * 5 + [_F, _P]
 
 
@@ -464,6 +468,21 @@ def fleet_select_plain(
     return (*outs, changed)
 
 
+def fleet_select_tile_rows(B: int, P: int, A: int, sms: int) -> int:
+    """Prefix rows per block of kernel 13 (``SELECT_TILE_ROWS`` where it is
+    set): the most, up to 128, whose winner masks and lane flags
+    (``fleet_select_smem``: 8 bytes a row and 12 a (row, area) pair) fit
+    24 KiB, halved (not below 16) while the B * ceil(P / rows) blocks would
+    give the card's ``sms`` SMs fewer than 4 each, and at most P."""
+    if SELECT_TILE_ROWS is not None:
+        rows = int(SELECT_TILE_ROWS)
+    else:
+        rows = min(128, max(1, 24576 // (8 + 12 * A)))
+        while rows > 16 and B * -(-P // rows) < 4 * sms:
+            rows //= 2
+    return max(1, min(rows, P))
+
+
 def fleet_select_launcher(
     dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
     path_pref, source_pref, distance, cand_node_in_area, per_area_distance: bool,
@@ -471,7 +490,8 @@ def fleet_select_launcher(
 ) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
     """As :func:`multi_area_select_from_tables_launcher`, for kernel 13:
     ``(launch, (use, shortest, lanes, valid))``, and ``changed`` [B] last
-    when ``prev_*`` are given."""
+    when ``prev_*`` are given.  A block takes a tile of
+    :func:`fleet_select_tile_rows` prefix rows of one batch row."""
     if dist.dim() != 3:
         raise ValueError(f"dist must be [B, A, V], got {tuple(dist.shape)}")
     B = dist.shape[0]
@@ -494,13 +514,14 @@ def fleet_select_launcher(
                                  prev, outs):
             check_tensor(name, t, like.dtype, like.shape, dev)
         changed = torch.empty((B,), dtype=torch.bool, device=dev)
+    rows = fleet_select_tile_rows(B, P, A, torch.cuda.get_device_properties(dev).multi_processor_count)
     fn = function("route_select", "openr_fleet_select", FLEET_SELECT_ARGTYPES)
     ins = (dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
            drain_metric, path_pref, source_pref, distance, cand_node_in_area)
     args = (
         *(ptr(t) for t in ins), *(ptr(o) for o in outs),
         *(None if t is None else ptr(t) for t in (*prev, changed)),
-        B, P, C, A, V, D, int(bool(per_area_distance)), BIG, stream(dev),
+        B, P, C, A, V, D, int(bool(per_area_distance)), rows, BIG, stream(dev),
     )
 
     def launch() -> None:

@@ -144,6 +144,24 @@ def dense_spf_nexthop_lanes_plain(
 
 #: the kernels keep one area's f32 distances in shared memory
 MAX_KERNEL_NODES = 232448 // 4
+#: the most nodes kernel 1 takes: each block of its cluster of 8 holds
+#: the area's distances and its slice's heads in shared memory
+#: (``dense_dist_fixed_bytes`` at 45,474 nodes fits, at 45,475 does not)
+DENSE_MAX_NODES = 45474
+#: dynamic shared memory a block may hold beside its few static bytes
+BLOCK_SHARED_BYTES = 232448 - 256
+#: blocks per area of kernel 1 (a cluster of 1, 2, 4 or 8); None: by the
+#: rule of :func:`dense_cluster_size`
+DENSE_CLUSTER = None
+#: in-slots a block of kernel 1 takes before the rule spreads an area
+#: over more blocks: the 3-area world's small areas stay on one block
+#: (a cluster only adds its barrier), the grid and the KSP2 backbone go
+#: to 8 (PERF.md)
+DENSE_BLOCK_SLOTS = 2048
+#: relaxation rounds kernel 1 runs between two votes: 4 balances the
+#: grid, which gains from more, and the KSP2 backbone, which loses
+#: (PERF.md)
+DENSE_SWEEPS = 4
 
 
 def _check_planes(in_src, in_w, in_ok, overloaded, roots, batch=None):
@@ -164,6 +182,46 @@ def _check_planes(in_src, in_w, in_ok, overloaded, roots, batch=None):
     return A, V, K, dev
 
 
+def dense_cluster_size(V: int, K: int) -> int:
+    """Kernel 1's blocks per area (a thread block cluster), by the rule:
+    the fewest of 1, 2, 4 and 8 at which each block's share of the plane's
+    in-slots (``V * K``, the most the packed records can hold; the usable
+    count is known only on the card) stays within ``DENSE_BLOCK_SLOTS``;
+    ``DENSE_CLUSTER`` where it is set.  (Where the share fits, so does
+    each block's fixed state: at most 8 * 2,048 nodes.)"""
+    if DENSE_CLUSTER is not None:
+        return int(DENSE_CLUSTER)
+    c = 1
+    while c < 8 and V * K > c * DENSE_BLOCK_SLOTS:
+        c *= 2
+    return c
+
+
+def dense_dist_fixed_bytes(V: int, S: int) -> int:
+    """Kernel 1's fixed block state (``dense_dist_fixed_ints``): the area's
+    distances (the slice's usable-slot masks while it packs), the slice's
+    heads {first record, in-degree}, each 32-vertex group's first record
+    and the scan counts of its 1,024 threads, in 16-byte words."""
+    return 4 * _words16(4 * (V + V % 2 + 2 * S + (S + 31) // 32 + 1 + 1024 + 1))
+
+
+def dense_distances_layout(A: int, V: int, K: int, cluster: int):
+    """``(S, cap_shared, scratch_records)`` of kernel 1: the slice of each
+    block (``S = ceil(V / cluster)`` vertices), the records (8 bytes each)
+    its shared memory holds beside its fixed state within
+    ``MAX_SHARED_BYTES``, and the records of the global scratch for the
+    blocks whose records exceed that (a row of 32 per slot of each
+    32-vertex group, ``ceil(S / 32) * 32 * K`` a block; 0 where no block
+    can).  The C entry refuses a fixed state past shared memory."""
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"cluster {cluster} must be 1, 2, 4 or 8")
+    S = -(-V // cluster)
+    most = -(-S // 32) * 32 * K
+    budget = min(MAX_SHARED_BYTES, BLOCK_SHARED_BYTES) - dense_dist_fixed_bytes(V, S)
+    cap = min(most, max(0, budget // 8))
+    return S, cap, 0 if cap >= most else A * cluster * most
+
+
 def dense_spf_distances_launcher(
     in_src, in_w, in_ok, overloaded, roots
 ) -> Tuple[Callable[[], None], torch.Tensor]:
@@ -171,16 +229,25 @@ def dense_spf_distances_launcher(
 
     Returns ``(launch, dist)``: each ``launch()`` enqueues the kernel on
     the current stream (no synchronize), writes ``dist`` [A, V] and counts
-    one launch."""
+    one launch.  Each area runs on ``dense_cluster_size`` blocks, whose
+    packed records sit in shared memory where they fit
+    (:func:`dense_distances_layout`), else in a scratch held here."""
     A, V, K, dev = _check_planes(in_src, in_w, in_ok, overloaded, roots)
+    if V > DENSE_MAX_NODES:
+        raise ValueError(f"{V} nodes exceed kernel 1's {DENSE_MAX_NODES}")
+    cluster = dense_cluster_size(V, K)
+    _S, cap, records = dense_distances_layout(A, V, K, cluster)
+    scratch = torch.empty(max(1, 2 * records), dtype=torch.int32, device=dev)
     dist = torch.empty((A, V), dtype=torch.float32, device=dev)
     fn = function("spf_dense", "openr_dense_spf_distances", DENSE_SPF_DISTANCES_ARGTYPES)
     args = (
         ptr(in_src), ptr(in_w), ptr(in_ok), ptr(overloaded), ptr(roots),
-        ptr(dist), A, V, K, BIG, stream(dev),
+        ptr(dist), ptr(scratch) if records else None, A, V, K, cluster, cap,
+        DENSE_SWEEPS, BIG, stream(dev),
     )
 
-    def launch() -> None:
+    # the default argument keeps the scratch alive for every later launch
+    def launch(_scratch=scratch) -> None:
         if A == 0:
             return
         check_launch("dense_spf_distances", fn(*args))
@@ -898,7 +965,7 @@ def masked_state_bytes(V: int, E: int, cap: int, threads: int) -> int:
 #: kernels (``openr_<name>``), in order: pointers (and the stream) as
 #: c_void_p, then the ints and BIG
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-DENSE_SPF_DISTANCES_ARGTYPES = [_P] * 6 + [_I] * 3 + [_F, _P]
+DENSE_SPF_DISTANCES_ARGTYPES = [_P] * 7 + [_I] * 6 + [_F, _P]
 DENSE_SPF_NEXTHOP_LANES_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _P]
 WARM_SPF_DISTANCES_ARGTYPES = [_P] * 11 + [_I] * 3 + [_F, _P]
 SPF_NEXTHOP_LANES_RESET_ARGTYPES = [_P] * 14 + [_I] * 4 + [_F, _P]

@@ -1333,3 +1333,191 @@ def test_spf_and_select_enqueues_without_a_host_sync(card):
     assert {k for k, v in LAUNCHES.items() if v} == {"batched_spf", "batched_select_routes"}
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _dense_world(world):
+    """(areas, me) of kernel 1's worlds: the grid and multi-area worlds of
+    ``_areas``; a 600-node WAN with an overloaded transit node and a leaf
+    whose only neighbour is overloaded (no usable in-slot but its own
+    root's); and a grid whose root itself is overloaded (it still
+    transits)."""
+    if world in ("grid", "multiarea_isolated"):
+        return _areas(world)
+    me = "node0"
+    if world == "wan":
+        edges = random_connected_edges(600, 1200, seed=5) + [("node7", "leaf", 3)]
+        drains = dict(overloaded=["node7", "node40"])
+    else:  # overloaded_root
+        edges = grid_edges(9)
+        drains = dict(overloaded=["node0", "node10"])
+    ls = LinkState("0", me)
+    for db in build_adj_dbs(edges, **drains).values():
+        ls.update_adjacency_database(db)
+    return {"0": ls}, me
+
+
+@pytest.mark.parametrize("records", ["shared", "global"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("world", ["grid", "multiarea_isolated", "wan", "overloaded_root"])
+def test_dense_packed_kernel_on_every_path_equals_plain(card, world, cluster, records, monkeypatch):
+    """Kernel 1 as redesigned, on clusters of 1, 2, 4 and 8 blocks an
+    area, its packed records in shared memory or (a budget of 0) the global
+    scratch, against its plain version."""
+    areas, me = _dense_world(world)
+    enc = csr.encode_multi_area(areas, me)
+    in_src, in_w, in_ok, _rank, _has, ovl, roots = tables_from_numpy(
+        [getattr(enc, f) for f in FIELDS], card)
+    monkeypatch.setattr(spf, "DENSE_CLUSTER", cluster)
+    if records == "global":
+        monkeypatch.setattr(spf, "MAX_SHARED_BYTES", 0)
+    A, V, K = in_src.shape
+    _S, cap, scratch = spf.dense_distances_layout(A, V, K, cluster)
+    assert (cap == 0 and scratch > 0) == (records == "global")
+    reset_launch_counts()
+    got = spf.dense_spf_distances(in_src, in_w, in_ok, ovl, roots)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dense_spf_distances"] == 1
+    want = spf.dense_spf_distances_plain(in_src, in_w, in_ok, ovl, roots)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sweeps", [1, 3])
+@pytest.mark.parametrize("cluster", [1, 4])
+@pytest.mark.parametrize("world", ["grid", "wan"])
+def test_dense_packed_kernel_with_rounds_between_votes_equals_plain(card, world, cluster, sweeps,
+                                                                     monkeypatch):
+    """Kernel 1 with 1 and 3 relaxation rounds between two votes (with 3,
+    the threads of a block, and the blocks of a cluster, do not wait for
+    each other between them) against its plain version."""
+    areas, me = _dense_world(world)
+    enc = csr.encode_multi_area(areas, me)
+    in_src, in_w, in_ok, _rank, _has, ovl, roots = tables_from_numpy(
+        [getattr(enc, f) for f in FIELDS], card)
+    monkeypatch.setattr(spf, "DENSE_CLUSTER", cluster)
+    monkeypatch.setattr(spf, "DENSE_SWEEPS", sweeps)
+    got = spf.dense_spf_distances(in_src, in_w, in_ok, ovl, roots)
+    want = spf.dense_spf_distances_plain(in_src, in_w, in_ok, ovl, roots)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2])
+def test_dense_packed_kernel_at_the_backbone_shape_equals_plain(card, cluster, monkeypatch):
+    """Kernel 1 at the KSP2 backbone's cold planes (V = 16,384, K = 32, 4 %
+    of the slots usable): the rule's cluster of 8, whose blocks' records
+    fit shared memory once packed, and clusters of 1 and 2 (records in
+    the global scratch, or packed into shared memory), against its plain
+    version."""
+    enc = csr.encode_multi_area({"0": _backbone()}, "core0")
+    in_src, in_w, in_ok, _rank, _has, ovl, roots = tables_from_numpy(
+        [getattr(enc, f) for f in FIELDS], card)
+    A, V, K = in_src.shape
+    assert (V, K) == (16384, 32)
+    if cluster is None:
+        assert spf.dense_cluster_size(V, K) == 8
+    monkeypatch.setattr(spf, "DENSE_CLUSTER", cluster)
+    reset_launch_counts()
+    got = spf.dense_spf_distances(in_src, in_w, in_ok, ovl, roots)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dense_spf_distances"] == 1
+    want = spf.dense_spf_distances_plain(in_src, in_w, in_ok, ovl, roots)
+    assert torch.equal(got, want)
+
+
+#: (D, C, A, P) of kernel 13's tile cases: lane widths 1-33 (vector widths
+#: 1, 4 and 16, and a tail byte), 1-64 candidates, 1, 3 and 63 areas
+TILE_CASES = [(1, 1, 1, 300), (4, 4, 3, 517), (17, 64, 1, 200), (32, 4, 1, 1000),
+              (33, 4, 3, 301), (8, 4, 63, 90)]
+
+
+@pytest.mark.parametrize("tile", [None, 7])
+@pytest.mark.parametrize("diff", [False, True])
+@pytest.mark.parametrize("per_area", [False, True])
+@pytest.mark.parametrize("case", TILE_CASES, ids=[f"D{d}-C{c}-A{a}" for d, c, a, _p in TILE_CASES])
+def test_fleet_select_tile_kernel_equals_plain(card, case, per_area, diff, tile, monkeypatch):
+    """Kernel 13 as redesigned (a block per tile of prefix rows) against its
+    plain version: lane widths 1-33, 1-64 candidates, 1-63 areas, the
+    rule's tile and tiles of 7 rows (a tail tile), winner rows holding the
+    -128 fill, the diff against a perturbed previous generation."""
+    D, C, A, P = case
+    B = 4
+    rows = [_select_inputs(seed, A=A, V=40, D=D, P=P, C=C) for seed in range(B)]
+    dist = np.stack([r[0] for r in rows])
+    nh = np.stack([r[1] for r in rows])
+    args = tables_from_numpy((dist, nh, *rows[0][2:]), card)
+    monkeypatch.setattr(rs, "SELECT_TILE_ROWS", tile)
+    kw = {}
+    if diff:
+        base = rs.fleet_select_plain(*args, per_area)
+        prev = [t.clone() for t in base]
+        prev[2][1, P - 1, A - 1, D - 1] = ~prev[2][1, P - 1, A - 1, D - 1]
+        prev[3][3, 0, 0] = ~prev[3][3, 0, 0]
+        kw = dict(zip(("prev_use", "prev_shortest", "prev_lanes", "prev_valid"), prev))
+    reset_launch_counts()
+    got = rs.fleet_select(*args, per_area, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fleet_select"] == 1
+    want = rs.fleet_select_plain(*args, per_area, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if diff:
+        assert got[4].tolist() == [False, True, False, True]
+    assert bool(want[3].any()) and bool((args[1] == -128).any())
+
+
+def test_fleet_select_tile_kernel_on_unaligned_lanes_equals_plain(card):
+    """Kernel 13 where the lane table starts off a 16-byte boundary (a view
+    one byte into its storage): the kernel drops to a byte a thread."""
+    rows = [_select_inputs(seed, A=1, V=40, D=32, P=400, C=4) for seed in range(3)]
+    dist = np.stack([r[0] for r in rows])
+    nh = np.stack([r[1] for r in rows])
+    args = tables_from_numpy((dist, nh, *rows[0][2:]), card)
+    flat = torch.empty(args[1].numel() + 1, dtype=torch.int8, device=card)
+    shifted = flat[1:].view(args[1].shape)
+    shifted.copy_(args[1])
+    args = (args[0], shifted, *args[2:])
+    got = rs.fleet_select(*args, False)
+    want = rs.fleet_select_plain(*args, False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _star_planes(V, dev):
+    """Dense planes of one area: every node's one in-slot from node 0."""
+    return (torch.zeros((1, V, 1), dtype=torch.int32, device=dev),
+            torch.ones((1, V, 1), dtype=torch.float32, device=dev),
+            torch.ones((1, V, 1), dtype=torch.bool, device=dev),
+            torch.zeros((1, V), dtype=torch.bool, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+
+
+def test_dense_packed_kernel_at_its_node_limit_and_past_it(card, monkeypatch):
+    """Kernel 1 at ``DENSE_MAX_NODES`` (the rule's cluster of 8) equals its
+    plain version; one node more is refused by the launcher, and a forced
+    cluster whose blocks' fixed state passes shared memory by the C
+    entry."""
+    planes = _star_planes(spf.DENSE_MAX_NODES, card)
+    got = spf.dense_spf_distances(*planes)
+    assert torch.equal(got, spf.dense_spf_distances_plain(*planes))
+    with pytest.raises(ValueError):
+        spf.dense_spf_distances(*_star_planes(spf.DENSE_MAX_NODES + 1, card))
+    monkeypatch.setattr(spf, "DENSE_CLUSTER", 1)
+    with pytest.raises(RuntimeError):
+        spf.dense_spf_distances(*_star_planes(30000, card))
+
+
+def test_fleet_select_tile_kernel_refuses_a_tile_past_shared_memory(card, monkeypatch):
+    """Kernel 13 over 63 areas: a tile of 256 rows (191 KB of winner masks
+    and lane flags) equals its plain version; the C entry refuses one of
+    512 (391 KB)."""
+    rows = [_select_inputs(seed, A=63, V=40, D=8, P=600, C=4) for seed in range(2)]
+    dist = np.stack([r[0] for r in rows])
+    nh = np.stack([r[1] for r in rows])
+    args = tables_from_numpy((dist, nh, *rows[0][2:]), card)
+    monkeypatch.setattr(rs, "SELECT_TILE_ROWS", 256)
+    got = rs.fleet_select(*args, False)
+    want = rs.fleet_select_plain(*args, False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    monkeypatch.setattr(rs, "SELECT_TILE_ROWS", 512)
+    with pytest.raises(RuntimeError):
+        rs.fleet_select(*args, False)
