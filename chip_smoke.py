@@ -614,6 +614,8 @@ class KernelReport:
         self.lane_moves = 0
         #: the lane kernel's ms from an all-zero seed, where first timed
         self.zero_seed_ms = None
+        #: the label of the build whose kernels are being held and timed
+        self.tick = None
         #: the delta tick's changed-row gather (ms, rows, bytes, bound_ms)
         self.gather = None
         #: (device ms, host-issue ms) per call of a kernel's entry point as
@@ -743,22 +745,30 @@ class KernelReport:
         )
         if not timed:
             return
-        if self.zero_seed_ms is None:
-            self.zero_seed_ms = per_launch_ms(launch_z)[0]
         A, E = src.shape
         r_d = int(spf.warm_spf_distances_plain(*seg, d0, unroll=1)[1].max())
-        r_l = int(spf.spf_nexthop_lanes_reset_plain(*seg, dist_p, nh0, D, unroll=1)[1].max())
         usable, lanes = segment_relaxations(src, ok, ovl, roots, D)
         self.time(
             "warm_spf_distances", launch_d, p_dist,
             nbytes(*seg, d0, dist_p), 2 * int(usable.sum()),
             nbytes(src, w, ok) + 2 * nbytes(dist_p), r_d,
         )
-        self.time(
-            "spf_nexthop_lanes_reset", launch_n, p_nh,
-            nbytes(*seg, dist_p, nh0, nh_p), int((usable * lanes).sum()),
-            nbytes(src) + A * E + 2 * nbytes(nh_p), r_l,
-        )
+        # kernel 5 at this tick, its seed and an all-zero one; the kernel
+        # never reads the seed, so no seed byte is in its bound
+        name = "spf_nexthop_lanes_reset"
+        first = name not in self.timing
+        for seed, launch, what in ((nh0, launch_n, ""), (zero, launch_z, " from an all-zero seed")):
+            r_l = int(spf.spf_nexthop_lanes_reset_plain(*seg, dist_p, seed, D, unroll=1)[1].max())
+            key = name if first and not what else f"{name} at {self.tick}{what}"
+            self.time(
+                name, launch, lambda seed=seed: spf.spf_nexthop_lanes_reset_plain(*seg, dist_p, seed, D),
+                nbytes(*seg, dist_p, nh_p), int((usable * lanes).sum()),
+                nbytes(src) + A * E + 2 * nbytes(nh_p), r_l, key=key,
+            )
+            self.per_call[f"{name} at {self.tick}{what}, spf.spf_nexthop_lanes_reset"] = (
+                per_launch_ms(lambda seed=seed: spf.spf_nexthop_lanes_reset(*seg, dist_p, seed, D)))
+            if what and self.zero_seed_ms is None:
+                self.zero_seed_ms = self.timing[key]["ms"]
 
     def _check_sub(self, args, out, timed):
         def p_sub():
@@ -907,6 +917,7 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
           f"launches={ {k: v for k, v in counts.items() if v} } routes={len(db.unicast_routes)} "
           f"changed={shown}", flush=True)
 
+    report.tick = label
     report.kernel_checks(kernel_be, timed)
     if "warm" in kernel_be.io or "sub" in kernel_be.io:
         warm_tables_equal_cold(kernel_be)
@@ -1054,7 +1065,7 @@ def steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
     set_metric(areas, dbs, b, a, 1)
     before = kernel_be.num_warm_selective_builds
     drive(report, kernel_be, plain_be, oracle, areas, ps, f"restore:{a}-{b}",
-          expect=warm_kernels | {SELECT}, hints=warm, **common)
+          expect=warm_kernels | {SELECT}, hints=warm, timed=True, **common)
     check(kernel_be.num_warm_selective_builds == before + 1, "restore did not re-select selectively")
     check(report.lane_moves > 0, "restore: no lane moved from its warm seed")
 
@@ -1179,27 +1190,37 @@ def hold_whatif(report, rec):
         report.held("compact_deltas", list(zip(outs, _plain_compact(*args, **kw))))
 
 
+def time_sweep(report, key, label, args):
+    """Hold kernel 8 against its plain version on ``args`` and time it
+    under ``key``, per launch and per call of
+    ``spf.sweep_spf_link_failures``, with its bound from these inputs: one
+    relaxation per usable edge per snapshot (its failed link's edges off)
+    and a max per lane a root out-edge can seed; inputs read once, outputs
+    written once."""
+    src, dst, w, ok, li, failed, ovl, root, D = args
+    want_d, want_n, r_d, r_l = spf.sweep_spf_link_failures_plain(*args)
+    B = failed.shape[0]
+    transit = ~ovl | (torch.arange(ovl.shape[0], device=ovl.device) == root)
+    base = ok & transit[src.long()]
+    usable = B * int(base.sum()) - int((base[:, None] & (li[:, None] == failed[None])).sum())
+    lanes = min(int((src == root).sum()), D)
+    launch, outs = spf.sweep_spf_link_failures_launcher(*args)
+    report.time(
+        "sweep_spf_link_failures", launch, lambda: spf.sweep_spf_link_failures_plain(*args),
+        nbytes(src, dst, w, ok, li, failed, ovl, outs[0], outs[1]), (2 + lanes) * usable,
+        nbytes(src, w, ok, li) + 2 * nbytes(outs[0]), r_d + r_l, key=key,
+    )
+    report.held("sweep_spf_link_failures", [(outs[0], want_d), (outs[1], want_n)])
+    report.per_call[f"sweep_spf_link_failures at {label} (B = {B}), spf.sweep_spf_link_failures"] = (
+        per_launch_ms(lambda: spf.sweep_spf_link_failures(*args)))
+
+
 def time_whatif(report, rec):
     """Time each of kernels 8-11 on the first call ``rec`` holds for it,
     with its bound from these inputs."""
     if rec.calls["sweep_spf_link_failures"] and "sweep_spf_link_failures" not in report.timing:
-        args, kw, outs = rec.calls["sweep_spf_link_failures"][0]
-        src, dst, w, ok, li, failed, ovl, root, D = args
-        _d, _n, r_d, r_l = spf.sweep_spf_link_failures_plain(*args)
-        E, B = src.shape[0], failed.shape[0]
-        # one relaxation per usable edge per snapshot (its failed link's
-        # edges off), a max per lane a root out-edge can seed
-        transit = ~ovl | (torch.arange(ovl.shape[0], device=ovl.device) == root)
-        base = ok & transit[src.long()]
-        usable = B * int(base.sum()) - int((base[:, None] & (li[:, None] == failed[None])).sum())
-        lanes = min(int((src == root).sum()), D)
-        launch, _ = spf.sweep_spf_link_failures_launcher(*args)
-        report.time(
-            "sweep_spf_link_failures", launch,
-            lambda: spf.sweep_spf_link_failures_plain(*args),
-            nbytes(src, dst, w, ok, li, failed, ovl, outs[0], outs[1]), (2 + lanes) * usable,
-            nbytes(src, w, ok, li) + 2 * nbytes(outs[0]), r_d + r_l,
-        )
+        args, _kw, _outs = rec.calls["sweep_spf_link_failures"][0]
+        time_sweep(report, "sweep_spf_link_failures", "the base solve", args)
     if rec.calls["repair_sweep"] and "repair_sweep" not in report.timing:
         args, kw, outs = max(rec.calls["repair_sweep"], key=lambda c: c[0][5].shape[0])
         _d, _n, r_d, r_l = _plain_repair(*args, **kw)
@@ -1324,15 +1345,16 @@ def whatif_phases(report, rng, grid_areas, grid_ps):
     # the repair tables against the cold kernel's, on COLD_HOLD failures
     hold = fails[:COLD_HOLD]
     r_dist, r_nh, _, _ = rs_engine.solve(hold)
-    c_dist, c_nh, _, _ = spf.sweep_spf_link_failures(
-        eng._src, eng._dst, eng._w, eng._edge_ok, eng._link_index,
-        torch.from_numpy(hold).to(eng.device), eng._overloaded, eng.root_id, eng.D,
-    )
+    hold_args = (eng._src, eng._dst, eng._w, eng._edge_ok, eng._link_index,
+                 torch.from_numpy(hold).to(eng.device), eng._overloaded, eng.root_id, eng.D)
+    c_dist, c_nh, _, _ = spf.sweep_spf_link_failures(*hold_args)
     bits = unpack_bits_last(r_nh, COLD_HOLD).permute(0, 2, 1).to(torch.int8)
     check(torch.equal(r_dist, c_dist) and torch.equal(bits, (c_nh > 0).to(torch.int8)),
           "repair tables != cold sweep tables")
     moved = lane_bits_on_affected(rs_engine, hold)
     check(moved > 0, "no lane moved from the warm seed")
+    time_sweep(report, f"sweep_spf_link_failures at the repair hold ({COLD_HOLD} failures)",
+               "the repair hold", hold_args)
     print(f"[whatif:headline-cold] repair tables == cold sweep tables on {COLD_HOLD} failures; "
           f"{moved} lane bits set on affected vertices (zero in the warm seed)", flush=True)
 
@@ -2282,12 +2304,14 @@ def flagship_phase(report, rng):
     src, dst, w, ok, li, ovl0 = tables_from_numpy(
         [topo.src, topo.dst, topo.w, topo.edge_ok, topo.link_index, topo.overloaded], dev)
     (fails_t,) = tables_from_numpy([failed[:L]], dev)
-    d8, nh8, _, _ = spf.sweep_spf_link_failures(src, dst, w, ok, li, fails_t, ovl0,
-                                                topo.node_id("node0"), D)
+    cross_args = (src, dst, w, ok, li, fails_t, ovl0, topo.node_id("node0"), D)
+    d8, nh8, _, _ = spf.sweep_spf_link_failures(*cross_args)
     check(torch.equal(dist[:L], d8.t()) and torch.equal(nh[:L], nh8.permute(1, 0, 2)),
           "flagship rows != the cold sweep kernel's tables")
     print(f"[flagship] rows 0..{L - 1} == kernel 8 (sweep_spf_link_failures) from node0, "
           f"transposed", flush=True)
+    time_sweep(report, f"sweep_spf_link_failures at the flagship cross-check ({L} failures)",
+               "the flagship cross-check", cross_args)
 
     t0 = time.perf_counter()
     picks, checked = hold_flagship_oracle(rng, edges, ls, topo, cands, rows, outs)

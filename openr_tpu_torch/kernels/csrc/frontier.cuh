@@ -133,6 +133,86 @@ __device__ void or_lanes(int8_t* nh, const int32_t* moving, int num_moving,
   }
 }
 
+// The OR rounds of kernels 2 and 5 over bit-word lanes: words [V * W]
+// (W uint32 per vertex, bit l % 32 of word l / 32 is lane l), the moving
+// vertices (moving[k], k < num_moving) ORing, over their first Wl words
+// (the words a seed can reach), the words of their propagating sources
+// psrc[poff[k], poff[k + 1]), in place, `sweeps` rounds between two votes,
+// until no thread changes anything in a vote's rounds (the words were
+// then constant while every item was visited).  A changed word i is
+// written by store(i, x) (into every copy of the words, for kernel 5's
+// cluster); vote(changed) is the block's (or cluster's) vote.  The words
+// may have been set by atomics, by other blocks or in a global scratch, so
+// they are read volatile.  Returns the rounds run.
+template <class Store, class Vote>
+__device__ int or_word_rounds(const volatile uint32_t* words, int W, int Wl,
+                              const int32_t* moving, int num_moving, const int32_t* poff,
+                              const int32_t* psrc, int V, int sweeps, Store store, Vote vote) {
+  const int n = num_moving * Wl;
+  int rounds = 0;
+  for (int round = 0; round < V; round += sweeps) {
+    int changed = 0;
+    for (int sweep = 0; sweep < sweeps; ++sweep) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int k = Wl == 1 ? i : i / Wl;
+        const int j = i - k * Wl;
+        const size_t at = (size_t)moving[k] * W + j;
+        const uint32_t cur = words[at];
+        uint32_t x = cur;
+        for (int p = poff[k]; p < poff[k + 1]; ++p) x |= words[(size_t)psrc[p] * W + j];
+        if (x != cur) {
+          store(at, x);
+          changed = 1;
+        }
+      }
+      ++rounds;
+    }
+    if (!vote(changed)) break;
+  }
+  return rounds;
+}
+
+// Kernel 2's rounds: one block, one round a vote; ends with a barrier.
+__device__ inline int or_word_rounds(volatile uint32_t* words, int W, int Wl,
+                                     const int32_t* moving, int num_moving,
+                                     const int32_t* poff, const int32_t* psrc, int V) {
+  return or_word_rounds(
+      words, W, Wl, moving, num_moving, poff, psrc, V, 1,
+      [&](size_t at, uint32_t x) { words[at] = x; },
+      [](int changed) { return __syncthreads_or(changed); });
+}
+
+// The int8 lane table [V, D] of kernels 2 and 5 from the bit words, the
+// rows of vertices [lo, hi) written once over the block: -128 where has(v)
+// is false (the vertex is absent from the padded edge list), else the bit;
+// 4 lanes a store where D allows (lanes then 4-byte aligned).
+template <class Has>
+__device__ void write_word_lanes(int8_t* lanes, const volatile uint32_t* words,
+                                 Has has, int lo, int hi, int D) {
+  const int W = (D + 31) / 32;
+  const int T = blockDim.x;
+  if (D % 4 == 0) {
+    uint32_t* out = reinterpret_cast<uint32_t*>(lanes);
+    for (int i = lo * D / 4 + threadIdx.x; i < hi * D / 4; i += T) {
+      const int v = 4 * i / D;
+      const int l = 4 * i - v * D;
+      uint32_t x = 0x80808080u;
+      if (has(v)) {
+        const uint32_t b = (words[(size_t)v * W + (l >> 5)] >> (l & 31)) & 0xFu;
+        x = (b & 1u) | ((b & 2u) << 7) | ((b & 4u) << 14) | ((b & 8u) << 21);
+      }
+      out[i] = x;
+    }
+  } else {
+    for (int i = lo * D + threadIdx.x; i < hi * D; i += T) {
+      const int v = i / D;
+      const int l = i - v * D;
+      lanes[i] = has(v) ? (int8_t)((words[(size_t)v * W + (l >> 5)] >> (l & 31)) & 1u)
+                        : (int8_t)-128;
+    }
+  }
+}
+
 // Frontier relaxation's block state, carved from `base` (dynamic shared
 // memory, or a block's slice of a global scratch): distances [V], the
 // frontier bitmaps cur and next and cur's word ranks [ceil(V / 32)] each,

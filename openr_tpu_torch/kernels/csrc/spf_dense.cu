@@ -67,7 +67,8 @@
 // reach (lanes below 1 + the highest seeded rank), in place until a round
 // changes nothing.  The int8 table is written once at the end, spread over
 // the block (4 lanes a store where D allows): -128 where in_has is false,
-// else the bit.  Why OR is exact: a vertex's reference lanes start at 0 or
+// else the bit.  (The rounds and the writer, or_word_rounds and
+// write_word_lanes in frontier.cuh, are shared with kernel 5.)  Why OR is exact: a vertex's reference lanes start at 0 or
 // 1 where in_has holds (else -128) and rise by the int8 max over its
 // propagating sources' lanes; a propagating source is reached and is not
 // the root, so it has an in-edge on the DAG, in_has holds there and its
@@ -422,47 +423,10 @@ __global__ void __launch_bounds__(kThreads)
   // 3. OR rounds over the words of the moving vertices and only the words
   // a seed can reach; in place, as or_lanes
   const int L = lanes_used < D ? lanes_used : D;
-  const int Wl = (L + 31) / 32;
-  const int n = num_moving * Wl;
-  for (int round = 0; round < V; ++round) {
-    int changed = 0;
-    for (int i = threadIdx.x; i < n; i += T) {
-      const int k = Wl == 1 ? i : i / Wl;
-      const int j = i - k * Wl;
-      uint32_t* at = words + (size_t)moving[k] * W + j;
-      const uint32_t cur = *at;
-      uint32_t x = cur;
-      for (int p = poff[k]; p < poff[k + 1]; ++p) x |= words[(size_t)psrc[p] * W + j];
-      if (x != cur) {
-        *at = x;
-        changed = 1;
-      }
-    }
-    if (!__syncthreads_or(changed)) break;
-  }
+  or_word_rounds(words, W, (L + 31) / 32, moving, num_moving, poff, psrc, V);
   // 4. the int8 table, written once: -128 where the vertex is absent from
   // the padded edge list, else its bit (4 lanes a store where D allows)
-  if (D % 4 == 0) {
-    uint32_t* out = reinterpret_cast<uint32_t*>(lanes);
-    const int n4 = V * D / 4;
-    for (int i = threadIdx.x; i < n4; i += T) {
-      const int v = 4 * i / D;
-      const int l = 4 * i - v * D;
-      uint32_t x = 0x80808080u;
-      if (has[v]) {
-        const uint32_t b = (words[(size_t)v * W + (l >> 5)] >> (l & 31)) & 0xFu;
-        x = (b & 1u) | ((b & 2u) << 7) | ((b & 4u) << 14) | ((b & 8u) << 21);
-      }
-      out[i] = x;
-    }
-  } else {
-    for (int i = threadIdx.x; i < V * D; i += T) {
-      const int v = i / D;
-      const int l = i - v * D;
-      lanes[i] = has[v] ? (int8_t)((words[(size_t)v * W + (l >> 5)] >> (l & 31)) & 1u)
-                        : (int8_t)-128;
-    }
-  }
+  write_word_lanes(lanes, words, [&](int v) { return has[v] != 0; }, 0, V, D);
 }
 
 // Kernel 12's work on one (row, area) pair r = batch row * A + area, with

@@ -39,17 +39,15 @@
 //      the reset vertices over the sub-edge list (every in-edge of a reset
 //      vertex), every other vertex read from the previous generation.
 //
-// Design: one thread block per area, the area's distances in dynamic
-// shared memory (V <= 16384 -> at most 64 KB, hence
-// cudaFuncSetAttribute), rounds loop inside the kernel and end on a
-// block-wide changed vote, so there are no host round trips.
-//
-// Updates are in place (Gauss-Seidel), and the fixed points are the
-// reference's, bit for bit:
+// Kernels 4 and 6: one thread block per area, the area's distances in
+// dynamic shared memory (cudaFuncSetAttribute), rounds loop inside the
+// kernel and end on a block-wide changed vote, so there are no host round
+// trips.  Updates are in place (Gauss-Seidel), and the fixed points are
+// the reference's, bit for bit:
 //   * distances: from a seed d0 the relaxation converges to
 //     min_u (d0[u] + path(u -> v)) whatever the update order; integral
 //     link metrics keep every f32 sum exact.
-//   * lanes: propagating edges lie on the shortest-path DAG
+//   * kernel 6's lanes: propagating edges lie on the shortest-path DAG
 //     (d[src] + w == d[dst] < BIG with w >= 1), so they form an acyclic
 //     graph and the reset-semantics update has a unique fixed point.  By
 //     induction on DAG depth, after round k every vertex of depth < k is
@@ -58,7 +56,6 @@
 //     that is therefore the fixed point.  So no second [V, D] buffer is
 //     needed.  The round counts are telemetry and differ from the
 //     reference's synchronous counts.
-//
 // Load balance: padding edges all sit in the run of vertex V-1 (half the
 // edge list on a full node bucket), so a thread walking that run every
 // round serialises the block.  A parallel prologue records, per vertex,
@@ -66,6 +63,47 @@
 // [off[v], seg_end[v]).  The skipped tail holds disabled edges alone,
 // which contribute nothing (BIG to a distance, 0 to a lane); the run's
 // emptiness, which decides the -128 fill, is still read from off[].
+//
+// Kernel 5 is kernel 2's design (spf_dense.cu) on the segment form, an
+// area on a thread block cluster of C blocks (C = 1, 2, 4 or 8; ops/spf.py
+// reset_lanes_cluster_size: at most 512 vertices a block) of 1,024
+// threads.  Vertex v belongs to block v % C.  Each block holds the area's
+// distances and a copy of its lane words in shared memory: ceil(D / 32)
+// uint32 a vertex, bit l % 32 of word l / 32 being lane l.  The blocks
+// split the edge list in C ranges, and a thread an edge classifies every
+// in-edge once against the distances: a DAG edge out of the root sets its
+// seed bit (lane root_rank) in every block's copy, any other DAG edge
+// counts a propagating source of its head at the head's owner (atomics on
+// distributed shared memory).  Past a cluster barrier, two block scans
+// list each block's owned moving vertices (a propagating source at least)
+// and the offsets of their sources; past another, a second pass over the
+// edge ranges packs each source at its head's owner (in any order: OR
+// takes them so).  The OR rounds (or_word_rounds, frontier.cuh, shared
+// with kernel 2) run over the owned moving vertices only and only over the
+// words a seed can reach (lanes below 1 + the highest seeded rank), in
+// place, reading the block's copy and storing each changed word into
+// every copy; 8 rounds between two votes (kernel 1's cluster vote; a
+// block-wide one where C = 1), until a vote's rounds change nothing
+// anywhere.  The int8 table is written once, each block a slice of the
+// vertices from its copy, -128 where the run is empty, else the bit
+// (write_word_lanes).  The state (distances, words, scan counts) and the
+// lane lists (room for a source in every in-edge) live in shared memory
+// where they fit; else the lists, and past shared memory the whole state,
+// go to each block's slice of a global scratch (StateLayout), so every V
+// up to the port's node bound runs.  A vote's rounds in which no block
+// changed anything read a constant state, every copy equal to the
+// owners' words (the vote's barrier made every earlier store visible).
+// Why OR from the seed bits is exact from ANY seed nh0: the reference
+// iterates the reset update from nh0, and on an acyclic DAG that update
+// has one fixed point, which its loop reaches (within the DAG's depth, <
+// V rounds) and at which alone it stops.  The DAG is acyclic because
+// every usable edge has w >= 1 (the encoder refuses a non-positive metric
+// on an up link, ops/csr.py) and path sums below 2^24 are exact, so d[src]
+// < d[dst] on each DAG edge.  That one fixed point is also the least one
+// above the seeds, which OR-accumulation from the seeds alone reaches in
+// any order; a propagating source is reached and not the root, so it has
+// a usable in-edge, its lanes are 0 or 1, never -128, and the int8 max is
+// an OR of bits.  So the kernel never reads nh0.
 //
 // Kernel 14 (spf_segment_batch) is the cold segment-form solve of every
 // (batch row, area) pair in one launch.  Per row it takes the row's own
@@ -158,10 +196,12 @@
 // SM), against the bound of one relaxation per usable edge per row and
 // the [B, V, D] lane output's bytes (PERF.md).
 //
-// What bounds kernels 4-6: latency, not bytes.  Each round re-reads the
-// area's edge arrays (L2-resident at these sizes) and the loop runs for
-// the depth of the perturbed region; one block runs on 1 of the card's 132
-// SMs when A = 1.
+// What bounds kernels 4-6: latency, not bytes.  Kernels 4 and 6 re-read
+// the area's edge arrays each round (L2-resident at these sizes) and loop
+// for the depth of the perturbed region, one block on 1 of the card's 132
+// SMs when A = 1; kernel 5 runs for the depth of the DAG (126 rounds from
+// node0 on the 64 x 64 grid), each round a few shared-memory loads a
+// thread of the cluster's 8 SMs, a vote every 8 rounds.
 //
 // Traps: the seed and the unusable-edge candidate are BIG = 3.4e38, not
 // inf: BIG + w rounds to BIG and BIG + BIG is +inf, and padding weights
@@ -169,10 +209,13 @@
 // built with --use_fast_math.  int8 lanes are combined in int32 and
 // stored as int8, as the reference's int8 multiply-and-max gives them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "frontier.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -334,34 +377,209 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) rounds_out[a] = rounds;
 }
 
+// Kernel 5's block state (reset_lanes_state_ints), carved from `base`
+// (dynamic shared memory, or the area's slice of a global scratch):
+// distances [V], lane words [V * W] (W = ceil(D / 32)) and scan counts
+// [kThreads + 1]; its lane lists (lane_lists_ints(V, E): source counts,
+// the moving vertices, their offsets and a source per in-edge) follow or
+// live in the slice.
+__host__ __device__ inline size_t reset_lanes_state_ints(int V, int D) {
+  return (size_t)V + (size_t)V * ((D + 31) / 32) + kThreads + 1;
+}
+
+// blocks of kernel 5's thread block cluster per area, at most
+constexpr int kResetMaxCluster = 8;
+// OR rounds kernel 5 runs between two votes: on the grid's ticks on the
+// H100, 8 was 35-50 % faster than 1 and no slower than 16 (PERF.md)
+constexpr int kResetSweeps = 8;
+
+// Kernel 5's work for its block, its state and lists at `state` and
+// `lists` (shared memory or its slice of the scratch; shared_ints: the
+// block's dynamic shared memory).  Inlined into each branch of the kernel,
+// so where both lie in shared memory the compiler emits shared-memory
+// loads rather than generic ones.
+__device__ __forceinline__ void reset_lanes_block(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
+    const float* __restrict__ dist, const int32_t* __restrict__ seg_off,
+    const int32_t* __restrict__ root_rank, int8_t* __restrict__ nh,
+    int32_t* __restrict__ rounds_out, int32_t* scratch, int32_t* shared_ints,
+    int32_t* state, int32_t* lists, size_t state_ints, size_t slice_ints, int layout,
+    int V, int E, int D, int cshift, float big) {
+  __shared__ int lanes_used;
+  __shared__ int votes[2];
+  __shared__ uint32_t* copies[kResetMaxCluster];
+  __shared__ int32_t* rlists[kResetMaxCluster];
+  __shared__ int* used[kResetMaxCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = 1 << cshift;
+  const int rank = (int)cluster.block_rank();
+  const int a = (int)(blockIdx.x >> cshift);
+  const int T = blockDim.x;
+  const int W = (D + 31) / 32;
+  const int root = roots[a];
+  const size_t edges_at = (size_t)a * E;
+  const int32_t* esrc = src + edges_at;
+  const int32_t* edst = dst + edges_at;
+  const float* ew = w + edges_at;
+  const uint8_t* eok = edge_ok + edges_at;
+  const int32_t* erank = root_rank + edges_at;
+  const uint8_t* ovl = overloaded + (size_t)a * V;
+  const int32_t* off = seg_off + (size_t)a * (V + 1);
+  // block (a, r)'s slice of the scratch
+  const auto slice_of = [&](int r) { return scratch + ((size_t)a * C + r) * slice_ints; };
+  float* d = reinterpret_cast<float*>(state);
+  volatile uint32_t* words = reinterpret_cast<volatile uint32_t*>(state + V);
+  int32_t* counts = state + V + (size_t)V * W;
+  int32_t* count = lists;
+  int32_t* moving = count + V;
+  int32_t* poff = moving + V;
+  int32_t* psrc = poff + V + 1;
+  // counts and words are set by atomics (and may live in a global
+  // scratch), so they are read past the L1
+  const volatile int32_t* vcount = count;
+
+  if (threadIdx.x < C) {
+    const int r = threadIdx.x;
+    int32_t* base = layout == kGlobalAll ? slice_of(r) : cluster.map_shared_rank(shared_ints, r);
+    copies[r] = reinterpret_cast<uint32_t*>(base + V);
+    // block r's lane lists: count [V] (then its cursors) and psrc after
+    // them (lane_lists_ints)
+    rlists[r] = layout == kSharedAll         ? base + state_ints
+                : layout == kSharedFrontier ? slice_of(r)
+                                            : slice_of(r) + state_ints;
+    used[r] = reinterpret_cast<int*>(cluster.map_shared_rank(&lanes_used, r));
+  }
+  if (threadIdx.x < 2) votes[threadIdx.x] = 0;
+  for (int v = threadIdx.x; v < V; v += T) {
+    d[v] = dist[(size_t)a * V + v];
+    count[v] = 0;
+  }
+  for (int i = threadIdx.x; i < V * W; i += T) words[i] = 0u;
+  if (threadIdx.x == 0) lanes_used = 0;
+  // no block adds into another's words or counts before that one has
+  // cleared them
+  cluster.sync();
+  // in-edge e on the shortest-path DAG: usable (ok, its source free to
+  // transit) with d[src] + w == d[dst] < BIG; returns its source, else -1
+  const auto dag_source = [&](int e) {
+    if (!eok[e]) return -1;
+    const float dv = d[edst[e]];
+    if (dv >= big) return -1;
+    const int s = esrc[e];
+    if (ovl[s] && s != root) return -1;
+    return d[s] + ew[e] == dv ? s : -1;
+  };
+  // vertex v is owned by block v % C of the area's cluster; the blocks
+  // split the edges, block r the r-th of C contiguous ranges
+  const int chunk = (E + C - 1) / C;
+  const int e_lo = rank * chunk < E ? rank * chunk : E;
+  const int e_hi = e_lo + chunk < E ? e_lo + chunk : E;
+  // 1. every in-edge classified once, a thread an edge: a DAG edge out of
+  // the root sets its seed bit (lane root_rank) in every block's copy of
+  // the words, any other counts a propagating source of its head at the
+  // head's owner
+  for (int e = e_lo + (int)threadIdx.x; e < e_hi; e += T) {
+    const int s = dag_source(e);
+    if (s < 0) continue;
+    const int v = edst[e];
+    if (s != root) {
+      atomicAdd(rlists[v & (C - 1)] + v, 1);
+      continue;
+    }
+    const int r = erank[e];
+    if (r < D) {
+      for (int q = 0; q < C; ++q) {
+        atomicOr(copies[q] + (size_t)v * W + (r >> 5), 1u << (r & 31));
+        atomicMax(used[q], r + 1);
+      }
+    }
+  }
+  cluster.sync();
+  // 2. the owned moving vertices (a propagating source at least) and the
+  // offsets of their sources (count becomes each one's packing cursor);
+  // then, past a cluster barrier, the sources packed at their heads'
+  // owners by a second pass over the edges (OR takes them in any order)
+  const int num_moving = block_ranks(
+      counts, V, [&](int v) { return vcount[v] > 0; },
+      [&](int v, int k) {
+        if (k >= 0) moving[k] = v;
+      });
+  const int num_prop = block_offsets(
+      counts, num_moving, [&](int k) { return vcount[moving[k]]; },
+      [&](int k, int o) {
+        poff[k] = o;
+        count[moving[k]] = o;
+      });
+  if (threadIdx.x == 0) poff[num_moving] = num_prop;
+  cluster.sync();
+  for (int e = e_lo + (int)threadIdx.x; e < e_hi; e += T) {
+    const int s = dag_source(e);
+    if (s < 0 || s == root) continue;
+    const int v = edst[e];
+    int32_t* at = rlists[v & (C - 1)];
+    // psrc follows count [V], moving [V] and poff [V + 1]
+    at[3 * V + 1 + atomicAdd(at + v, 1)] = s;
+  }
+  // every source packed (and every seed set) before the rounds read them
+  cluster.sync();
+  // 3. OR rounds over the owned moving vertices' words that a seed can
+  // reach, a changed word stored into every block's copy; a vote every
+  // kResetSweeps rounds, kernel 1's where C > 1: a block that changed
+  // something sets the vote's slot (by parity) in every block, read past
+  // the cluster barrier (which also makes every remote store before it
+  // visible); the other slot, the next vote's, is cleared before that
+  // barrier
+  const int L = lanes_used < D ? lanes_used : D;
+  int vote = 0;
+  const int rounds = or_word_rounds(
+      words, W, (L + 31) / 32, moving, num_moving, poff, psrc, V, kResetSweeps,
+      [&](size_t at, uint32_t x) {
+        for (int r = 0; r < C; ++r) reinterpret_cast<volatile uint32_t*>(copies[r])[at] = x;
+      },
+      [&](int changed) {
+        const int mine = __syncthreads_or(changed);
+        if (C == 1) return mine;
+        if (threadIdx.x == 0) votes[(vote + 1) & 1] = 0;
+        if (mine && (int)threadIdx.x < C)
+          *reinterpret_cast<volatile int*>(cluster.map_shared_rank(&votes[vote & 1], (int)threadIdx.x)) = 1;
+        cluster.sync();
+        return *reinterpret_cast<volatile int*>(&votes[vote++ & 1]);
+      });
+  // 4. the int8 table, written once over the cluster (a block a slice of
+  // the vertices, from its copy): -128 where the run is empty, else the bit
+  const int part = (V + C - 1) / C;
+  const int lo = rank * part < V ? rank * part : V;
+  const int hi = lo + part < V ? lo + part : V;
+  write_word_lanes(nh + (size_t)a * V * D, words, [&](int v) { return off[v] < off[v + 1]; }, lo,
+                   hi, D);
+  if (threadIdx.x == 0 && rank == 0) rounds_out[a] = rounds;
+}
+
 __global__ void __launch_bounds__(kThreads) spf_nexthop_lanes_reset_kernel(
     const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
     const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
-    const float* __restrict__ dist, const int8_t* __restrict__ nh0,
-    const int32_t* __restrict__ seg_off, int32_t* __restrict__ seg_end,
-    const int32_t* __restrict__ root_rank, uint8_t* __restrict__ edge_class,
-    int8_t* nh, int32_t* __restrict__ rounds_out, int V, int E, int D,
-    float big) {
-  extern __shared__ float d[];  // [V] this area's distances
-  const int a = blockIdx.x;
-  const int root = roots[a];
-  const size_t edges_at = (size_t)a * E;
-  const size_t lanes_at = (size_t)a * V * D;
-  const int32_t* off = seg_off + (size_t)a * (V + 1);
-  int32_t* end = seg_end + (size_t)a * V;
-  for (int v = threadIdx.x; v < V; v += blockDim.x) d[v] = dist[(size_t)a * V + v];
-  for (int i = threadIdx.x; i < V * D; i += blockDim.x)
-    nh[lanes_at + i] = nh0[lanes_at + i];
-  enabled_run_ends(end, off, dst + edges_at, edge_ok + edges_at, V, E);
-  const FullEdges edges{edge_ok + edges_at, overloaded + (size_t)a * V, root};
-  classify_edges(edge_class + edges_at, d, off, end, src + edges_at,
-                 w + edges_at, root_rank + edges_at, edges, nullptr, V, big);
-  __syncthreads();
-  const int rounds = propagate_lanes(nh + lanes_at, edge_class + edges_at, off,
-                                     end, src + edges_at, root_rank + edges_at,
-                                     nullptr, V, D, D);
-  if (threadIdx.x == 0) rounds_out[a] = rounds;
+    const float* __restrict__ dist, const int32_t* __restrict__ seg_off,
+    const int32_t* __restrict__ root_rank, int8_t* __restrict__ nh,
+    int32_t* __restrict__ rounds_out, int32_t* scratch, size_t state_ints,
+    size_t slice_ints, int layout, int V, int E, int D, int cshift, float big) {
+  extern __shared__ int32_t shared_ints[];
+  if (layout == kSharedAll) {
+    reset_lanes_block(src, dst, w, edge_ok, overloaded, roots, dist, seg_off, root_rank, nh,
+                      rounds_out, scratch, shared_ints, shared_ints, shared_ints + state_ints,
+                      state_ints, slice_ints, layout, V, E, D, cshift, big);
+  } else {
+    const size_t at = (size_t)(blockIdx.x >> cshift) * (1 << cshift) +
+                      cg::this_cluster().block_rank();
+    int32_t* slice = scratch + at * slice_ints;
+    reset_lanes_block(src, dst, w, edge_ok, overloaded, roots, dist, seg_off, root_rank, nh,
+                      rounds_out, scratch, shared_ints,
+                      layout == kGlobalAll ? slice : shared_ints,
+                      layout == kSharedFrontier ? slice : slice + state_ints, state_ints,
+                      slice_ints, layout, V, E, D, cshift, big);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) warm_subgraph_repair_kernel(
@@ -965,21 +1183,47 @@ extern "C" int openr_warm_spf_distances(const void* src, const void* dst,
   return (int)cudaGetLastError();
 }
 
+// scratch: A cluster slice_ints int32 words where `layout` (StateLayout)
+// puts the lane lists or the whole state in the blocks' slices of it.
 extern "C" int openr_spf_nexthop_lanes_reset(
     const void* src, const void* dst, const void* w, const void* edge_ok,
     const void* overloaded, const void* roots, const void* dist,
-    const void* nh0, const void* seg_off, void* seg_end,
-    const void* root_rank, void* edge_class, void* nh, void* rounds, int A,
-    int V, int E, int D, float big, void* stream) {
-  const size_t smem = (size_t)V * sizeof(float);
-  cudaError_t err = allow_smem(spf_nexthop_lanes_reset_kernel, smem);
+    const void* seg_off, const void* root_rank, void* nh, void* rounds,
+    void* scratch, int layout, int A, int V, int E, int D, int cluster,
+    float big, void* stream) {
+  if (A == 0) return (int)cudaSuccess;
+  int cshift = 0;
+  while ((1 << cshift) < cluster) ++cshift;
+  if ((1 << cshift) != cluster || cluster > kResetMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  // the state and the lane lists, each rounded up to whole 16-byte words
+  const size_t state_ints = (reset_lanes_state_ints(V, D) + 3) / 4 * 4;
+  const size_t lists_ints = (lane_lists_ints(V, E) + 3) / 4 * 4;
+  const size_t shared_ints = layout == kSharedAll        ? state_ints + lists_ints
+                             : layout == kSharedFrontier ? state_ints
+                                                         : 0;
+  const size_t slice_ints = state_ints + lists_ints - shared_ints;
+  cudaError_t err = allow_smem(spf_nexthop_lanes_reset_kernel, shared_ints * 4);
   if (err != cudaSuccess) return (int)err;
-  spf_nexthop_lanes_reset_kernel<<<A, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)src, (const int32_t*)dst, (const float*)w,
-      (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
-      (const int32_t*)roots, (const float*)dist, (const int8_t*)nh0,
-      (const int32_t*)seg_off, (int32_t*)seg_end, (const int32_t*)root_rank,
-      (uint8_t*)edge_class, (int8_t*)nh, (int32_t*)rounds, V, E, D, big);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(A * cluster));
+  cfg.blockDim = dim3((unsigned)kThreads);
+  cfg.dynamicSmemBytes = shared_ints * 4;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, spf_nexthop_lanes_reset_kernel, (const int32_t*)src, (const int32_t*)dst,
+      (const float*)w, (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
+      (const int32_t*)roots, (const float*)dist, (const int32_t*)seg_off,
+      (const int32_t*)root_rank, (int8_t*)nh, (int32_t*)rounds, (int32_t*)scratch,
+      state_ints, slice_ints, layout, V, E, D, cshift, big);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -83,12 +83,32 @@ call (parent, change, change, parent):
     failures and the homing set, and (h) the fat-tree fleet; each with its
     B, P, C, A and D and bound, per launch and per call of
     ``rs.fleet_select``; where the checkout has ``rs.SELECT_TILE_ROWS``,
-    at tiles of 16-512 rows.
+    at tiles of 16-512 rows;
+  * ``sweep``: kernel 8 (``sweep_spf_link_failures``) at each shape
+    ``chip_smoke.py`` launches it, on the headline WAN (V = 1,024,
+    E = 8,192): ``LinkFailureSweep``'s cold base solve (32 unperturbed
+    snapshots, D = node0's lanes), the first 1,024 of phase (a)'s failures
+    (the repair tables' hold) and the flagship's cross-check (every link
+    failed once, 3,071 snapshots, D = 17); each with its synchronous
+    rounds and bound, per launch and per call of
+    ``spf.sweep_spf_link_failures``; where the checkout has
+    ``spf.SWEEP_CLUSTER``, at clusters of 1, 2, 4 and 8 blocks a word with
+    the state in shared memory and (a budget of 0) in the global scratch;
+  * ``reset``: kernel 5 (``spf_nexthop_lanes_reset``) at the grid's warm
+    ticks, recorded from ``chip_smoke.KernelPath`` on the 64 x 64 grid
+    (one prefix a node) through the same topology changes as
+    ``chip_smoke.py``: the undrain of node1 (its seed the previous lanes),
+    the same inputs from an all-zero seed, and the restoring tick; each
+    with its synchronous rounds and bound (the kernel does not read its
+    seed, so the bound counts no seed bytes), per launch and per call of
+    ``spf.spf_nexthop_lanes_reset``; where the checkout has
+    ``spf.RESET_LANES_CLUSTER``, at clusters of 1, 2, 4 and 8 blocks an
+    area.
 
 Run from the root of the checkout to time, naming the groups (default:
 all of them)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
@@ -663,6 +683,130 @@ def select_kernel(dev) -> dict:
     return out
 
 
+def sweep_inputs(dev) -> dict:
+    """label -> the arguments of kernel 8 at each shape ``chip_smoke.py``
+    launches it."""
+    import chip_smoke as cs
+    from openr_tpu_torch.ops import whatif as whatif_ops
+
+    _ls, _ps, topo = cs.headline_world()
+    eng = whatif_ops.LinkFailureSweep(topo, "node0", device=dev)
+    edges = (eng._src, eng._dst, eng._w, eng._edge_ok, eng._link_index)
+    fails = np.random.default_rng(0).integers(0, len(topo.links), size=cs.WHATIF_FAILURES)
+    base = torch.full((32,), -1, dtype=torch.int32, device=dev)
+    (hold,) = tables_from_numpy([fails[: cs.COLD_HOLD].astype(np.int32)], dev)
+    _e, _l, ftopo, _c = cs.flagship_world(np.random.default_rng(0))
+    failed = cs.flagship_rows(ftopo)[0][: len(ftopo.links)]
+    flag = tables_from_numpy(
+        [ftopo.src, ftopo.dst, ftopo.w, ftopo.edge_ok, ftopo.link_index, failed, ftopo.overloaded],
+        dev)
+    return {
+        "(a) base solve": (*edges, base, eng._overloaded, eng.root_id, eng.D),
+        "(a) cold hold": (*edges, hold, eng._overloaded, eng.root_id, eng.D),
+        "(i) cross-check": (*flag, ftopo.node_id("node0"), ftopo.max_out_degree()),
+    }
+
+
+def sweep_kernel(dev) -> dict:
+    import chip_smoke as cs
+
+    out = {}
+    for label, args in sweep_inputs(dev).items():
+        key = f"sweep_spf_link_failures {label}"
+        src, dst, w, ok, li, failed, ovl, root, D = args
+        V, E, B = ovl.shape[0], src.shape[0], failed.shape[0]
+        launch, (dist, nh, k_rd, k_rl) = spf.sweep_spf_link_failures_launcher(*args)
+        launch()
+        out[f"{key} kernel rounds (most of a word)"] = [int(k_rd.max()), int(k_rl.max())]
+        # one relaxation per usable edge per snapshot (its failed link's
+        # edges off), a max per lane a root out-edge can seed; inputs read
+        # once, outputs written once
+        transit = ~ovl | (torch.arange(V, device=dev) == root)
+        usable_e = ok & transit[src.long()]
+        usable = B * int(usable_e.sum()) - int((usable_e[:, None] & (li[:, None] == failed[None])).sum())
+        lanes = min(int((src == root).sum()), D)
+        _d, _n, r_d, r_l = spf.sweep_spf_link_failures_plain(*args)
+        out[f"{key} V,E,B,D"] = [V, E, B, D]
+        out[f"{key} rounds"] = [r_d, r_l]
+        out[f"{key} bound ms"] = bound_ms(
+            cs.nbytes(src, dst, w, ok, li, failed, ovl, dist, nh), (2 + lanes) * usable)
+        out[key] = launch_ms(launch)
+        out[f"{key}, per call"] = launch_ms(lambda: spf.sweep_spf_link_failures(*args))
+        make = lambda: spf.sweep_spf_link_failures_launcher(*args)  # noqa: E731
+        sweep(make, key, {"SWEEP_CLUSTER": (1, 2, 4, 8),
+                          "SWEEP_SHARED_BYTES": (spf.BLOCK_SHARED_BYTES, 0)}, out)
+    return out
+
+
+def reset_inputs(dev) -> dict:
+    """label -> the arguments of ``CudaBackend._warm_tables`` at the grid's
+    undrain and restoring ticks, through ``chip_smoke.py``'s topology
+    changes (one prefix a node: prefixes do not reach kernel 5)."""
+    import chip_smoke as cs
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+
+    saved = cs.PREFIXES_PER_NODE
+    cs.PREFIXES_PER_NODE = 1
+    try:
+        dbs, areas, ps = cs.grid_world()
+    finally:
+        cs.PREFIXES_PER_NODE = saved
+    side = cs.GRID_SIDE
+    be = cs.KernelPath(SpfSolver("node0"))
+    be.build_route_db(areas, ps)
+    mid = f"node{len(dbs) // 2 + side // 2}"
+    adj = dbs[mid].adjacencies[0]
+    cs.set_metric(areas, dbs, mid, adj.other_node_name, adj.metric + 4)
+    be.build_route_db(areas, ps)
+    cs.set_overload(areas, dbs, "node1", True)
+    be.build_route_db(areas, ps)
+    warm = dict(changed_prefixes=set(), force_full=True, warm_delta=True)
+    out = {}
+    cs.set_overload(areas, dbs, "node1", False)
+    be.build_route_db(areas, ps, **warm)
+    out["grid undrain"] = be.io["warm"][0]
+    a, b = f"node{(side // 2) * side}", f"node{(side // 2 + 1) * side}"
+    for metric, tick in ((11, None), (1, "grid restore")):
+        cs.set_metric(areas, dbs, a, b, metric)
+        cs.set_metric(areas, dbs, b, a, metric)
+        be.build_route_db(areas, ps, **warm)
+        if tick:
+            out[tick] = be.io["warm"][0]
+    return out
+
+
+def reset_kernel(dev) -> dict:
+    import chip_smoke as cs
+
+    out = {}
+    for label, args in reset_inputs(dev).items():
+        src, dst, w, ok, ovl, roots, prev_dist, prev_nh, reset, lane_keep, D = args
+        seg = (src, dst, w, ok, ovl, roots)
+        d0, nh0 = spf.warm_seeds(prev_dist, prev_nh, reset, lane_keep)
+        dist = spf.warm_spf_distances_plain(*seg, d0)[0]
+        usable, lanes = cs.segment_relaxations(src, ok, ovl, roots, D)
+        seeds = [(label, nh0)]
+        if label == "grid undrain":
+            seeds.append(("grid zero seed", torch.zeros_like(nh0)))
+        for name, seed in seeds:
+            key = f"spf_nexthop_lanes_reset ({name})"
+            launch, (nh, k_r) = spf.spf_nexthop_lanes_reset_launcher(*seg, dist, seed, D)
+            launch()
+            out[f"{key} kernel rounds"] = int(k_r.max())
+            out[f"{key} A,V,E,D"] = [*src.shape[:1], ovl.shape[1], src.shape[1], D]
+            out[f"{key} rounds"] = int(
+                spf.spf_nexthop_lanes_reset_plain(*seg, dist, seed, D, unroll=1)[1].max())
+            out[f"{key} lane cells moved from the seed"] = int((seed != nh).sum())
+            out[f"{key} bound ms"] = bound_ms(cs.nbytes(*seg, dist, nh),
+                                              int((usable * lanes).sum()))
+            out[key] = launch_ms(launch)
+            out[f"{key}, per call"] = launch_ms(
+                lambda: spf.spf_nexthop_lanes_reset(*seg, dist, seed, D))
+            sweep(lambda: spf.spf_nexthop_lanes_reset_launcher(*seg, dist, seed, D), key,
+                  {"RESET_LANES_CLUSTER": (1, 2, 4, 8)}, out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_batch_kernels: no CUDA device available", file=sys.stderr)
@@ -674,7 +818,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree", "flagship",
-                              "repair", "dense", "select"]
+                              "repair", "dense", "select", "sweep", "reset"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
@@ -696,6 +840,10 @@ def main() -> int:
         out.update(dense_kernel(dev))
     if "select" in groups:
         out.update(select_kernel(dev))
+    if "sweep" in groups:
+        out.update(sweep_kernel(dev))
+    if "reset" in groups:
+        out.update(reset_kernel(dev))
     print(json.dumps(out), flush=True)
     return 0
 

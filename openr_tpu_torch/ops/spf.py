@@ -268,18 +268,25 @@ def dense_lanes_state_bytes(V: int, D: int, threads: int) -> int:
     return 4 * (V + V * ((D + 31) // 32) + threads + 1)
 
 
-def dense_lanes_layout(V: int, K: int, D: int, threads: int):
-    """``(layout, slice_bytes)`` of kernel 2's block (``StateLayout``): the
-    state and the lane lists (room for a source in every in-slot) in shared
-    memory where both fit, else the lists, and past shared memory the
-    whole state, in the area's ``slice_bytes`` of a global scratch."""
+def _lanes_layout(V: int, M: int, D: int, threads: int):
+    """``(layout, slice_bytes)`` of a block of kernel 2 or 5
+    (``StateLayout``): the state (distances, the lane words, the scan
+    counts) and the lane lists (room for ``M`` sources) in shared memory
+    where both fit, else the lists, and past shared memory the whole state,
+    in the block's ``slice_bytes`` of a global scratch."""
     state = 4 * _words16(dense_lanes_state_bytes(V, D, threads))
-    lists = 4 * _words16(fleet_lists_bytes(V, V * K))
+    lists = 4 * _words16(fleet_lists_bytes(V, M))
     if state + lists <= MAX_SHARED_BYTES:
         return 0, 0
     if state <= MAX_SHARED_BYTES:
         return 1, lists
     return 2, state + lists
+
+
+def dense_lanes_layout(V: int, K: int, D: int, threads: int):
+    """Kernel 2's block layout (:func:`_lanes_layout`): room for a source
+    in every in-slot."""
+    return _lanes_layout(V, V * K, D, threads)
 
 
 def dense_spf_nexthop_lanes_launcher(
@@ -603,30 +610,67 @@ def warm_spf_distances_launcher(src, dst, w, edge_ok, overloaded, roots, d0):
     return launch, (dist, rounds)
 
 
+#: threads per block (one area) of kernel 5, a constant of ``spf_warm.cu``
+RESET_LANES_THREADS = 1024
+#: blocks of kernel 5's thread block cluster per area (1, 2, 4 or 8);
+#: None: by the rule of :func:`reset_lanes_cluster_size`
+RESET_LANES_CLUSTER = None
+#: vertices a block of kernel 5 takes before the rule spreads an area over
+#: more blocks
+RESET_BLOCK_NODES = 512
+
+
+def reset_lanes_cluster_size(V: int) -> int:
+    """Kernel 5's blocks per area (a thread block cluster, each block with
+    a copy of the area's lane words): ``RESET_LANES_CLUSTER`` where it is
+    set, else the fewest of 1, 2, 4 and 8 at which each block owns at most
+    ``RESET_BLOCK_NODES`` vertices."""
+    if RESET_LANES_CLUSTER is not None:
+        return int(RESET_LANES_CLUSTER)
+    c = 1
+    while c < 8 and V > c * RESET_BLOCK_NODES:
+        c *= 2
+    return c
+
+
+def reset_lanes_layout(V: int, E: int, D: int):
+    """Kernel 5's block layout (:func:`_lanes_layout`): room for a source
+    in every in-edge."""
+    return _lanes_layout(V, E, D, RESET_LANES_THREADS)
+
+
 def spf_nexthop_lanes_reset_launcher(
     src, dst, w, edge_ok, overloaded, roots, dist, nh0, max_degree: int
 ):
     """Like :func:`warm_spf_distances_launcher`: ``(launch, (nh, rounds))``
-    with ``nh`` [A, V, D] int8 written by each ``launch()``."""
+    with ``nh`` [A, V, D] int8 written by each ``launch()``.  The kernel
+    OR-accumulates the lanes from the seed bits, which equals the reset
+    iteration from any seed, so ``nh0`` is checked and never read.  Each
+    area runs on a cluster of :func:`reset_lanes_cluster_size` blocks,
+    each keeping its state and lane lists in shared memory where they fit
+    (:func:`reset_lanes_layout`), else in a scratch held here."""
     A, V, E, dev = _check_segments(src, dst, w, edge_ok, overloaded, roots)
     D = int(max_degree)
+    if D < 1:
+        raise ValueError(f"max_degree {D} must be >= 1")
     check_tensor("dist", dist, torch.float32, (A, V), dev)
     check_tensor("nh0", nh0, torch.int8, (A, V, D), dev)
     seg_off = segment_offsets(dst, V)
-    seg_end = torch.empty((A, V), dtype=torch.int32, device=dev)
     rank = root_lane_rank(src, roots)
-    edge_class = torch.empty((A, E), dtype=torch.uint8, device=dev)
+    layout, slice_bytes = reset_lanes_layout(V, E, D)
+    cluster = reset_lanes_cluster_size(V)
+    scratch = torch.empty(max(1, A * cluster * slice_bytes // 4), dtype=torch.int32, device=dev)
     nh = torch.empty((A, V, D), dtype=torch.int8, device=dev)
     rounds = torch.empty((A,), dtype=torch.int32, device=dev)
     fn = function("spf_warm", "openr_spf_nexthop_lanes_reset", SPF_NEXTHOP_LANES_RESET_ARGTYPES)
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), ptr(roots),
-        ptr(dist), ptr(nh0), ptr(seg_off), ptr(seg_end), ptr(rank),
-        ptr(edge_class), ptr(nh), ptr(rounds), A, V, E, D, BIG, stream(dev),
+        ptr(dist), ptr(seg_off), ptr(rank), ptr(nh), ptr(rounds), ptr(scratch),
+        layout, A, V, E, D, cluster, BIG, stream(dev),
     )
 
     # the default argument keeps the derived layout and scratch alive
-    def launch(_held=(seg_off, seg_end, rank, edge_class)) -> None:
+    def launch(_held=(seg_off, rank, scratch)) -> None:
         if A == 0:
             return
         check_launch("spf_nexthop_lanes_reset", fn(*args))
@@ -968,9 +1012,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DENSE_SPF_DISTANCES_ARGTYPES = [_P] * 7 + [_I] * 6 + [_F, _P]
 DENSE_SPF_NEXTHOP_LANES_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _P]
 WARM_SPF_DISTANCES_ARGTYPES = [_P] * 11 + [_I] * 3 + [_F, _P]
-SPF_NEXTHOP_LANES_RESET_ARGTYPES = [_P] * 14 + [_I] * 4 + [_F, _P]
+SPF_NEXTHOP_LANES_RESET_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _P]
 WARM_SUBGRAPH_REPAIR_ARGTYPES = [_P] * 15 + [_I] * 4 + [_F, _P]
-SWEEP_SPF_LINK_FAILURES_ARGTYPES = [_P] * 13 + [_I] * 5 + [_F, _P]
+SWEEP_SPF_LINK_FAILURES_ARGTYPES = [_P] * 15 + [_I] * 8 + [_F, _P]
 FLEET_SPF_DENSE_ARGTYPES = [_P] * 9 + [_I] * 9 + [_F, _P]
 SPF_SEGMENT_BATCH_ARGTYPES = [_P] * 14 + [_I] * 11 + [_F, _P]
 SPF_SEGMENT_BATCH_ROUNDS_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _P]
@@ -1462,20 +1506,80 @@ def sweep_spf_link_failures_plain(
     return dist, nh, rounds_d, rounds_l
 
 
-#: kernel 8 keeps each vertex's enabled-run end in shared memory
+#: the most nodes kernel 8 takes (each block of a cluster holds its
+#: vertices' record offsets in shared memory)
 MAX_SWEEP_NODES = 32768
+#: blocks of kernel 8's thread block cluster per 32-snapshot word (1, 2,
+#: 4 or 8); None: by the rule of :func:`sweep_cluster_size`
+SWEEP_CLUSTER = None
+#: kernel 8's dynamic shared memory per block for its vertex state and
+#: records beside its head, at most (a block's 227 KB less room for its
+#: static shared memory); 0 puts both in global memory
+SWEEP_SHARED_BYTES = 232448 - 256
+
+
+def sweep_cluster_size(V: int) -> int:
+    """Kernel 8's blocks per 32-snapshot word: ``SWEEP_CLUSTER`` where it
+    is set, else 8, or the largest power of two up to V where V < 8 (8
+    was the fastest of 1, 2, 4 and 8 at 1, 32 and 96 words on the H100;
+    PERF.md)."""
+    if SWEEP_CLUSTER is not None:
+        return int(SWEEP_CLUSTER)
+    c = 8
+    while c > V:
+        c //= 2
+    return c
+
+
+def sweep_layout(V: int, E: int, B: int, D: int, cluster: int):
+    """``(S, mode, cap_rec, layout_ints, scratch_ints)`` of kernel 8
+    (``spf_sweep.cu``): each block of a word's cluster owns ``S =
+    ceil(V / cluster)`` vertices, a vertex's state 32 distance columns and
+    D lane words.  ``mode`` (``SweepState``): 2, every block holds a copy
+    of every vertex's state in shared memory (where it fits
+    ``SWEEP_SHARED_BYTES`` with the head, the owned vertices' record
+    offsets and counts, and room for E / cluster records); 1, each block
+    holds its owned vertices' (read by the others there); 0, the owned
+    vertices' state in a global scratch of ``scratch_ints`` words.  A block copies its
+    usable-edge records (16 bytes each) into the ``cap_rec`` left, or
+    reads them in place.  The layout (the records of the usable edges and
+    their offsets) is ``layout_ints`` words."""
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"cluster {cluster} must be 1, 2, 4 or 8")
+    S = -(-V // cluster)
+    head = (2 * S + 1 + 3) // 4 * 4
+    if head > BLOCK_SHARED_BYTES // 4:
+        raise ValueError(f"{V} nodes exceed kernel 8's head at cluster {cluster}")
+    budget = min(SWEEP_SHARED_BYTES, BLOCK_SHARED_BYTES) // 4
+    owned = (S * (32 + D) + 3) // 4 * 4
+    every = (V * (32 + D) + 3) // 4 * 4
+    # copies where they leave room for a block's share of the edges as
+    # records (its own records in shared memory: the lanes then read only
+    # the packed DAG records)
+    if cluster > 1 and head + every + 4 * -(-E // cluster) <= budget:
+        mode, held = 2, every
+    elif head + owned <= budget:
+        mode, held = 1, owned
+    else:
+        mode, held = 0, 0
+    cap_rec = min(E, max(0, budget - head - held) // 4)
+    layout = (cluster * S + 2 + 3) // 4 * 4 + 4 * E
+    scratch = 0 if mode else -(-B // 32) * cluster * owned
+    return S, mode, cap_rec, layout, scratch
 
 
 def sweep_spf_link_failures_launcher(
     src, dst, w, edge_ok, link_index, failed_link, overloaded, root: int,
     max_degree: int,
 ):
-    """Check the inputs, derive the segment layout, allocate the outputs
-    and bind kernel 8 (``kernels/csrc/spf_sweep.cu``) once.  Returns
-    ``(launch, (dist, nh, rounds_d, rounds_l))``: each ``launch()``
-    enqueues the kernel (no synchronize) and counts one launch; the round
-    counts are per 32-snapshot word, in place, so they differ from the
-    plain version's synchronous counts."""
+    """Check the inputs, derive the segment offsets and lane ranks,
+    allocate the outputs, the layout and the state scratch, and bind
+    kernel 8 (``kernels/csrc/spf_sweep.cu``) once: each 32-snapshot word
+    on a cluster of :func:`sweep_cluster_size` blocks, placed by
+    :func:`sweep_layout`.  Returns ``(launch, (dist, nh, rounds_d,
+    rounds_l))``: each ``launch()`` enqueues the kernel (no synchronize)
+    and counts one launch; the round counts are per 32-snapshot word, in
+    place, so they differ from the plain version's synchronous counts."""
     dev = src.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called on {dev}")
@@ -1494,9 +1598,15 @@ def sweep_spf_link_failures_launcher(
     check_tensor("failed_link", failed_link, torch.int32, (B,), dev)
     check_tensor("overloaded", overloaded, torch.bool, (V,), dev)
     seg_off = segment_offsets(dst[None], V)[0].contiguous()
-    roots = torch.tensor([root], dtype=torch.int32, device=dev)
-    lane_rank = root_lane_rank(src[None], roots)[0].contiguous()
+    # the root's out-edges' ranks (root_lane_rank), with no copy to the card
+    is_root_out = src == root
+    rank = torch.cumsum(is_root_out, 0, dtype=torch.int32) - 1
+    lane_rank = torch.where(is_root_out, rank, -1).to(torch.int32)
     words = (B + 31) // 32
+    cluster = sweep_cluster_size(V)
+    _S, mode, cap_rec, layout_ints, scratch_ints = sweep_layout(V, E, B, D, cluster)
+    layout = torch.empty((layout_ints,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((max(1, scratch_ints),), dtype=torch.int32, device=dev)
     dist = torch.empty((V, B), dtype=torch.float32, device=dev)
     nh = torch.empty((V, B, D), dtype=torch.int8, device=dev)
     rounds_d = torch.empty((words,), dtype=torch.int32, device=dev)
@@ -1505,12 +1615,12 @@ def sweep_spf_link_failures_launcher(
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(link_index),
         ptr(failed_link), ptr(overloaded), ptr(lane_rank), ptr(seg_off),
-        ptr(dist), ptr(nh), ptr(rounds_d), ptr(rounds_l), V, E, B, D, root,
-        BIG, stream(dev),
+        ptr(layout), ptr(scratch), ptr(dist), ptr(nh), ptr(rounds_d), ptr(rounds_l),
+        V, E, B, D, root, cluster, mode, cap_rec, BIG, stream(dev),
     )
 
-    # the default argument keeps the derived layout alive
-    def launch(_held=(seg_off, lane_rank)) -> None:
+    # the default argument keeps the derived layout and the scratch alive
+    def launch(_held=(seg_off, lane_rank, layout, scratch)) -> None:
         if B == 0:
             return
         check_launch("sweep_spf_link_failures", fn(*args))
