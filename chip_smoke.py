@@ -561,6 +561,24 @@ def select_ops(P, C, A, D):
     return P * C * (48 + A * (4 + D))
 
 
+def chunk_ops(args):
+    """Operations kernel 10 needs on these inputs: the chain of
+    :func:`select_ops` for each snapshot over each candidate that is ok
+    (a slot that is not ok joins no selection)."""
+    b, D = args[0].shape[1], args[-1]
+    return b * select_ops(int(args[6].sum()), 1, 1, D)
+
+
+def chunk_bytes(args, outs):
+    """Bytes kernel 10 must move on these inputs: the distances, lane
+    words, drains and base rows once, the candidates' node and ok columns
+    whole and their five other columns for the slots that are ok (a slot
+    that is not ok joins no selection), and the outputs once."""
+    dist, nh, ovl, soft, _root, node, ok = args[:7]
+    return (nbytes(dist, nh, ovl, soft, node, ok, *args[12:15]) + 20 * int(ok.sum())
+            + nbytes(*outs))
+
+
 def dense_distances_bytes(in_src, in_ok, ovl, roots, dist):
     """Bytes kernel 1 must move on these planes: ``in_ok`` whole, the
     source and weight (8 bytes) of each usable slot, the source of each ok
@@ -569,6 +587,17 @@ def dense_distances_bytes(in_src, in_ok, ovl, roots, dist):
     ok = int(in_ok.sum())
     usable = int(spf.transit_ok(in_src, in_ok, ovl, roots).sum())
     return nbytes(in_ok, ovl, roots, dist) + 8 * usable + 4 * (ok - usable)
+
+
+def warm_distances_bytes(src, ok, ovl, roots, d0, dist):
+    """Bytes kernel 4 must move on these edges: ``edge_ok`` whole, the
+    source, destination and weight (12 bytes) of each usable edge, the
+    source of each ok edge whose source may not transit, ``overloaded``,
+    ``roots``, the seed and the distances once; not the list's padding or
+    down edges (a slice's edge range is found by binary search)."""
+    n_ok = int(ok.sum())
+    usable = int((ok & spf.gather_rows(spf.can_transit(ovl, roots), src)).sum())
+    return nbytes(ok, ovl, roots, d0, dist) + 12 * usable + 4 * (n_ok - usable)
 
 
 def select_bytes(args, kw, outs):
@@ -743,16 +772,24 @@ class KernelReport:
             "spf_nexthop_lanes_reset",
             [(nh_k, nh_p), (out[1], nh_p), (nh_zk, nh_zp), (nh_zk, out[1])],
         )
+        # kernel 4 at every warm tick (the grid's undrain first, its key the
+        # kernels line's), per launch and per call
+        A, E = src.shape
+        usable, lanes = segment_relaxations(src, ok, ovl, roots, D)
+        name = "warm_spf_distances"
+        key = name if name not in self.timing else f"{name} at {self.tick}"
+        if key not in self.timing:
+            r_d = int(spf.warm_spf_distances_plain(*seg, d0, unroll=1)[1].max())
+            self.time(
+                name, launch_d, p_dist, warm_distances_bytes(src, ok, ovl, roots, d0, dist_p),
+                2 * int(usable.sum()),
+                nbytes(src, w, ok) + 2 * nbytes(dist_p), r_d, key=key,
+            )
+            self.timing[key]["launches"] = 1
+            self.per_call[f"{name} at {self.tick}, spf.warm_spf_distances"] = (
+                per_launch_ms(lambda: spf.warm_spf_distances(*seg, d0)))
         if not timed:
             return
-        A, E = src.shape
-        r_d = int(spf.warm_spf_distances_plain(*seg, d0, unroll=1)[1].max())
-        usable, lanes = segment_relaxations(src, ok, ovl, roots, D)
-        self.time(
-            "warm_spf_distances", launch_d, p_dist,
-            nbytes(*seg, d0, dist_p), 2 * int(usable.sum()),
-            nbytes(src, w, ok) + 2 * nbytes(dist_p), r_d,
-        )
         # kernel 5 at this tick, its seed and an all-zero one; the kernel
         # never reads the seed, so no seed byte is in its bound
         name = "spf_nexthop_lanes_reset"
@@ -1215,9 +1252,39 @@ def time_sweep(report, key, label, args):
         per_launch_ms(lambda: spf.sweep_spf_link_failures(*args)))
 
 
-def time_whatif(report, rec):
-    """Time each of kernels 8-11 on the first call ``rec`` holds for it,
-    with its bound from these inputs."""
+def time_chunks(report, rec, label):
+    """Time kernel 10 at each snapshot count of the calls ``rec`` holds
+    (the base at b = 1, the chunks), under ``select_chunk at <label> (b =
+    ...)``, per launch and per call of ``sweep_select.select_chunk``, with
+    its bound from these inputs and its launches at that shape; the
+    ``select_chunk`` key (the kernels line's) at the first run's largest
+    chunk."""
+    shapes = {}
+    for args, kw, outs in rec.calls["select_chunk"]:
+        shapes.setdefault(args[0].shape[1], []).append((args, kw, outs))
+    print(f"[{label}] select_chunk launches by snapshots b: "
+          f"{ {b: len(c) for b, c in sorted(shapes.items())} }", flush=True)
+    for b, calls in sorted(shapes.items()):
+        args, kw, outs = calls[0]
+        kw = {k: v for k, v in kw.items() if k != "out"}
+        key = f"select_chunk at {label} (b = {b})"
+        launch, _fresh = sweep_select.select_chunk_launcher(*args, **kw)
+        t_bytes = chunk_bytes(args, outs)
+        report.time(
+            "select_chunk", launch, lambda: sweep_select.select_chunk_plain(*args, **kw),
+            t_bytes, chunk_ops(args), t_bytes, 1, key=key,
+        )
+        report.timing[key]["launches"] = len(calls)
+        if "select_chunk" not in report.timing and b == max(shapes):
+            report.timing["select_chunk"] = report.timing[key]
+        report.per_call[f"select_chunk at {label} (b = {b}), sweep_select.select_chunk"] = (
+            per_launch_ms(lambda: sweep_select.select_chunk(*args, **kw)))
+
+
+def time_whatif(report, rec, label):
+    """Time each of kernels 8, 9 and 11 on the first call ``rec`` holds
+    for it, and kernel 10 at each of its shapes (:func:`time_chunks`), with
+    its bound from these inputs."""
     if rec.calls["sweep_spf_link_failures"] and "sweep_spf_link_failures" not in report.timing:
         args, _kw, _outs = rec.calls["sweep_spf_link_failures"][0]
         time_sweep(report, "sweep_spf_link_failures", "the base solve", args)
@@ -1239,17 +1306,8 @@ def time_whatif(report, rec):
             nbytes(*args, outs[0], outs[1]), (2 + D) * usable,
             nbytes(*args[:5]) + 2 * nbytes(outs[0]), r_d + r_l,
         )
-    if rec.calls["select_chunk"] and "select_chunk" not in report.timing:
-        args, kw, outs = max(rec.calls["select_chunk"], key=lambda c: c[0][0].shape[1])
-        kw = {k: v for k, v in kw.items() if k != "out"}
-        launch, fresh = sweep_select.select_chunk_launcher(*args, **kw)
-        b = args[0].shape[1]
-        P, C = args[5].shape
-        t_bytes = nbytes(*args) + nbytes(*outs)
-        report.time(
-            "select_chunk", launch, lambda: sweep_select.select_chunk_plain(*args, **kw),
-            t_bytes, b * select_ops(P, C, 1, args[-1]), t_bytes, 1,
-        )
+    if rec.calls["select_chunk"]:
+        time_chunks(report, rec, label)
     if rec.calls["compact_deltas"] and "compact_deltas" not in report.timing:
         args, kw, outs = rec.calls["compact_deltas"][0]
         changed, valid, metric, lanes, row_id, cap = args
@@ -1286,6 +1344,41 @@ def headline_world(metric_bump=None):
     return ls, ps, csr.encode_link_state(ls)
 
 
+def headline_failures(topo):
+    """(a)'s WHATIF_FAILURES single-link failures, drawn with seed 0."""
+    return np.random.default_rng(0).integers(
+        0, len(topo.links), size=WHATIF_FAILURES).astype(np.int32)
+
+
+def headline_sweep(topo, engine, fails, device=None):
+    """(a)'s sweep: ``fails`` through ``engine`` (a ``LinkFailureSweep``
+    on ``topo``), then node0's route selection over a loopback prefix per
+    node."""
+    cands = sweep_select.SweepCandidates.single_advertiser(np.arange(topo.num_nodes))
+    sel = sweep_select.SweepRouteSelector(topo, "node0", cands, max_degree=engine.D,
+                                          device=device)
+    return sel.run(engine.run(fails, fetch=False))
+
+
+def criticality(engine, ls, ps):
+    """(b)'s criticality report over every link of ``ls``, with the scan
+    of CRIT_PAIRS pairs."""
+    return whatif_api._whatif_engine_criticality(engine, {"0": ls}, ps, 1, max_pairs=CRIT_PAIRS)
+
+
+def grid_queries(grid_areas, rng):
+    """(c)'s operator queries on the grid: node0's links and
+    GRID_RANDOM_LINKS others drawn with ``rng``; and a root link with two
+    of the random links, the set of 3 (about half the routes move
+    again)."""
+    gtopo = csr.encode_link_state(grid_areas["0"])
+    root_links = [i for i, l in enumerate(gtopo.links) if "node0" in (l.n1, l.n2)]
+    rest = [i for i in range(len(gtopo.links)) if i not in root_links]
+    others = [int(i) for i in rng.choice(rest, GRID_RANDOM_LINKS, replace=False)]
+    query = [(gtopo.links[i].n1, gtopo.links[i].n2) for i in root_links + others]
+    return query, [query[0], query[2], query[3]]
+
+
 def lane_bits_on_affected(rs_engine, fails):
     """Lane bits the repair sets on affected vertices that are not the
     root's neighbours: they start from zero in the warm seed, so every one
@@ -1319,19 +1412,13 @@ def whatif_phases(report, rng, grid_areas, grid_ps):
 
     # (a) the headline sweep: 10,240 single-link failures
     ls, ps, topo = headline_world()
-    fails = np.random.default_rng(0).integers(0, len(topo.links), size=WHATIF_FAILURES).astype(np.int32)
-    cands = sweep_select.SweepCandidates.single_advertiser(np.arange(WHATIF_NODES))
-
-    def sweep_once(t, engine):
-        sel = sweep_select.SweepRouteSelector(t, "node0", cands, max_degree=engine.D)
-        return sel.run(engine.run(fails, fetch=False))
-
+    fails = headline_failures(topo)
     eng = whatif_ops.LinkFailureSweep(topo, "node0")
     deltas, rec, walls["a: cold sweep"] = whatif_run(
-        report, "whatif:headline-cold", kernels, lambda: sweep_once(topo, eng)
+        report, "whatif:headline-cold", kernels, lambda: headline_sweep(topo, eng, fails)
     )
     check(eng.base_source == "device", "the cold base did not come from the sweep kernel")
-    time_whatif(report, rec)
+    time_whatif(report, rec, "(a)")
     # kernel 9 per call of RepairSweep.solve at the main run's largest chunk
     chunk = max(rec.calls["repair_sweep"], key=lambda c: c[0][5].shape[0])[0][5].cpu().numpy()
     rs_engine = eng.repair_sweep()
@@ -1363,7 +1450,7 @@ def whatif_phases(report, rng, grid_areas, grid_ps):
     eng2 = whatif_ops.LinkFailureSweep(topo2, "node0")
     check(eng2.seed_base_from(eng), "the second generation did not take the warm seed")
     deltas2, _rec, walls["a: warm-seeded sweep"] = whatif_run(
-        report, "whatif:headline-warm", warm_kernels, lambda: sweep_once(topo2, eng2)
+        report, "whatif:headline-warm", warm_kernels, lambda: headline_sweep(topo2, eng2, fails)
     )
     check(eng2.base_source == "warm", "the second generation's base was not warm")
     cold2 = whatif_ops.LinkFailureSweep(topo2, "node0").base_solve()
@@ -1375,10 +1462,10 @@ def whatif_phases(report, rng, grid_areas, grid_ps):
     # (b) criticality over every link, with the pair scan
     engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
     areas = {"0": ls}
-    crit, _rec, walls["b: criticality"] = whatif_run(
-        report, "whatif:criticality", kernels,
-        lambda: whatif_api._whatif_engine_criticality(engine, areas, ps, 1, max_pairs=CRIT_PAIRS),
+    crit, rec, walls["b: criticality"] = whatif_run(
+        report, "whatif:criticality", kernels, lambda: criticality(engine, ls, ps)
     )
+    time_chunks(report, rec, "(b)")
     pairs = crit["pairs"]
     check(len(crit["links"]) == len(topo.links) and pairs["checked"] == CRIT_PAIRS,
           "criticality did not cover every link and the pair budget")
@@ -1405,22 +1492,18 @@ def whatif_phases(report, rng, grid_areas, grid_ps):
           f"== GenericSolverWhatIfEngine", flush=True)
 
     # (c) operator queries on the grid at full prefix width
-    gtopo = csr.encode_link_state(grid_areas["0"])
-    root_links = [i for i, l in enumerate(gtopo.links) if "node0" in (l.n1, l.n2)]
-    rest = [i for i in range(len(gtopo.links)) if i not in root_links]
-    others = [int(i) for i in rng.choice(rest, GRID_RANDOM_LINKS, replace=False)]
-    query = [(gtopo.links[i].n1, gtopo.links[i].n2) for i in root_links + others]
+    query, sim = grid_queries(grid_areas, rng)
     grid_engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
     got, rec, walls["c: grid query"] = whatif_run(
         report, "whatif:grid", kernels, lambda: grid_engine.run(query, grid_areas, grid_ps, 1)
     )
     check(len(rec.calls["compact_deltas"]) >= 2, "the grid query did not overflow the compaction")
-    # a root link with two random links: about half the routes move again
-    sim = [query[0], query[2], query[3]]
-    got_sim, _rec, walls["c: grid set of 3"] = whatif_run(
+    time_chunks(report, rec, "(c)")
+    got_sim, rec, walls["c: grid set of 3"] = whatif_run(
         report, "whatif:grid-set", warm_kernels,
         lambda: grid_engine.run(sim, grid_areas, grid_ps, 1, simultaneous=True),
     )
+    time_chunks(report, rec, "(c) set of 3")
     plain_engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
     with Recorder(plain=True):
         reset_launch_counts()
@@ -1888,6 +1971,7 @@ def drive_ksp2(report, kernel_be, plain_be, areas, ps, label, rng, expect, rows,
     print(f"[{label}] build wall={wall:.1f}ms {phases} launches="
           f"{ {k: v for k, v in counts.items() if v} } kernel-15 rows={got_rows} "
           f"routes={len(db.unicast_routes)}", flush=True)
+    report.tick = label
     report.kernel_checks(kernel_be, False)
     if "warm" in kernel_be.io or "sub" in kernel_be.io:
         warm_tables_equal_cold(kernel_be)
@@ -2461,7 +2545,7 @@ def main():
         bound, bound_by = report.bound_ms(key)
         print(f"kernel {key}: {t['ms']:.4f} ms per launch (host issue {t['host_issue_ms']:.4f}), "
               f"plain {t['plain_ms']:.4f} ms, bound {bound:.5f} ms ({bound_by}), rounds "
-              f"{t['rounds']} ({smi})", flush=True)
+              f"{t['rounds']}, launches there {t.get('launches', 'n/a')} ({smi})", flush=True)
     for key, (dev_ms, host_ms) in report.per_call.items():
         print(f"per call {key}: {dev_ms:.4f} ms (host issue {host_ms:.4f}) ({smi})", flush=True)
     print(f"kernel spf_nexthop_lanes_reset from an all-zero seed (undrain tick's input): "

@@ -24,9 +24,10 @@
 // step of __graft_entry__.py.
 //
 // All three read the SEGMENT form of the topology: directed edges sorted
-// by dst, so vertex v's in-edges are the run [off[v], off[v+1]) (the
-// wrapper derives the offsets from dst).  Padding edges carry
-// edge_ok = false and still sit in their dst's run.
+// by dst, so vertex v's in-edges are the run [off[v], off[v+1]) (kernels
+// 5 and 6: the wrapper derives the offsets from dst; kernel 4 finds its
+// runs from dst itself).  Padding edges carry edge_ok = false and still
+// sit in their dst's run.
 //   4. dist: masked Bellman-Ford from the host-planned over-estimate d0
 //      (reset vertices BIG, the root pinned at 0).
 //   5. lanes with RESET semantics: every round REPLACES lane (v, l) by
@@ -39,14 +40,50 @@
 //      the reset vertices over the sub-edge list (every in-edge of a reset
 //      vertex), every other vertex read from the previous generation.
 //
-// Kernels 4 and 6: one thread block per area, the area's distances in
-// dynamic shared memory (cudaFuncSetAttribute), rounds loop inside the
-// kernel and end on a block-wide changed vote, so there are no host round
-// trips.  Updates are in place (Gauss-Seidel), and the fixed points are
-// the reference's, bit for bit:
+// Kernel 4 is kernel 1's design (spf_dense.cu) on the segment form,
+// seeded.  An area's vertices are split into C slices of S = ceil(V / C)
+// (C = 1, 2, 4 or 8; ops/spf.py warm_dist_cluster_size: at most 2,048
+// edges of the padded list a block); block r of the area's thread block
+// cluster owns slice r, whose in-edges are one range of the dst-sorted
+// list, found by two binary searches over dst.  The block packs its
+// slice's usable in-edges once, edge-parallel over that range (so the
+// padding run of vertex V - 1 spreads over the block), the transit rule
+// folded in (edge_ok, and the source not overloaded or the root): each an
+// 8-byte record {source, bits of w}, placed at its vertex's cursor (a
+// shared-memory atomic; a min takes records in any order).  The records
+// are stored by group of 32 consecutive vertices in as many rows of 32 as
+// the group's largest usable in-degree, a vertex's u-th record at its
+// group's run + 32 u + its lane, so a warp's lanes read consecutive
+// records; past the room the launcher left in shared memory (the block
+// decides from its own count, which only the card knows) each vertex's
+// records are one run at its place in the block's range of the area's
+// global record list.  Padding and down edges are never read again, and
+// the launcher derives nothing.  Every block holds a copy of the area's
+// distances in shared memory, seeded from d0 with the root at 0; it
+// relaxes its own slice in place and stores each improvement into the
+// other blocks' copies too (distributed shared memory), one round before
+// the first vote (a seed that is already the answer costs one round) and
+// kWarmSweeps rounds between later votes (kernel 1's cluster vote: a block
+// that changed something sets the vote's slot in every block, read past
+// one cluster.sync(), which also makes every remote store visible), until
+// a vote's rounds change nothing anywhere.  Where the distances and heads do
+// not fit shared memory (past 45,000 vertices or so at a cluster of 8, or
+// forced), the cluster relaxes one copy in the output row itself, read
+// volatile, its heads in a global scratch and its records in the global
+// list.  The rounds are instantiated once per address space of their
+// state and records, so their loads are shared- or global-memory ones.
+//
+// Kernel 6: one thread block per area, the area's distances in dynamic
+// shared memory (cudaFuncSetAttribute), rounds loop inside the kernel and
+// end on a block-wide changed vote, so there are no host round trips.
+// Updates are in place (Gauss-Seidel) in kernels 4 and 6, and the fixed
+// points are the reference's, bit for bit:
 //   * distances: from a seed d0 the relaxation converges to
-//     min_u (d0[u] + path(u -> v)) whatever the update order; integral
-//     link metrics keep every f32 sum exact.
+//     min_u (d0[u] + path(u -> v)) whatever the update order (the fixed
+//     point is unique); integral link metrics keep every f32 sum exact.
+//     Skipping an unusable edge is exact: its term is BIG, never below a
+//     seed.  A vote's rounds in which no block changed anything read a
+//     constant state, every copy equal to its owners' values.
 //   * kernel 6's lanes: propagating edges lie on the shortest-path DAG
 //     (d[src] + w == d[dst] < BIG with w >= 1), so they form an acyclic
 //     graph and the reset-semantics update has a unique fixed point.  By
@@ -56,13 +93,14 @@
 //     that is therefore the fixed point.  So no second [V, D] buffer is
 //     needed.  The round counts are telemetry and differ from the
 //     reference's synchronous counts.
-// Load balance: padding edges all sit in the run of vertex V-1 (half the
-// edge list on a full node bucket), so a thread walking that run every
-// round serialises the block.  A parallel prologue records, per vertex,
-// the end of its run's last enabled edge (seg_end); the rounds walk only
-// [off[v], seg_end[v]).  The skipped tail holds disabled edges alone,
-// which contribute nothing (BIG to a distance, 0 to a lane); the run's
-// emptiness, which decides the -128 fill, is still read from off[].
+// Load balance (kernel 6, and kernel 14's round form): padding edges all
+// sit in the run of vertex V-1 (half the edge list on a full node bucket),
+// so a thread walking that run every round serialises the block.  A
+// parallel prologue records, per vertex, the end of its run's last enabled
+// edge (seg_end); the rounds walk only [off[v], seg_end[v]).  The skipped
+// tail holds disabled edges alone, which contribute nothing (BIG to a
+// distance, 0 to a lane); the run's emptiness, which decides the -128
+// fill, is still read from off[].
 //
 // Kernel 5 is kernel 2's design (spf_dense.cu) on the segment form, an
 // area on a thread block cluster of C blocks (C = 1, 2, 4 or 8; ops/spf.py
@@ -196,12 +234,15 @@
 // SM), against the bound of one relaxation per usable edge per row and
 // the [B, V, D] lane output's bytes (PERF.md).
 //
-// What bounds kernels 4-6: latency, not bytes.  Kernels 4 and 6 re-read
-// the area's edge arrays each round (L2-resident at these sizes) and loop
-// for the depth of the perturbed region, one block on 1 of the card's 132
-// SMs when A = 1; kernel 5 runs for the depth of the DAG (126 rounds from
-// node0 on the 64 x 64 grid), each round a few shared-memory loads a
-// thread of the cluster's 8 SMs, a vote every 8 rounds.
+// What bounds kernels 4-6: latency, not bytes.  Kernel 4 loops for the
+// depth of the perturbed region from its seed, a round a few shared-memory
+// loads per usable edge of a thread's vertices on the cluster's 8 SMs and
+// a vote every 16 rounds (kWarmSweeps), after one packing pass over the edges;
+// kernel 6 re-reads the area's edge arrays each round (L2-resident at
+// these sizes), one block on 1 of the card's 132 SMs when A = 1; kernel 5
+// runs for the depth of the DAG (126 rounds from node0 on the 64 x 64
+// grid), each round a few shared-memory loads a thread of the cluster's 8
+// SMs, a vote every 8 rounds.
 //
 // Traps: the seed and the unusable-edge candidate are BIG = 3.4e38, not
 // inf: BIG + w rounds to BIG and BIG + BIG is +inf, and padding weights
@@ -212,6 +253,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "frontier.cuh"
 
@@ -225,17 +268,6 @@ constexpr int kThreads = 1024;
 constexpr uint8_t kOffDag = 0;
 constexpr uint8_t kSeed = 1;       // on-DAG edge out of the root
 constexpr uint8_t kPropagate = 2;  // on-DAG edge out of any other node
-
-// full edge list: usable when ok and its src may transit (an overloaded
-// node other than the root does not relax its out-edges)
-struct FullEdges {
-  const uint8_t* edge_ok;
-  const uint8_t* overloaded;
-  int root;
-  __device__ bool usable(int e, int s) const {
-    return edge_ok[e] && (!overloaded[s] || s == root);
-  }
-};
 
 // sub-edge list: usability precomputed on the host (edge_ok & transit)
 struct SubEdges {
@@ -347,34 +379,234 @@ __device__ int propagate_lanes(int8_t* nh, const uint8_t* cls,
   return rounds;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    warm_spf_distances_kernel(const int32_t* __restrict__ src,
-                              const int32_t* __restrict__ dst,
-                              const float* __restrict__ w,
-                              const uint8_t* __restrict__ edge_ok,
-                              const uint8_t* __restrict__ overloaded,
-                              const int32_t* __restrict__ roots,
-                              const float* __restrict__ d0,
-                              const int32_t* __restrict__ seg_off,
-                              int32_t* __restrict__ seg_end,
-                              float* __restrict__ dist_out,
-                              int32_t* __restrict__ rounds_out, int V, int E,
-                              float big) {
-  extern __shared__ float d[];  // [V] this area's distances
-  const int a = blockIdx.x;
+// Kernel 4's fixed block state (warm_dist_fixed_ints), in 16-byte words:
+// the area's distances [V] (while the block packs, its slice's record
+// cursors), its slice's heads [S] {first record, usable in-degree} and the
+// first record of each 32-vertex group [ceil(S / 32) + 1]; then room for
+// `cap_shared` records where the launcher left it.  In the global layout
+// the distances are the output row itself (one copy for the cluster) and
+// the heads and groups (warm_dist_head_ints) a slice of a global scratch.
+__host__ __device__ inline size_t warm_dist_head_ints(int S) {
+  return (2 * (size_t)S + ((size_t)S + 31) / 32 + 1 + 3) / 4 * 4;
+}
+__host__ __device__ inline size_t warm_dist_fixed_ints(int V, int S) {
+  return ((size_t)V + (V & 1) + 3) / 4 * 4 + warm_dist_head_ints(S);
+}
+
+// blocks of kernel 4's cluster per area, at most; records a thread loads
+// at once in a round, so their loads overlap (kernel 1's)
+constexpr int kWarmMaxCluster = 8;
+constexpr int kWarmRecordBatch = 4;
+// relaxation rounds between two votes of kernel 4 after the first
+constexpr int kWarmSweeps = 16;
+// dynamic shared memory a kernel-4 block may take beside its static bytes
+// (the scan counts, the vote slots and the copies' addresses)
+constexpr size_t kWarmDynamicSmem = 232448 - 4352;
+
+// first e in [0, E) with dst[e] >= x (E where none)
+__device__ __forceinline__ int first_at_least(const int32_t* dst, int E, int x) {
+  int lo = 0, hi = E;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (dst[mid] < x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Kernel 4's rounds over the block's slice [lo, lo + n): the records of
+// owned vertex j are rec[heads[j].x + kStride u], u < heads[j].y (kStride
+// 32: rows of 32 per 32-vertex group; 1: runs); one round, then
+// kWarmSweeps rounds in place between two votes, until a vote's rounds change nothing
+// anywhere.  Where
+// kGlobal, d is the cluster's one copy in global memory, read volatile;
+// else the block's own copy in shared memory, each improvement stored into
+// the other blocks' copies too (copies[r]).  Inlined where its pointers'
+// address space is known, so the loads are shared- or global-memory ones,
+// not generic.  Returns the rounds run.
+template <bool kCluster, bool kGlobal, int kStride>
+__device__ __forceinline__ int warm_dist_rounds(float* d, const int2* heads, const int2* rec,
+                                                float* const* copies, int* votes, int lo,
+                                                int n, int rank, int C, int V) {
+  using Dist = typename std::conditional<kGlobal, volatile float, float>::type;
+  Dist* dd = d;
+  int rounds = 0;
+  for (int vote = 0; vote < V; ++vote) {
+    int changed = 0;
+    // the first vote runs one round: where the seed is already the fixed
+    // point (a tick that moved nothing in this area), that round and its
+    // vote are the whole solve
+    const int vote_sweeps = vote == 0 ? 1 : kWarmSweeps;
+    for (int sweep = 0; sweep < vote_sweeps; ++sweep) {
+      for (int j = threadIdx.x; j < n; j += kThreads) {
+        const int2 h = heads[j];
+        const int v = lo + j;
+        const float cur = dd[v];
+        float best = cur;
+        for (int u0 = 0; u0 < h.y; u0 += kWarmRecordBatch) {
+          int2 r[kWarmRecordBatch];
+#pragma unroll
+          for (int q = 0; q < kWarmRecordBatch; ++q)
+            r[q] = u0 + q < h.y ? rec[h.x + kStride * (u0 + q)] : make_int2(0, 0);
+#pragma unroll
+          for (int q = 0; q < kWarmRecordBatch; ++q)
+            if (u0 + q < h.y) best = fminf(best, dd[r[q].x] + __int_as_float(r[q].y));
+        }
+        if (best < cur) {
+          dd[v] = best;
+          changed = 1;
+          if constexpr (kCluster && !kGlobal) {
+            for (int r = 0; r < C; ++r)
+              if (r != rank) reinterpret_cast<volatile float*>(copies[r])[v] = best;
+          }
+        }
+      }
+      ++rounds;
+      // later sweeps reload what other threads (and blocks) wrote
+      if (sweep + 1 < vote_sweeps) __threadfence_block();
+    }
+    int any;
+    if constexpr (kCluster) {
+      // kernel 1's vote: a block that changed something sets the vote's
+      // slot (by parity) in every block; past the cluster barrier (which
+      // also makes every store of the sweeps visible) each block reads its
+      // own; the next vote's slot is cleared before that barrier
+      cg::cluster_group cluster = cg::this_cluster();
+      const int mine = __syncthreads_or(changed);
+      if (threadIdx.x == 0) votes[(vote + 1) & 1] = 0;
+      if (mine && (int)threadIdx.x < C)
+        *reinterpret_cast<volatile int*>(cluster.map_shared_rank(&votes[vote & 1], (int)threadIdx.x)) = 1;
+      cluster.sync();
+      any = *reinterpret_cast<volatile int*>(&votes[vote & 1]);
+    } else {
+      any = __syncthreads_or(changed);
+    }
+    if (!any) break;
+  }
+  return rounds;
+}
+
+template <bool kCluster, bool kGlobal>
+__global__ void __launch_bounds__(kThreads) warm_spf_distances_kernel(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    const float* __restrict__ w, const uint8_t* __restrict__ edge_ok,
+    const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ roots,
+    const float* __restrict__ d0, float* dist_out, int32_t* __restrict__ rounds_out,
+    int2* records, int32_t* head_scratch, int V, int E, int C, int S, int cap_shared,
+    float big) {
+  extern __shared__ int32_t smem[];
+  __shared__ int32_t counts[kThreads + 1];
+  __shared__ int votes[2];
+  __shared__ float* copies[kWarmMaxCluster];
+  __shared__ int e_range[2];
+  int rank = 0;
+  if constexpr (kCluster) rank = (int)cg::this_cluster().block_rank();
+  const int a = blockIdx.x / C;
+  const int lo = rank * S;
+  const int n = max(0, min(S, V - lo));  // the owned slice [lo, lo + n)
+  const int G = (n + 31) / 32;
   const int root = roots[a];
   const size_t edges_at = (size_t)a * E;
-  const int32_t* off = seg_off + (size_t)a * (V + 1);
-  int32_t* end = seg_end + (size_t)a * V;
-  for (int v = threadIdx.x; v < V; v += blockDim.x)
-    d[v] = v == root ? 0.f : d0[(size_t)a * V + v];
-  enabled_run_ends(end, off, dst + edges_at, edge_ok + edges_at, V, E);
-  const FullEdges edges{edge_ok + edges_at, overloaded + (size_t)a * V, root};
-  const int rounds = relax_distances(d, off, end, src + edges_at,
-                                     w + edges_at, edges, nullptr, V, big);
-  for (int v = threadIdx.x; v < V; v += blockDim.x)
-    dist_out[(size_t)a * V + v] = d[v];
-  if (threadIdx.x == 0) rounds_out[a] = rounds;
+  const int32_t* esrc = src + edges_at;
+  const int32_t* edst = dst + edges_at;
+  const float* ew = w + edges_at;
+  const uint8_t* eok = edge_ok + edges_at;
+  const uint8_t* ovl = overloaded + (size_t)a * V;
+  float* d = kGlobal ? dist_out + (size_t)a * V : reinterpret_cast<float*>(smem);
+  int32_t* head_base = kGlobal ? head_scratch + (size_t)blockIdx.x * warm_dist_head_ints(S)
+                               : smem + ((size_t)V + (V & 1) + 3) / 4 * 4;
+  int2* heads = reinterpret_cast<int2*>(head_base);
+  int32_t* gbase = head_base + 2 * (size_t)S;
+  // the record cursors live in d's room of the owned slice until the
+  // block seeds its distances
+  int32_t* cursor = reinterpret_cast<int32_t*>(d) + lo;
+  // the usable in-edge: ok, its source free to transit (the reference's
+  // src_ok, openr_tpu/ops/spf.py:463)
+  const auto usable = [&](int e, int& s) -> bool {
+    if (!eok[e]) return false;
+    s = esrc[e];
+    return !ovl[s] || s == root;
+  };
+
+  // 1. the slice's in-edges are one range of the dst-sorted list; each
+  // owned vertex's usable in-degree, counted over that range
+  if (threadIdx.x < 2) e_range[threadIdx.x] = first_at_least(edst, E, threadIdx.x ? lo + n : lo);
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    heads[j] = make_int2(0, 0);
+    cursor[j] = 0;
+  }
+  __syncthreads();
+  const int e_lo = e_range[0], e_hi = e_range[1];
+  for (int e = e_lo + (int)threadIdx.x; e < e_hi; e += kThreads) {
+    int s;
+    if (usable(e, s)) atomicAdd(&heads[edst[e] - lo].y, 1);
+  }
+  __syncthreads();
+  // 2. each group's run, 32 records a row of as many rows as its largest
+  // in-degree, in shared memory where the block's count fits; else each
+  // vertex's records as one run at its place in the block's range of the
+  // area's global records
+  const int M = block_offsets(
+      counts, G,
+      [&](int g) {
+        int most = 0;
+        const int end = min(n, g * 32 + 32);
+        for (int j = g * 32; j < end; ++j) most = max(most, heads[j].y);
+        return 32 * most;
+      },
+      [&](int g, int o) { gbase[g] = o; });
+  const bool rows = M <= cap_shared;
+  int2* shared_rec = reinterpret_cast<int2*>(smem + warm_dist_fixed_ints(V, S));
+  int2* global_rec = records + edges_at;
+  if (rows) {
+    for (int j = threadIdx.x; j < n; j += kThreads) heads[j].x = gbase[j >> 5] + (j & 31);
+  } else {
+    block_offsets(
+        counts, n, [&](int j) { return heads[j].y; },
+        [&](int j, int o) { heads[j].x = e_lo + o; });
+  }
+  __syncthreads();
+  // 3. the records {source, bits of w}, each placed at its vertex's cursor
+  // (the order within a vertex does not matter: a min takes them in any)
+  for (int e = e_lo + (int)threadIdx.x; e < e_hi; e += kThreads) {
+    int s;
+    if (!usable(e, s)) continue;
+    const int j = edst[e] - lo;
+    const int u = atomicAdd(&cursor[j], 1);
+    const int2 r = make_int2(s, __float_as_int(ew[e]));
+    if (rows) shared_rec[heads[j].x + 32 * u] = r;
+    else global_rec[heads[j].x + u] = r;
+  }
+  __syncthreads();
+  // 4. the distances from the seed, the root pinned at 0: a block seeds
+  // its own copy whole (the global copy: its slice)
+  const float* seed = d0 + (size_t)a * V;
+  const int v_lo = kGlobal ? lo : 0;
+  const int v_hi = kGlobal ? lo + n : V;
+  for (int v = v_lo + (int)threadIdx.x; v < v_hi; v += kThreads) d[v] = v == root ? 0.f : seed[v];
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if constexpr (!kGlobal)
+      if ((int)threadIdx.x < C) copies[threadIdx.x] = cluster.map_shared_rank(d, (int)threadIdx.x);
+    if (threadIdx.x < 2) votes[threadIdx.x] = 0;
+    // no block stores into another before that one has seeded its copy
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+  // 5. the rounds
+  int rounds;
+  if (rows)
+    rounds = warm_dist_rounds<kCluster, kGlobal, 32>(d, heads, shared_rec, copies, votes, lo, n,
+                                                     rank, C, V);
+  else
+    rounds = warm_dist_rounds<kCluster, kGlobal, 1>(d, heads, global_rec, copies, votes, lo, n,
+                                                    rank, C, V);
+  if constexpr (!kGlobal)
+    for (int j = threadIdx.x; j < n; j += kThreads) dist_out[(size_t)a * V + lo + j] = d[lo + j];
+  if (threadIdx.x == 0 && rank == 0) rounds_out[a] = rounds;
+  // no block leaves while another may still store into its shared memory
+  if constexpr (kCluster) cg::this_cluster().sync();
 }
 
 // Kernel 5's block state (reset_lanes_state_ints), carved from `base`
@@ -621,8 +853,9 @@ __global__ void __launch_bounds__(kThreads) warm_subgraph_repair_kernel(
   }
 }
 
-// full edge list minus a failed set: kernel 14's round-form usability (the transit
-// rule of FullEdges, and no edge of a failed link of this area)
+// full edge list minus a failed set: kernel 14's round-form usability (ok,
+// its src may transit: an overloaded node other than the root does not
+// relax its out-edges, and no edge of a failed link of this area)
 struct MaskedEdges {
   const uint8_t* edge_ok;
   const uint8_t* overloaded;
@@ -1164,22 +1397,49 @@ struct SegmentLayout {
 
 }  // namespace
 
-extern "C" int openr_warm_spf_distances(const void* src, const void* dst,
-                                        const void* w, const void* edge_ok,
-                                        const void* overloaded,
-                                        const void* roots, const void* d0,
-                                        const void* seg_off, void* seg_end,
-                                        void* dist, void* rounds, int A,
-                                        int V, int E, float big,
+// records: A E int2 (a block's runs at its range of its area's edges);
+// heads: null, or (the global layout) A cluster warm_dist_head_ints(S)
+// int32 words, where the distances are relaxed in `dist` itself.
+extern "C" int openr_warm_spf_distances(const void* src, const void* dst, const void* w,
+                                        const void* edge_ok, const void* overloaded,
+                                        const void* roots, const void* d0, void* dist,
+                                        void* rounds, void* records, void* heads, int A,
+                                        int V, int E, int cluster, int cap_shared, float big,
                                         void* stream) {
-  const size_t smem = (size_t)V * sizeof(float);
-  cudaError_t err = allow_smem(warm_spf_distances_kernel, smem);
+  if (A == 0) return (int)cudaSuccess;
+  if (cluster < 1 || cluster > kWarmMaxCluster || (cluster & (cluster - 1)) ||
+      cap_shared < 0 || (heads && cap_shared))
+    return (int)cudaErrorInvalidValue;
+  const int S = (V + cluster - 1) / cluster;
+  const bool global = heads != nullptr;
+  // the distances, the slice's heads and the shared records must fit
+  const size_t smem = global ? 0 : warm_dist_fixed_ints(V, S) * 4 + (size_t)cap_shared * 8;
+  if (smem > kWarmDynamicSmem) return (int)cudaErrorInvalidValue;
+  const auto kernel =
+      cluster > 1 ? (global ? warm_spf_distances_kernel<true, true>
+                            : warm_spf_distances_kernel<true, false>)
+                  : (global ? warm_spf_distances_kernel<false, true>
+                            : warm_spf_distances_kernel<false, false>);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  warm_spf_distances_kernel<<<A, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)src, (const int32_t*)dst, (const float*)w,
-      (const uint8_t*)edge_ok, (const uint8_t*)overloaded,
-      (const int32_t*)roots, (const float*)d0, (const int32_t*)seg_off,
-      (int32_t*)seg_end, (float*)dist, (int32_t*)rounds, V, E, big);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(A * cluster));
+  cfg.blockDim = dim3((unsigned)kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const int32_t*)src, (const int32_t*)dst,
+                           (const float*)w, (const uint8_t*)edge_ok,
+                           (const uint8_t*)overloaded, (const int32_t*)roots,
+                           (const float*)d0, (float*)dist, (int32_t*)rounds, (int2*)records,
+                           (int32_t*)heads, V, E, cluster, S, cap_shared, big);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -18,14 +18,37 @@
 // metric [b, P] f32, lanes [b, P, ceil(D/32)] uint32.  The engine also
 // runs the base selection through it, as a one-snapshot batch.
 //
-// Design: one thread per (snapshot, prefix); a warp is 32 consecutive
-// prefixes of one snapshot, so __ballot_sync of the 32 changed flags IS
-// the packed changed word, and the valid/metric/lane stores coalesce.  The
-// candidate sets are 64-bit masks in registers (C <= 64).  The lanes come
-// straight from the repair's batch-packed words (bit s % 32 of word
-// s / 32 at [node, lane]).  What bounds it: bytes — the candidate
-// columns are read once per snapshot (L2-resident across snapshots), the
-// outputs written once.
+// Design: a block takes a tile of prefixes x snapshots of one 32-snapshot
+// word sw (grid x: tiles along P, grid y: words).  Where the chunk holds 32
+// snapshots or more, a warp takes one prefix and a warp lane one snapshot
+// (bp = 32); below 32, bp is the chunk's snapshot count rounded up to a
+// power of two and a warp takes 32 / bp prefixes of bp lanes each, so no
+// lane idles past the rounding (at b = 1, a warp is 32 consecutive
+// prefixes of the one snapshot, and it stores its results directly).  The
+// tile is 32 prefixes where bp >= 8, else 256 / bp, so a block of 256
+// threads covers it in TP * bp / 256 passes.  So:
+//   * the candidate columns and the base row (base_valid, base_metric,
+//     base_lanes) are uniform across a lane group: broadcast loads;
+//   * dist[n * b + 32 sw + lane] is one coalesced 128-byte line per
+//     candidate (with a prefix a lane, 32 rows n, a sector each);
+//   * where a warp is one prefix, a winner's lanes are one load of its 32
+//     lane words nh[node, 32 k + lane, sw] and a 32 x 32 bit transpose
+//     across the warp (five shuffles), after which lane s holds snapshot
+//     s's bits; below, one broadcast word nh[node, d, sw] per (winner, d),
+//     of which each lane takes its own bit.
+// The chain skips what cannot change its result (select_chain's kLean:
+// candidates that are not ok past the first loop, and the keep filters
+// where one candidate is left).
+// Results are staged in shared memory (a snapshot's row of the stage
+// padded by the lane-group count, so the stores of a warp hit 32 banks),
+// then written transposed: a warp stores 32 consecutive prefixes of one
+// snapshot, so the valid, metric and lane stores coalesce along P, and the
+// snapshot's changed word over those prefixes is one __ballot_sync.  Lane
+// words are staged where they fit (D <= 128); above, each lane stores its
+// own words.  The candidate sets are 64-bit masks in registers (C <= 64).
+// What bounds it: bytes - the distances and lane words the chain reads,
+// the candidate columns (L1/L2-resident across words) and the outputs,
+// once each.
 //
 // Kernel 11 replaces
 //   openr_tpu/ops/sweep_select.py:274 _compact_deltas
@@ -94,43 +117,64 @@ struct Selection {
   bool self_wins;    // the root advertises among the winners
 };
 
-template <class Dist, class Hard, class Soft>
+// kLean (kernel 10) drops work that cannot change the result; kernel 17
+// runs the chain in full (the default):
+//   * a candidate that is not ok is never reached, so it needs no
+//     hard-drain bit, and the candidates after the last ok one never join
+//     the selection: the later loops stop before them (a row with no ok
+//     candidate has no winner, so its min-nexthop requirement, then
+//     INT32_MIN rather than 0, decides nothing);
+//   * where at most one candidate survives the reach and hard-drain
+//     filters, the keep-max and keep-min filters keep it as it is.
+template <class Dist, class Hard, class Soft, bool kLean = false>
 __device__ __forceinline__ Selection select_chain(
     const int32_t* node, const uint8_t* ok, const int32_t* drain_metric,
     const int32_t* path_pref, const int32_t* source_pref,
     const int32_t* distance, const int32_t* min_nexthop, int C, int root,
     float big, Dist dist_of, Hard hard_of, Soft soft_of) {
   uint64_t reach = 0, hard = 0;
+  int last_ok = -1;
   for (int c = 0; c < C; ++c) {
     const int n = node[c];
-    if (ok[c] && dist_of(n) < big) reach |= bit(c);
-    if (hard_of(n)) hard |= bit(c);
+    if constexpr (kLean) {
+      if (ok[c]) {
+        last_ok = c;
+        if (dist_of(n) < big) reach |= bit(c);
+        if (hard_of(n)) hard |= bit(c);
+      }
+    } else {
+      if (ok[c] && dist_of(n) < big) reach |= bit(c);
+      if (hard_of(n)) hard |= bit(c);
+    }
   }
+  if constexpr (kLean) C = last_ok + 1;
   const uint64_t nonhard = reach & ~hard;
   uint64_t use = nonhard ? nonhard : reach;
-  // not drained: neither an advertised drain metric nor a soft drain
-  int32_t best = INT32_MIN;
-  for (int c = 0; c < C; ++c)
-    if (use & bit(c)) {
-      const int32_t k = (drain_metric[c] > 0 || soft_of(node[c]) > 0) ? 0 : 1;
-      best = k > best ? k : best;
-    }
-  uint64_t kept = 0;
-  for (int c = 0; c < C; ++c)
-    if (use & bit(c)) {
-      const int32_t k = (drain_metric[c] > 0 || soft_of(node[c]) > 0) ? 0 : 1;
-      if (k == best) kept |= bit(c);
-    }
-  use = kept;
-  use = keep_max(use, path_pref, C);
-  use = keep_max(use, source_pref, C);
-  int32_t lo = INT32_MAX;
-  for (int c = 0; c < C; ++c)
-    if ((use & bit(c)) && distance[c] < lo) lo = distance[c];
-  kept = 0;
-  for (int c = 0; c < C; ++c)
-    if ((use & bit(c)) && distance[c] == lo) kept |= bit(c);
-  use = kept;
+  if (!kLean || (use & (use - 1))) {
+    // not drained: neither an advertised drain metric nor a soft drain
+    int32_t best = INT32_MIN;
+    for (int c = 0; c < C; ++c)
+      if (use & bit(c)) {
+        const int32_t k = (drain_metric[c] > 0 || soft_of(node[c]) > 0) ? 0 : 1;
+        best = k > best ? k : best;
+      }
+    uint64_t kept = 0;
+    for (int c = 0; c < C; ++c)
+      if (use & bit(c)) {
+        const int32_t k = (drain_metric[c] > 0 || soft_of(node[c]) > 0) ? 0 : 1;
+        if (k == best) kept |= bit(c);
+      }
+    use = kept;
+    use = keep_max(use, path_pref, C);
+    use = keep_max(use, source_pref, C);
+    int32_t lo = INT32_MAX;
+    for (int c = 0; c < C; ++c)
+      if ((use & bit(c)) && distance[c] < lo) lo = distance[c];
+    kept = 0;
+    for (int c = 0; c < C; ++c)
+      if ((use & bit(c)) && distance[c] == lo) kept |= bit(c);
+    use = kept;
+  }
 
   Selection sel{use, 0, big, INT32_MIN, false};
   for (int c = 0; c < C; ++c) {
@@ -145,7 +189,29 @@ __device__ __forceinline__ Selection select_chain(
   return sel;
 }
 
-__global__ void __launch_bounds__(kSelectThreads) select_chunk_kernel(
+// Kernel 10's tile (see the header): 256 threads; its stage, in dynamic
+// shared memory (none where b = 1), holds for each of the bp x stride
+// (snapshot, prefix) slots a metric, the flags and, where D <= 32
+// kStageWords, the lane words.
+constexpr int kTileThreads = 256;
+constexpr int kStageWords = 4;
+
+// 32 x 32 bit transpose across a warp: lane l holds row l on entry, and
+// on return lane s holds column s (bit l = bit s of lane l's row), by 5
+// butterfly exchanges of half-blocks
+__device__ __forceinline__ uint32_t transpose_bits(uint32_t x, int lane) {
+  const uint32_t masks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu, 0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int j = 16 >> i;
+    const uint32_t m = masks[i];
+    const uint32_t y = __shfl_xor_sync(kFull, x, j);
+    x = (lane & j) ? ((x & ~m) | ((y & ~m) >> j)) : ((x & m) | ((y & m) << j));
+  }
+  return x;
+}
+
+__global__ void __launch_bounds__(kTileThreads) select_chunk_kernel(
     const float* __restrict__ dist, const uint32_t* __restrict__ nh,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
     const int32_t* __restrict__ cand_node, const uint8_t* __restrict__ cand_ok,
@@ -158,52 +224,126 @@ __global__ void __launch_bounds__(kSelectThreads) select_chunk_kernel(
     const float* __restrict__ base_metric,
     const uint32_t* __restrict__ base_lanes, uint32_t* __restrict__ changed_out,
     uint8_t* __restrict__ valid_out, float* __restrict__ metric_out,
-    uint32_t* __restrict__ lanes_out, int V, int b, int P, int C, int D,
-    int root, float big) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int s = blockIdx.y;
+    uint32_t* __restrict__ lanes_out, int b, int P, int C, int D, int root,
+    float big, int bshift) {
+  extern __shared__ int32_t stage[];
+  const int bp = 1 << bshift;        // lanes a prefix takes
+  const int G = 32 >> bshift;        // prefixes a warp takes at once
+  const int TP = bp >= 8 ? 32 : 256 >> bshift;  // prefixes a tile
+  const int stride = TP + G;         // a snapshot's stage row
+  const int pairs = bp * stride;
+  float* st_metric = reinterpret_cast<float*>(stage);
+  int32_t* st_flags = stage + pairs;  // bit 0 valid, bit 1 changed
+  uint32_t* st_lanes = reinterpret_cast<uint32_t*>(stage + 2 * pairs);  // [Dw][pairs]
   const int Bw = (b + 31) / 32;
   const int Dw = (D + 31) / 32;
   const int Pw = (P + 31) / 32;
-  const int sw = s >> 5;
-  const int sb = s & 31;
-  bool changed = false;
-  if (p < P) {
-    const size_t row = (size_t)p * C;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sl = lane & (bp - 1);    // the lane's snapshot in the tile
+  const int q = lane >> bshift;      // its prefix in the warp's group
+  const int sw = blockIdx.y;
+  const int s = sw * 32 + sl;        // bp < 32 only where b < 32: sw = 0
+  const int sc = s < b ? s : b - 1;  // reads stay in bounds past b
+  const int sb = sc & 31;
+  const int p0 = blockIdx.x * TP;
+  const bool direct = bp == 1;       // a warp is 32 prefixes of snapshot 0
+  const bool stage_lanes = Dw <= kStageWords;
+  const int passes = (TP << bshift) / kTileThreads;
+
+  for (int pass = 0; pass < passes; ++pass) {
+    const int pl = (pass * (kTileThreads / 32) + warp) * G + q;
+    const int p = p0 + pl;
+    const bool live = p < P && s < b;
+    const int pc = p < P ? p : P - 1;
+    const size_t row = (size_t)pc * C;
     const int32_t* node = cand_node + row;
-    const Selection sel = select_chain(
-        node, cand_ok + row, drain_metric + row, path_pref + row,
-        source_pref + row, distance + row, min_nexthop + row, C, root, big,
-        [&](int n) { return dist[(size_t)n * b + s]; },
-        [&](int n) { return overloaded[n] != 0; },
-        [&](int n) { return soft[n]; });
+    const auto dist_of = [&](int n) { return dist[(size_t)n * b + sc]; };
+    const auto hard_of = [&](int n) { return overloaded[n] != 0; };
+    const auto soft_of = [&](int n) { return soft[n]; };
+    const Selection sel =
+        select_chain<decltype(dist_of), decltype(hard_of), decltype(soft_of), true>(
+            node, cand_ok + row, drain_metric + row, path_pref + row, source_pref + row,
+            distance + row, min_nexthop + row, C, root, big, dist_of, hard_of, soft_of);
 
     int num_nh = 0;
     bool lanes_differ = false;
+    const int at = sl * stride + pl;
     uint32_t* lanes_row = lanes_out + ((size_t)s * P + p) * Dw;
     for (int k = 0; k < Dw; ++k) {
       uint32_t word = 0;
       const int d_end = D < 32 * (k + 1) ? D : 32 * (k + 1);
-      for (int c = 0; c < C; ++c) {
-        if (!(sel.winners & bit(c))) continue;
-        const uint32_t* src = nh + (size_t)node[c] * D * Bw + sw;
-        for (int d = 32 * k; d < d_end; ++d)
-          word |= ((src[(size_t)d * Bw] >> sb) & 1u) << (d - 32 * k);
+      if (bp == 32) {
+        // the warp's prefix: a winner's 32 lane words of this word k in
+        // one load (lane l: lane 32 k + l of the node, its bits the 32
+        // snapshots), transposed so that lane s holds snapshot s's bits
+        for (int c = 0; c < C; ++c) {
+          const bool win = (sel.winners & bit(c)) != 0;
+          if (!__any_sync(kFull, win)) continue;
+          const int d = 32 * k + lane;
+          const uint32_t x =
+              d < d_end ? nh[((size_t)node[c] * D + d) * Bw + sw] : 0u;
+          const uint32_t t = transpose_bits(x, lane);
+          if (win) word |= t;
+        }
+      } else {
+        for (int c = 0; c < C; ++c) {
+          if (!(sel.winners & bit(c))) continue;
+          // the lane group's winner: one word a lane, the same address
+          // for every lane of the group
+          const uint32_t* src = nh + (size_t)node[c] * D * Bw + sw;
+#pragma unroll 8
+          for (int d = 32 * k; d < d_end; ++d)
+            word |= ((src[(size_t)d * Bw] >> sb) & 1u) << (d - 32 * k);
+        }
       }
-      lanes_row[k] = word;
       num_nh += __popc(word);
-      lanes_differ |= word != base_lanes[(size_t)p * Dw + k];
+      lanes_differ |= word != base_lanes[(size_t)pc * Dw + k];
+      if (live && (direct || !stage_lanes)) lanes_row[k] = word;
+      else if (stage_lanes && !direct) st_lanes[(size_t)k * pairs + at] = word;
     }
     const bool valid = sel.winners && !sel.self_wins && sel.best_igp < big &&
                        num_nh > 0 && num_nh >= sel.req;
-    valid_out[(size_t)s * P + p] = valid;
-    metric_out[(size_t)s * P + p] = sel.best_igp;
-    const bool bv = base_valid[p];
-    changed = (valid != bv) ||
-              (valid && bv && (sel.best_igp != base_metric[p] || lanes_differ));
+    const bool bv = base_valid[pc];
+    const bool changed =
+        live && ((valid != bv) ||
+                 (valid && bv && (sel.best_igp != base_metric[pc] || lanes_differ)));
+    if (direct) {
+      if (live) {
+        valid_out[p] = valid;
+        metric_out[p] = sel.best_igp;
+      }
+      const uint32_t word = __ballot_sync(kFull, changed);
+      if (lane == 0 && p < P) changed_out[p >> 5] = word;
+    } else {
+      st_metric[at] = sel.best_igp;
+      st_flags[at] = (valid ? 1 : 0) | (changed ? 2 : 0);
+    }
   }
-  const uint32_t word = __ballot_sync(kFull, changed);
-  if ((threadIdx.x & 31) == 0 && p < P) changed_out[(size_t)s * Pw + (p >> 5)] = word;
+  if (direct) return;
+  __syncthreads();
+  // transposed: job j is 32 consecutive prefixes (segment j % segs) of one
+  // snapshot (j / segs), a warp lane a prefix
+  const int segs = TP / 32;
+  for (int j = warp; j < (segs << bshift); j += kTileThreads / 32) {
+    const int s_loc = j / segs;
+    const int pl = (j - s_loc * segs) * 32 + lane;
+    const int st = sw * 32 + s_loc;
+    const int p = p0 + pl;
+    if (st >= b) continue;  // uniform over the warp
+    const int at = s_loc * stride + pl;
+    const bool in = p < P;
+    const int flags = st_flags[at];
+    if (in) {
+      const size_t o = (size_t)st * P + p;
+      valid_out[o] = flags & 1;
+      metric_out[o] = st_metric[at];
+      if (stage_lanes)
+        for (int k = 0; k < Dw; ++k) lanes_out[o * Dw + k] = st_lanes[(size_t)k * pairs + at];
+    }
+    const uint32_t word = __ballot_sync(kFull, in && (flags & 2));
+    if (lane == 0 && in) changed_out[(size_t)st * Pw + (p >> 5)] = word;
+  }
 }
 
 // Kernel 17: the chain for every (row, prefix) pair i = b * P + p, one
@@ -369,8 +509,18 @@ extern "C" int openr_select_chunk(
     const void* base_lanes, void* changed, void* valid, void* metric,
     void* lanes, int V, int b, int P, int C, int D, int root, float big,
     void* stream) {
-  const dim3 grid((P + kSelectThreads - 1) / kSelectThreads, b);
-  select_chunk_kernel<<<grid, kSelectThreads, 0, (cudaStream_t)stream>>>(
+  if (b <= 0 || P <= 0) return (int)cudaSuccess;
+  // lanes a prefix takes: the snapshots rounded up to a power of two, 32
+  // at most
+  int bshift = 0;
+  while ((1 << bshift) < b && bshift < 5) ++bshift;
+  const int TP = bshift >= 3 ? 32 : 256 >> bshift;
+  const int Dw = (D + 31) / 32;
+  const size_t smem = bshift == 0 ? 0
+                      : (size_t)(1 << bshift) * (TP + (32 >> bshift)) * 4 *
+                            (2 + (Dw <= kStageWords ? Dw : 0));
+  const dim3 grid((P + TP - 1) / TP, (b + 31) / 32);
+  select_chunk_kernel<<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
       (const float*)dist, (const uint32_t*)nh, (const uint8_t*)overloaded,
       (const int32_t*)soft, (const int32_t*)cand_node,
       (const uint8_t*)cand_ok, (const int32_t*)drain_metric,
@@ -378,7 +528,8 @@ extern "C" int openr_select_chunk(
       (const int32_t*)distance, (const int32_t*)min_nexthop,
       (const uint8_t*)base_valid, (const float*)base_metric,
       (const uint32_t*)base_lanes, (uint32_t*)changed, (uint8_t*)valid,
-      (float*)metric, (uint32_t*)lanes, V, b, P, C, D, root, big);
+      (float*)metric, (uint32_t*)lanes, b, P, C, D, root, big, bshift);
+  (void)V;
   return (int)cudaGetLastError();
 }
 

@@ -103,12 +103,27 @@ call (parent, change, change, parent):
     seed, so the bound counts no seed bytes), per launch and per call of
     ``spf.spf_nexthop_lanes_reset``; where the checkout has
     ``spf.RESET_LANES_CLUSTER``, at clusters of 1, 2, 4 and 8 blocks an
-    area.
+    area;
+  * ``chunkwarm``: kernel 10 (``select_chunk``) at each shape
+    ``chip_smoke.py`` launches it, recorded from its engines: (a) the
+    headline sweep's chunks and its base at b = 1 (P = 1,024), (b) the
+    criticality report's chunks, (c) the grid query's chunks and its base
+    at b = 1 (P = 409,600) and the grid's set of 3; and kernel 4
+    (``warm_spf_distances``) at the grid's undrain and restoring ticks
+    (recorded as for ``reset``) and at phase (g)'s warm weakening of a
+    backbone link (V = 16,384, E = 32,768); each with its launches or
+    rounds and bound, per launch, per launch queued behind a busy kernel
+    (``queued_ms``: the kernel's own time where the host's issue time
+    exceeds it) and per call; kernel 4 also per bind and,
+    where the checkout has ``spf.WARM_DIST_CLUSTER``, at clusters of 1, 2,
+    4 and 8, and with its records in the global list and its state global.
+    The group drives ``chip_smoke.py``'s own helpers and bounds: to time
+    an older checkout, copy this file and ``chip_smoke.py`` into it.
 
 Run from the root of the checkout to time, naming the groups (default:
 all of them)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset] [chunkwarm]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
@@ -158,6 +173,32 @@ def launch_ms(launch, launches: int = LAUNCHES) -> float:
         torch.cuda.synchronize()
         spans.append(start.elapsed_time(end) / launches)
     return statistics.median(spans)
+
+
+def queued_ms(launch, launches: int = LAUNCHES) -> float:
+    """:func:`launch_ms` with the launches queued behind a kernel that
+    keeps the card busy while the host issues them, so the events bracket
+    the kernels' own back-to-back time and not the host's issue rate (a
+    launch shorter than the host's issue time reads that time otherwise)."""
+    launch()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(SPANS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        for _ in range(launches):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end) / launches)
+    return statistics.median(spans)
+
+
+#: clock cycles the card spins before a queued span (about 2 ms at
+#: 1.98 GHz: longer than the host takes to issue the span's launches)
+QUEUE_CYCLES = 4_000_000
 
 
 def link_state(edges, root: str, area: str = "0", **drains) -> LinkState:
@@ -807,6 +848,142 @@ def reset_kernel(dev) -> dict:
     return out
 
 
+def recorded_chunks(dev) -> dict:
+    """label -> [(args, kwargs)] of kernel 10's calls (``select_chunk``) in
+    each what-if phase of ``chip_smoke.py``, run through its own helpers:
+    (a) the headline sweep (its base at b = 1 and its chunks), (b) the
+    criticality report over the same world, (c) the grid query (node0's
+    two links and 30 links drawn with seed 0) and the grid's set of 3, on
+    the 64 x 64 grid at 100 prefixes a node."""
+    import chip_smoke as cs
+    from openr_tpu_torch.decision import whatif_api
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.ops import sweep_select
+    from openr_tpu_torch.ops import whatif as whatif_ops
+
+    calls = []
+    real = sweep_select.select_chunk
+
+    def record(*args, **kwargs):
+        calls.append((args, {k: v for k, v in kwargs.items() if k != "out"}))
+        return real(*args, **kwargs)
+
+    def take(run):
+        calls.clear()
+        run()
+        torch.cuda.synchronize()
+        return list(calls)
+
+    sweep_select.select_chunk = record
+    out = {}
+    try:
+        ls, ps, topo = cs.headline_world()
+        fails = cs.headline_failures(topo)
+        out["(a)"] = take(lambda: cs.headline_sweep(
+            topo, whatif_ops.LinkFailureSweep(topo, "node0", device=dev), fails, device=dev))
+        engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
+        out["(b)"] = take(lambda: cs.criticality(engine, ls, ps))
+        _dbs, areas, gps = cs.grid_world()
+        query, sim = cs.grid_queries(areas, np.random.default_rng(0))
+        grid_engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
+        out["(c)"] = take(lambda: grid_engine.run(query, areas, gps, 1))
+        out["(c) set of 3"] = take(
+            lambda: grid_engine.run(sim, areas, gps, 1, simultaneous=True))
+    finally:
+        sweep_select.select_chunk = real
+    return out
+
+
+def warm_dist_inputs(dev) -> dict:
+    """label -> the arguments of ``CudaBackend._warm_tables`` where the
+    main path runs kernel 4: the grid's undrain and restoring ticks
+    (:func:`reset_inputs`), and phase (g)'s warm weakening on the KSP2
+    backbone (``chip_smoke.backbone_dbs``: V = 16,384, E = 32,768, vantage
+    core0, eight plain loopbacks; the first backbone link, drawn with seed
+    0, whose weakening by 5 the planner sends to kernels 4 and 5)."""
+    import chip_smoke as cs
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.types import PrefixEntry
+
+    out = reset_inputs(dev)
+    dbs, nodes = cs.backbone_dbs()
+    areas = cs.backbone_copy(dbs)
+    ps = PrefixState()
+    for i in range(8):
+        ps.update_prefix(nodes[i * 997 % len(nodes)], "0", PrefixEntry(f"10.9.{i}.1/32"))
+    be = cs.KernelPath(SpfSolver("core0"))
+    be.build_route_db(areas, ps)
+    enc = csr.encode_multi_area(areas, "core0")
+    core = sorted((l.n1, l.n2) for l in enc.topos[0].links
+                  if l.n1.startswith("core") and l.n2.startswith("core")
+                  and "core0" not in (l.n1, l.n2))
+    warm = dict(changed_prefixes=set(), force_full=True, warm_delta=True)
+    for k in np.random.default_rng(0).permutation(len(core)):
+        a, b = core[int(k)]
+        metric = next(x.metric for x in dbs[a].adjacencies if x.other_node_name == b)
+        cs.set_metric(areas, dbs, a, b, metric + 5)
+        cs.set_metric(areas, dbs, b, a, metric + 5)
+        be.build_route_db(areas, ps, **warm)
+        if "warm" in be.io:
+            out["(g) weakening"] = be.io["warm"][0]
+            break
+    return out
+
+
+def chunk_warm_kernels(dev) -> dict:
+    """Kernels 10 and 4 at every shape ``chip_smoke.py`` launches them:
+    per launch and per call of the entry point, with each shape's bound
+    (``chip_smoke.chunk_bytes`` and ``chunk_ops``, ``warm_distances_bytes``
+    and one relaxation per usable edge); kernel 4 also at its rounds, and
+    where the checkout has ``spf.WARM_DIST_CLUSTER``, at clusters of 1, 2,
+    4 and 8, its records in the global list and its state global."""
+    import chip_smoke as cs
+    from openr_tpu_torch.ops import sweep_select
+
+    out = {}
+    for label, calls in recorded_chunks(dev).items():
+        shapes = {}
+        for args, kw in calls:
+            shapes.setdefault(args[0].shape[1], (args, kw, []))[2].append(1)
+        for b, (args, kw, n) in sorted(shapes.items()):
+            key = f"select_chunk {label} b={b}"
+            P, C = args[5].shape
+            launch, outs = sweep_select.select_chunk_launcher(*args, **kw)
+            launch()
+            out[f"{key} V,b,P,C,D,launches"] = [args[0].shape[0], b, P, C, args[-1], len(n)]
+            out[f"{key} bound ms"] = bound_ms(cs.chunk_bytes(args, outs), cs.chunk_ops(args))
+            out[key] = launch_ms(launch)
+            out[f"{key}, queued"] = queued_ms(launch)
+            out[f"{key}, per call"] = launch_ms(lambda: sweep_select.select_chunk(*args, **kw))
+    for label, args in warm_dist_inputs(dev).items():
+        key = f"warm_spf_distances ({label})"
+        src, dst, w, ok, ovl, roots, prev_dist, prev_nh, reset, lane_keep, D = args
+        seg = (src, dst, w, ok, ovl, roots)
+        d0, _nh0 = spf.warm_seeds(prev_dist, prev_nh, reset, lane_keep)
+        launch, (dist, k_r) = spf.warm_spf_distances_launcher(*seg, d0)
+        launch()
+        usable, _lanes = cs.segment_relaxations(src, ok, ovl, roots, D)
+        out[f"{key} A,V,E"] = [src.shape[0], ovl.shape[1], src.shape[1]]
+        out[f"{key} kernel rounds"] = int(k_r.max())
+        out[f"{key} rounds"] = int(spf.warm_spf_distances_plain(*seg, d0, unroll=1)[1].max())
+        out[f"{key} reset vertices"] = int(reset.sum())
+        out[f"{key} bound ms"] = bound_ms(cs.warm_distances_bytes(src, ok, ovl, roots, d0, dist),
+                                          2 * int(usable.sum()))
+        out[key] = launch_ms(launch)
+        out[f"{key}, queued"] = queued_ms(launch)
+        out[f"{key}, per call"] = launch_ms(lambda: spf.warm_spf_distances(*seg, d0))
+        make = lambda: spf.warm_spf_distances_launcher(*seg, d0)  # noqa: E731
+        out[f"{key}, bind (host)"] = bind_ms(make)
+        if hasattr(spf, "WARM_DIST_CLUSTER"):
+            V = ovl.shape[1]
+            out[f"{key} rule cluster"] = spf.warm_dist_cluster_size(V, src.shape[1])
+            sweep(make, key, {"WARM_DIST_CLUSTER": (1, 2, 4, 8)}, out)
+            fixed = spf.warm_dist_fixed_bytes(V, -(-V // spf.warm_dist_cluster_size(V, src.shape[1])))
+            sweep(make, key, {"MAX_SHARED_BYTES": (fixed, 0)}, out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_batch_kernels: no CUDA device available", file=sys.stderr)
@@ -818,7 +995,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree", "flagship",
-                              "repair", "dense", "select", "sweep", "reset"]
+                              "repair", "dense", "select", "sweep", "reset", "chunkwarm"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
@@ -844,6 +1021,8 @@ def main() -> int:
         out.update(sweep_kernel(dev))
     if "reset" in groups:
         out.update(reset_kernel(dev))
+    if "chunkwarm" in groups:
+        out.update(chunk_warm_kernels(dev))
     print(json.dumps(out), flush=True)
     return 0
 

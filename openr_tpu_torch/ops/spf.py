@@ -582,26 +582,93 @@ def _check_segments(src, dst, w, edge_ok, overloaded, roots, batch=None):
     return A, V, E, dev
 
 
+#: blocks of kernel 4's thread block cluster per area (1, 2, 4 or 8);
+#: None: by the rule of :func:`warm_dist_cluster_size`
+WARM_DIST_CLUSTER = None
+#: edges of the padded list a block of kernel 4 takes before the rule
+#: spreads an area over more blocks (kernel 1's DENSE_BLOCK_SLOTS)
+WARM_BLOCK_EDGES = 2048
+#: dynamic shared memory a block of kernel 4 may take beside its static
+#: bytes (scan counts, vote slots): ``kWarmDynamicSmem`` of ``spf_warm.cu``,
+#: which the C entry checks (a test holds the two equal)
+WARM_DIST_SHARED_BYTES = 232448 - 4352
+
+
+def warm_dist_cluster_size(V: int, E: int) -> int:
+    """Kernel 4's blocks per area (a thread block cluster, each block with
+    a copy of the area's distances): ``WARM_DIST_CLUSTER`` where it is set,
+    else the fewest of 1, 2, 4 and 8 at which each block's share of the
+    padded edge list stays within ``WARM_BLOCK_EDGES``, and no more blocks
+    than vertices."""
+    if WARM_DIST_CLUSTER is not None:
+        return int(WARM_DIST_CLUSTER)
+    c = 1
+    while c < 8 and E > c * WARM_BLOCK_EDGES and 2 * c <= V:
+        c *= 2
+    return c
+
+
+def warm_dist_head_ints(S: int) -> int:
+    """int32 words of a kernel-4 block's heads {first record, usable
+    in-degree} [S] and group runs [ceil(S / 32) + 1], in 16-byte words
+    (``warm_dist_head_ints`` of ``spf_warm.cu``)."""
+    return _words16(4 * (2 * S + (S + 31) // 32 + 1))
+
+
+def warm_dist_fixed_bytes(V: int, S: int) -> int:
+    """Kernel 4's fixed block state in shared memory: the area's distances
+    (during the packing, the slice's record cursors), then the heads."""
+    return 4 * (_words16(4 * (V + V % 2)) + warm_dist_head_ints(S))
+
+
+def warm_distances_layout(V: int, E: int, cluster: int):
+    """``(S, cap_shared, global_state)`` of kernel 4: the slice of each
+    block (``S = ceil(V / cluster)`` vertices), the records (8 bytes each)
+    its shared memory holds beside its fixed state within
+    ``MAX_SHARED_BYTES`` (a block whose rows of 32 exceed it keeps its
+    records in the global list; at ``32 * E`` every block's rows fit), and
+    whether the fixed state itself is past
+    shared memory (then the cluster relaxes the output row, its heads in a
+    global scratch)."""
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"cluster {cluster} must be 1, 2, 4 or 8")
+    S = -(-V // cluster)
+    budget = min(MAX_SHARED_BYTES, WARM_DIST_SHARED_BYTES) - warm_dist_fixed_bytes(V, S)
+    if budget < 0:
+        return S, 0, True
+    # rows of 32 hold at most 32 slots per usable edge of the slice
+    return S, min(32 * E, budget // 8), False
+
+
 def warm_spf_distances_launcher(src, dst, w, edge_ok, overloaded, roots, d0):
-    """Check the inputs, derive the segment offsets, allocate the outputs
-    and bind the kernel once.  Returns ``(launch, (dist, rounds))``: each
-    ``launch()`` enqueues the kernel (no synchronize) and counts one
-    launch."""
+    """Check the inputs, allocate the outputs and the scratch and bind
+    kernel 4 once.  Returns ``(launch, (dist, rounds))``: each ``launch()``
+    enqueues the kernel (no synchronize) and counts one launch.  Each area
+    runs on :func:`warm_dist_cluster_size` blocks, which pack their usable
+    in-edges into records in shared memory where they fit
+    (:func:`warm_distances_layout`), else into the global list held here
+    (one element where every block's rows fit); nothing is derived from
+    the edges here."""
     A, V, E, dev = _check_segments(src, dst, w, edge_ok, overloaded, roots)
     check_tensor("d0", d0, torch.float32, (A, V), dev)
-    seg_off = segment_offsets(dst, V)
-    seg_end = torch.empty((A, V), dtype=torch.int32, device=dev)
+    cluster = warm_dist_cluster_size(V, E)
+    S, cap, global_state = warm_distances_layout(V, E, cluster)
+    rows_fit = not global_state and cap >= 32 * E
+    records = torch.empty(1 if rows_fit else max(1, 2 * A * E), dtype=torch.int32, device=dev)
+    heads = (torch.empty(A * cluster * warm_dist_head_ints(S), dtype=torch.int32, device=dev)
+             if global_state else None)
     dist = torch.empty((A, V), dtype=torch.float32, device=dev)
     rounds = torch.empty((A,), dtype=torch.int32, device=dev)
     fn = function("spf_warm", "openr_warm_spf_distances", WARM_SPF_DISTANCES_ARGTYPES)
     args = (
         ptr(src), ptr(dst), ptr(w), ptr(edge_ok), ptr(overloaded), ptr(roots),
-        ptr(d0), ptr(seg_off), ptr(seg_end), ptr(dist), ptr(rounds), A, V, E,
-        BIG, stream(dev),
+        ptr(d0), ptr(dist), ptr(rounds), ptr(records),
+        ptr(heads) if global_state else None, A, V, E, cluster, cap, BIG,
+        stream(dev),
     )
 
-    # the default argument keeps the derived layout and scratch alive
-    def launch(_held=(seg_off, seg_end)) -> None:
+    # the default argument keeps the scratch alive for every later launch
+    def launch(_held=(records, heads)) -> None:
         if A == 0:
             return
         check_launch("warm_spf_distances", fn(*args))
@@ -1011,7 +1078,7 @@ def masked_state_bytes(V: int, E: int, cap: int, threads: int) -> int:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DENSE_SPF_DISTANCES_ARGTYPES = [_P] * 7 + [_I] * 6 + [_F, _P]
 DENSE_SPF_NEXTHOP_LANES_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _P]
-WARM_SPF_DISTANCES_ARGTYPES = [_P] * 11 + [_I] * 3 + [_F, _P]
+WARM_SPF_DISTANCES_ARGTYPES = [_P] * 11 + [_I] * 5 + [_F, _P]
 SPF_NEXTHOP_LANES_RESET_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _P]
 WARM_SUBGRAPH_REPAIR_ARGTYPES = [_P] * 15 + [_I] * 4 + [_F, _P]
 SWEEP_SPF_LINK_FAILURES_ARGTYPES = [_P] * 15 + [_I] * 8 + [_F, _P]

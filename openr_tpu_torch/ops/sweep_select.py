@@ -194,7 +194,8 @@ def select_chunk_plain(
     return out
 
 
-#: kernel 10 runs one grid row per snapshot (CUDA's grid y limit)
+#: the most snapshots kernel 10 takes in a chunk (its grid runs a row per
+#: 32-snapshot word, well within CUDA's grid y limit of 65,535)
 MAX_CHUNK_SNAPSHOTS = 65535
 
 #: the ctypes argument types of the C entry points of this module's
