@@ -140,8 +140,10 @@ rows, half from each half, on every prefix against the scalar oracle
 chain in plain Python); ``entry()`` on the card against its CPU forward.
 Any mismatch or exception exits non-zero.
 
-Prints the kernel and phase times with the card's name and power limit,
-a ``{"kernels": [...]}`` line, and last
+Prints the kernel and phase times with the card's name and power limit
+(kernel 3 at each shape the run gives it, with its launches there; kernel
+17 at the flagship step and at ``entry()``), a ``{"kernels": [...]}``
+line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
@@ -378,6 +380,7 @@ class KernelPath(CudaBackend):
     def _select(self, *args):
         out = super()._select(*args)
         self.io["select"] = (args, out)
+        self.io.setdefault("select_calls", []).append(args)
         return out
 
     def _select_delta(self, *args):
@@ -555,6 +558,13 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
 
+def select_shape(args):
+    """(P, C, A, V, D) of a call of kernel 3."""
+    P, C = args[4].shape
+    A, V, D = args[1].shape
+    return P, C, A, V, D
+
+
 def select_ops(P, C, A, D):
     # ~8 compare/select ops per candidate per chain stage, plus the
     # per-area lane sums
@@ -600,22 +610,28 @@ def warm_distances_bytes(src, ok, ovl, roots, d0, dist):
     return nbytes(ok, ovl, roots, d0, dist) + 12 * usable + 4 * (n_ok - usable)
 
 
-def select_bytes(args, kw, outs):
-    """Bytes kernel 13 must move on these inputs: the candidate tables,
-    drains, ``prev_*`` and outputs once; per batch row, the distance of
-    each cell a candidate names in its own area and of each cell a
-    surviving candidate (``use``) resolves to in an area that holds a
-    winner, and the D lane bytes of each cell a min-cost winner of a
-    (row, area) pair resolves to (its distance equals the pair's
-    ``shortest``); not the whole [B, A, V, D] tables."""
-    dist, nh, overloaded, soft, cand_area, cand_node, *rest = args
-    cnia = rest[5]
+def select_bytes(args, kw, outs, ok_only=False):
+    """Bytes kernels 13 and 3 must move on these inputs (kernel 3 as
+    [1, A, V] tables): the candidate tables, drains, ``prev_*`` and
+    outputs once; per batch row, the distance of each cell a candidate
+    names in its own area and of each cell a surviving candidate (``use``)
+    resolves to in an area that holds a winner, and the D lane bytes of
+    each cell a min-cost winner of a (row, area) pair resolves to (its
+    distance equals the pair's ``shortest``); not the whole [B, A, V, D]
+    tables.  ``ok_only`` (kernel 3, which reads a row's ok bytes first):
+    the candidates' seven other columns and own cells only for the slots
+    that are ok (a slot that is not ok joins no selection, and a row with
+    no ok slot, such as the candidate table's bucket padding, reads its ok
+    bytes alone)."""
+    dist, nh, overloaded, soft, cand_area, cand_node, cand_ok = args[:7]
+    metrics, cnia = args[7:11], args[11]
     use, shortest = outs[0], outs[1]
     B, A, V = dist.shape
     D = nh.shape[-1]
     dev = dist.device
     area = torch.arange(A, device=dev)
-    own = (cand_area.long() * V + cand_node.long()).reshape(-1)
+    own = cand_area.long() * V + cand_node.long()
+    own = own[cand_ok] if ok_only else own.reshape(-1)
     cell = area * V + cnia.clamp(min=0).long()  # [P, C, A]
     named = cnia >= 0
     winner_area = cand_area.long()[:, :, None] == area  # [P, C, A]
@@ -631,7 +647,10 @@ def select_bytes(args, kw, outs):
         lanes = torch.zeros(A * V, dtype=torch.bool, device=dev)
         lanes[cell[mc]] = True
         cells += 4 * int(seen.sum()) + D * int(lanes.sum())
-    return nbytes(overloaded, soft, cand_area, cand_node, *rest, *kw.values(), *outs) + cells
+    if not ok_only:
+        return nbytes(overloaded, soft, *args[4:12], *kw.values(), *outs) + cells
+    columns = (4 * len(metrics) + 8 + 4 * A) * int(cand_ok.sum())
+    return nbytes(overloaded, soft, cand_ok, *kw.values(), *outs) + columns + cells
 
 
 class KernelReport:
@@ -651,6 +670,9 @@ class KernelReport:
         #: the main path calls it (its checks, derived layout and
         #: allocations, and the launch), by label
         self.per_call = {}
+        #: kernel 3's timing key by shape (P, C, A, V, D): each shape the run
+        #: gives it is timed once, on the first build that runs it
+        self.select_keys = {}
 
     def held(self, name, pairs):
         """Record and require exact agreement of (kernel, plain) output
@@ -701,7 +723,7 @@ class KernelReport:
         if "sub" in io:
             self._check_sub(*io["sub"], timed)
         if "select" in io:
-            self._check_select(*io["select"], timed)
+            self._check_select(*io["select"], io["select_calls"])
         if "delta" in io:
             self._check_delta(*io["delta"], timed)
 
@@ -833,20 +855,34 @@ class KernelReport:
             nbytes(*args[:4]) + 2 * nbytes(want[0]) + 2 * nbytes(want[1]), r_d + r_l,
         )
 
-    def _check_select(self, args, out, timed):
-        def p_sel():
-            return rs.multi_area_select_from_tables_plain(*args)
-
-        want = p_sel()
+    def _check_select(self, args, out, calls):
+        """Hold kernel 3's last call of the build against its plain
+        version; time and count the build's calls by shape."""
+        want = rs.multi_area_select_from_tables_plain(*args)
         got = rs.multi_area_select_from_tables_cuda(*args)
         self.held(SELECT, list(zip(got, want)) + list(zip(out, want)))
-        if not timed:
-            return
-        P, C = args[4].shape
-        A, _V, D = args[1].shape
-        launch, _ = rs.multi_area_select_from_tables_launcher(*args)
-        t_bytes = nbytes(*args) + nbytes(*out)
-        self.time(SELECT, launch, p_sel, t_bytes, select_ops(P, C, A, D), t_bytes, 1)
+        self.select_shapes(calls)
+
+    def select_shapes(self, calls):
+        """Time kernel 3 once at each shape (P, C, A, V, D) the run gives
+        it, on the first build that runs it (the first, the grid's cold
+        build, under the kernel's name), and count each of ``calls`` (its
+        arguments) under its shape's key."""
+        for args in calls:
+            shape = select_shape(args)
+            if shape not in self.select_keys:
+                P, C, A, V, D = shape
+                key = SELECT if not self.select_keys else (
+                    f"{SELECT} at {self.tick} [P {P}, C {C}, A {A}, V {V}, D {D}]")
+                self.select_keys[shape] = key
+                launch, outs = rs.multi_area_select_from_tables_launcher(*args)
+                launch()
+                t_bytes = select_bytes((args[0][None], args[1][None], *args[2:12]), {},
+                                       tuple(o[None] for o in outs), ok_only=True)
+                self.time(key, launch, lambda: rs.multi_area_select_from_tables_plain(*args),
+                          t_bytes, select_ops(P, C, A, D), t_bytes, 1)
+                self.timing[key]["launches"] = 0
+            self.timing[self.select_keys[shape]]["launches"] += 1
 
     def _check_delta(self, args, out, timed):
         name = "multi_area_select_delta_from_tables"
@@ -1884,6 +1920,11 @@ KSP2_ENTRIES = (
      spf.batched_spf_distances_masked_sets_plain),
 )
 PLAIN_OF["spf_distances_masked"] = spf.batched_spf_distances_masked_sets_plain
+#: kernel 3 as the backend calls it (the device-build what-if's builds)
+SELECT_ENTRIES = (
+    (backend_mod, "multi_area_select_from_tables", SELECT, rs.multi_area_select_from_tables_plain),
+)
+PLAIN_OF[SELECT] = rs.multi_area_select_from_tables_plain
 KSP2_COLD = COLD | {SELECT, "spf_distances_masked"}
 
 
@@ -2078,9 +2119,11 @@ def ksp2_phase(report, rng):
     links = [on_paths[i] for i in rng.choice(
         len(on_paths), min(KSP2_WHATIF_LINKS, len(on_paths)), replace=False)]
     eng = whatif_api.DeviceBuildWhatIfEngine(SpfSolver("core0"))
-    got, _rec, walls["g: device-build what-if"] = whatif_run(
+    got, rec, walls["g: device-build what-if"] = whatif_run(
         report, "ksp2:whatif", KSP2_COLD, lambda: eng.run(links, areas["kernel"], wps, 1),
-        entries=KSP2_ENTRIES)
+        entries=KSP2_ENTRIES + SELECT_ENTRIES)
+    report.tick = "ksp2:whatif"
+    report.select_shapes([args for args, _kw, _outs in rec.calls[SELECT]])
     generic = whatif_api.GenericSolverWhatIfEngine(SpfSolver("core0"))
     want = generic.run(links, areas["oracle"], wps, 1)
     check(got["failures"] == want["failures"], "device-build answers != GenericSolverWhatIfEngine")
@@ -2340,11 +2383,7 @@ def time_flagship(report, rec, mask, rows_d):
     report.per_call[f"batched_spf, spf.batched_spf at {B} rows"] = per_launch_ms(
         lambda: spf.batched_spf(*args), launches=20)
     (args, _kw, outs), = rec.calls["batched_select_routes"]
-    P, C = args[0].shape
-    launch, _ = rs.batched_select_routes_launcher(*args)
-    t_bytes = nbytes(*args, *outs)
-    report.time("batched_select_routes", launch, lambda: rs.batched_select_routes_plain(*args),
-                t_bytes, B * select_ops(P, C, 1, D), t_bytes, 1, plain_spans=2)
+    time_batched_select(report, args, outs)
     print(f"[flagship] kernel 16 rows: {usable / B:.1f} usable edges per row", flush=True)
     for name in ("batched_spf", "batched_select_routes"):
         t = report.timing[name]
@@ -2352,6 +2391,18 @@ def time_flagship(report, rec, mask, rows_d):
         print(f"[flagship] {name}: {t['ms']:.4f} ms per launch (host issue "
               f"{t['host_issue_ms']:.4f}), plain {t['plain_ms']:.2f} ms, bound {bound:.5f} ms "
               f"({by})", flush=True)
+
+
+def time_batched_select(report, args, outs, key=None):
+    """Time kernel 17 on one recorded call (under ``key``, default its
+    name), with its bound: inputs read and outputs written once, the
+    chain's operations per row."""
+    B, D = args[8].shape[0], args[8].shape[-1]
+    P, C = args[0].shape
+    launch, _ = rs.batched_select_routes_launcher(*args)
+    t_bytes = nbytes(*args, *outs)
+    report.time("batched_select_routes", launch, lambda: rs.batched_select_routes_plain(*args),
+                t_bytes, B * select_ops(P, C, 1, D), t_bytes, 1, key=key, plain_spans=2)
 
 
 def flagship_phase(report, rng):
@@ -2431,8 +2482,12 @@ def flagship_phase(report, rng):
 
     # the entry point at the reference's own shape
     forward, e_args = graft_entry.entry()
-    e_outs, _rec, walls["i: entry()"] = whatif_run(
+    e_outs, e_rec, walls["i: entry()"] = whatif_run(
         report, "flagship:entry", FLAGSHIP, lambda: forward(*e_args), entries=FLAGSHIP_ENTRIES)
+    (s_args, _kw, s_outs), = e_rec.calls["batched_select_routes"]
+    key = f"batched_select_routes at entry() (B = {s_args[8].shape[0]})"
+    time_batched_select(report, s_args, s_outs, key=key)
+    report.timing[key]["launches"] = 1
     cpu_forward, cpu_args = graft_entry.entry(device="cpu")
     check(all(torch.equal(g.cpu(), c) for g, c in zip(e_outs, cpu_forward(*cpu_args))),
           "entry() on the card != entry(device='cpu')")
@@ -2546,6 +2601,12 @@ def main():
         print(f"kernel {key}: {t['ms']:.4f} ms per launch (host issue {t['host_issue_ms']:.4f}), "
               f"plain {t['plain_ms']:.4f} ms, bound {bound:.5f} ms ({bound_by}), rounds "
               f"{t['rounds']}, launches there {t.get('launches', 'n/a')} ({smi})", flush=True)
+    shapes = {key: report.timing[key]["launches"] for key in report.select_keys.values()}
+    check(sum(shapes.values()) == report.launches[SELECT],
+          "kernel 3's launches by shape do not sum to its launches")
+    print(f"kernel {SELECT} launches by shape: {SELECT} (the grid's cold build shape) "
+          f"{shapes[SELECT]}; " + "; ".join(f"{k} {n}" for k, n in shapes.items() if k != SELECT),
+          flush=True)
     for key, (dev_ms, host_ms) in report.per_call.items():
         print(f"per call {key}: {dev_ms:.4f} ms (host issue {host_ms:.4f}) ({smi})", flush=True)
     print(f"kernel spf_nexthop_lanes_reset from an all-zero seed (undrain tick's input): "

@@ -19,6 +19,7 @@ machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -150,6 +151,19 @@ def stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of the CUDA ``device``, read once per device (a tile
+    rule reads it on every call)."""
+    return _sm_count(device.index if device.index is not None else 0)
 
 
 def check_launch(name: str, rc: int) -> None:

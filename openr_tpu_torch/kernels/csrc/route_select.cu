@@ -2,13 +2,14 @@
 //
 // Replaces the jitted XLA kernels of the JAX package
 //   openr_tpu/ops/route_select.py:267 multi_area_select_from_tables
-//       (kernel 3 here: multi_area_select_kernel<false>)
+//       (kernel 3 here: fleet_select_kernel<false, W, true> at one batch
+//       row)
 //   openr_tpu/ops/route_select.py:368 multi_area_select_delta_from_tables
-//       (kernel 7 here: multi_area_select_kernel<true>)
+//       (kernel 7 here: multi_area_select_delta_kernel)
 // and the vmap of kernel 3 over vantage roots or failure snapshots in
 //   openr_tpu/ops/fleet_tables.py:27, :89, :154 (with the per-root diff
 //       of :205-210) and :217
-//       (kernel 13 here: fleet_select_kernel<false / true>)
+//       (kernel 13 here: fleet_select_kernel<false / true, W, false>)
 // (SpfSolver.cpp:161-312, 456-556; LsdbUtil.cpp:761-823), computed for
 // every prefix row p over its C candidate advertisements:
 //   1. reach: candidate ok and its node reached by SPF in its own area
@@ -19,28 +20,35 @@
 //      that area (only areas holding a winner advertisement), and the
 //      union of the min-cost winners' first-hop lanes
 // Outputs: use [P, C], shortest [P, A] f32, lanes [P, A, D], valid [P, A]
-// (bool tensors, one byte each).  Kernel 7 runs the same body (the
-// template flag) and then flags changed[p] when any output differs from
-// the previous generation's, or when a candidate touches a node whose
-// drain state moved (node_changed [A, V]): for cand_ok slots, the
-// candidate's own-area cell and every area's cell it resolves to
-// (cand_node_in_area >= 0).  The host re-decodes only the flagged rows.
+// (bool tensors, one byte each).  Kernel 7 then flags changed[p] when any
+// output differs from the previous generation's, or when a candidate
+// touches a node whose drain state moved (node_changed [A, V]): for
+// cand_ok slots, the candidate's own-area cell and every area's cell it
+// resolves to (cand_node_in_area >= 0).  The host re-decodes only the
+// flagged rows.
 //
-// Kernels 3 and 7: one thread per row, looping over C, A and D; the
-// row's candidate sets are bitmasks in a register (C <= 64, the largest
-// candidate bucket).  What bounds them: bytes.  Each row reads its [C]
-// and [C, A] candidate columns once and writes its outputs once; the SPF
+// Kernel 7: one thread per row, looping over C, A and D; the row's
+// candidate sets are bitmasks in a register (C <= 64, the largest
+// candidate bucket).  What bounds it: bytes.  Each row reads its [C] and
+// [C, A] candidate columns once and writes its outputs once; the SPF
 // tables it gathers from are small and stay in L2.
 //
-// Kernel 13: a block per tile of TP consecutive prefix rows of one batch
-// row b, so each of the tile's outputs (use [TP, C], shortest and valid
-// [TP, A], lanes [TP, A, D]) is one contiguous span.  Phase 1: a thread
-// per row runs the chain to the winner mask, every key compared in
+// Kernels 13 and 3: a block per tile of TP consecutive prefix rows of one
+// batch row b, so each of the tile's outputs (use [TP, C], shortest and
+// valid [TP, A], lanes [TP, A, D]) is one contiguous span.  Phase 1: a
+// thread per row runs the chain to the winner mask, every key compared in
 // registers (the not-drained key is a 0/1 mask, no indexed local array);
-// then a thread per (row, area) pair finds the pair's min-cost winners
-// and shortest metric and writes the shortest at once (consecutive pairs,
-// consecutive addresses).  Phase 2: the block sweeps the tile's lane span,
-// W bytes a thread (W = 16, 8, 4 or 1: the most that divides D and the
+// kernel 3 (kOkOnly) runs it over the row's ok candidates alone: a
+// candidate that is not ok joins no selection, so the row reads its
+// cand_ok bytes first and nothing else of a slot that is not ok (a row
+// with none, such as the candidate table's bucket padding, reads only
+// those bytes and writes the empty outputs), where kernel 13 reads a
+// slot's columns beside its ok byte (one dependent load fewer; the flag
+// cost it up to 6 % at its shapes, PERF.md).  Then a thread per (row,
+// area) pair finds the pair's min-cost winners and shortest metric and
+// writes the shortest at once (consecutive pairs, consecutive
+// addresses).  Phase 2: the block sweeps the tile's lane span, W bytes a
+// thread (W = 16, 8, 4 or 1: the most that divides D and the
 // pointers' alignment): each byte is the int32 SUM over the pair's
 // min-cost winners of nh[b, a, n, l], then > 0, so a winner's -128 fill
 // cancels as it does in the reference; a winner's W lane bytes are one
@@ -49,7 +57,8 @@
 // coalesced.  The diff variant compares each output with prev_* as it
 // writes it, and votes per block into changed[b] (zeroed before the
 // launch).  What bounds it: bytes, the lane table written once, and the
-// nh rows and distances of the winners gathered once each.
+// nh rows and distances of the winners gathered once each.  Kernel 3 is
+// this kernel at B = 1: its [A, V] tables are the [1, A, V] ones.
 //
 // Traps reproduced exactly:
 //   * keep_max starts from INT32_MIN, keep_min from INT32_MAX, and both
@@ -63,6 +72,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "smem.cuh"
 
 namespace {
 
@@ -87,10 +98,9 @@ __device__ __forceinline__ uint64_t keep_max(uint64_t mask, const int32_t* key,
   return out;
 }
 
-// The selection chain of row p; with kDiff, returns whether any output
-// differs from the previous generation's (else false).
-template <bool kDiff>
-__device__ __forceinline__ bool select_row(
+// Kernel 7's selection chain of row p; returns whether any output differs
+// from the previous generation's.
+__device__ __forceinline__ bool select_delta_row(
     int p, const float* __restrict__ dist, const int8_t* __restrict__ nh,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
     const int32_t* __restrict__ cand_area, const int32_t* __restrict__ cand_node,
@@ -151,7 +161,7 @@ __device__ __forceinline__ bool select_row(
   for (int c = 0; c < C; ++c) {
     const uint8_t u = (use >> c) & 1;
     use_out[row + c] = u;
-    if (kDiff) changed |= u != prev_use[row + c];
+    changed |= u != prev_use[row + c];
   }
 
   // 5. per-area min-cost winners and their lane union
@@ -190,21 +200,18 @@ __device__ __forceinline__ bool select_row(
       }
       lanes_out[out * D + l] = hits > 0;
       num_nh += hits > 0;
-      if (kDiff) changed |= (hits > 0) != (prev_lanes[out * D + l] != 0);
+      changed |= (hits > 0) != (prev_lanes[out * D + l] != 0);
     }
     const bool valid = mc != 0 && num_nh > 0;
     shortest_out[out] = shortest;
     valid_out[out] = valid;
-    if (kDiff) {
-      changed |= shortest != prev_shortest[out];
-      changed |= valid != (prev_valid[out] != 0);
-    }
+    changed |= shortest != prev_shortest[out];
+    changed |= valid != (prev_valid[out] != 0);
   }
   return changed;
 }
 
-template <bool kDelta>
-__global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
+__global__ void __launch_bounds__(kThreads) multi_area_select_delta_kernel(
     const float* __restrict__ dist, const int8_t* __restrict__ nh,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
     const int32_t* __restrict__ cand_area, const int32_t* __restrict__ cand_node,
@@ -224,12 +231,11 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
     int per_area, float big) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
-  bool changed = select_row<kDelta>(
+  bool changed = select_delta_row(
       p, dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
       drain_metric, path_pref, source_pref, distance, cand_node_in_area,
       use_out, shortest_out, lanes_out, valid_out, prev_use, prev_shortest,
       prev_lanes, prev_valid, C, A, V, D, per_area, big);
-  if (!kDelta) return;
   const size_t row = (size_t)p * C;
   const int32_t* area = cand_area + row;
   // drain-state touches: decode wraps the winning entry from LinkState's
@@ -246,6 +252,9 @@ __global__ void __launch_bounds__(kThreads) multi_area_select_kernel(
 }
 
 // Kernel 13's chain of row p (steps 1-4) to its winner mask, in registers.
+// kOkOnly (kernel 3): over the row's ok candidates alone, read first, so a
+// row with none reads its cand_ok bytes alone.
+template <bool kOkOnly>
 __device__ __forceinline__ uint64_t fleet_row_use(
     size_t row, const float* __restrict__ dist,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
@@ -258,15 +267,31 @@ __device__ __forceinline__ uint64_t fleet_row_use(
   const int32_t* area = cand_area + row;
   // 1-2. reachability, hard-drain filter with all-drained fallback, and
   // the not-drained key as a mask (advertised drain metric or soft-drained
-  // node clear it)
+  // node clear it; only a reached, so ok, candidate is ever kept)
   uint64_t reach = 0, nonhard = 0, not_drained = 0;
-  for (int c = 0; c < C; ++c) {
-    const size_t node = (size_t)area[c] * V + cand_node[row + c];
-    if (cand_ok[row + c] && dist[node] < big) {
-      reach |= bit(c);
-      if (!overloaded[node]) nonhard |= bit(c);
+  if constexpr (kOkOnly) {
+    uint64_t ok = 0;
+    for (int c = 0; c < C; ++c)
+      if (cand_ok[row + c]) ok |= bit(c);
+    if (!ok) return 0;
+    for (uint64_t m = ok; m; m &= m - 1) {
+      const int c = __ffsll(m) - 1;
+      const size_t node = (size_t)area[c] * V + cand_node[row + c];
+      if (dist[node] < big) {
+        reach |= bit(c);
+        if (!overloaded[node]) nonhard |= bit(c);
+      }
+      if (!(drain_metric[row + c] > 0 || soft[node] > 0)) not_drained |= bit(c);
     }
-    if (!(drain_metric[row + c] > 0 || soft[node] > 0)) not_drained |= bit(c);
+  } else {
+    for (int c = 0; c < C; ++c) {
+      const size_t node = (size_t)area[c] * V + cand_node[row + c];
+      if (cand_ok[row + c] && dist[node] < big) {
+        reach |= bit(c);
+        if (!overloaded[node]) nonhard |= bit(c);
+      }
+      if (!(drain_metric[row + c] > 0 || soft[node] > 0)) not_drained |= bit(c);
+    }
   }
   uint64_t use = nonhard ? nonhard : reach;
   // 3. metric chain: a 0/1 key keeps the 1s where any is kept
@@ -310,8 +335,9 @@ template <int W> union LaneBytes {
 };
 
 // Kernel 13 over tiles of TP prefix rows: block (b, tile) with its winner
-// masks and lane flags in dynamic shared memory (fleet_select_smem).
-template <bool kDiff, int W>
+// masks and lane flags in dynamic shared memory (fleet_select_smem);
+// kOkOnly as in fleet_row_use.
+template <bool kDiff, int W, bool kOkOnly>
 __global__ void __launch_bounds__(kSelectThreads) fleet_select_kernel(
     const float* __restrict__ dist, const int8_t* __restrict__ nh,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
@@ -347,7 +373,7 @@ __global__ void __launch_bounds__(kSelectThreads) fleet_select_kernel(
   // its min-cost winners (only areas holding a winner advertisement) and
   // shortest metric over the winners' node names resolved in the area
   for (int r = threadIdx.x; r < np; r += T)
-    use_s[r] = fleet_row_use((size_t)(p0 + r) * C, dist_b, overloaded, soft, cand_area,
+    use_s[r] = fleet_row_use<kOkOnly>((size_t)(p0 + r) * C, dist_b, overloaded, soft, cand_area,
                              cand_node, cand_ok, drain_metric, path_pref, source_pref,
                              distance, C, V, per_area, big);
   __syncthreads();
@@ -450,14 +476,13 @@ __host__ __device__ inline size_t fleet_select_smem(int TP, int A) {
   return (size_t)TP * 8 + (size_t)TP * A * 12;
 }
 
-template <bool kDiff, int W>
+template <bool kDiff, int W, bool kOkOnly>
 int launch_fleet_select(const void* const* p, int B, int P, int C, int A, int V, int D,
                         int per_area, int TP, float big, cudaStream_t stream) {
   const int tiles = (P + TP - 1) / TP;
   const size_t smem = fleet_select_smem(TP, A);
-  const auto kernel = fleet_select_kernel<kDiff, W>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr auto kernel = fleet_select_kernel<kDiff, W, kOkOnly>;
+  const cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B * tiles, kSelectThreads, smem, stream>>>(
       (const float*)p[0], (const int8_t*)p[1], (const uint8_t*)p[2], (const int32_t*)p[3],
@@ -469,7 +494,7 @@ int launch_fleet_select(const void* const* p, int B, int P, int C, int A, int V,
   return (int)cudaGetLastError();
 }
 
-template <bool kDiff>
+template <bool kDiff, bool kOkOnly>
 int launch_fleet_select_w(const void* const* p, int B, int P, int C, int A, int V, int D,
                           int per_area, int TP, float big, cudaStream_t stream) {
   // the widest lane vector that divides D and every lane pointer's alignment
@@ -477,57 +502,96 @@ int launch_fleet_select_w(const void* const* p, int B, int P, int C, int A, int 
   const auto fits = [&](const void* q) { return q == nullptr || (uintptr_t)q % W == 0; };
   while (W > 1 && (D % W || !fits(p[1]) || !fits(p[14]) || !fits(p[18]))) W = W > 4 ? W / 2 : 1;
   switch (W) {
-    case 16: return launch_fleet_select<kDiff, 16>(p, B, P, C, A, V, D, per_area, TP, big, stream);
-    case 8: return launch_fleet_select<kDiff, 8>(p, B, P, C, A, V, D, per_area, TP, big, stream);
-    case 4: return launch_fleet_select<kDiff, 4>(p, B, P, C, A, V, D, per_area, TP, big, stream);
-    default: return launch_fleet_select<kDiff, 1>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+    case 16:
+      return launch_fleet_select<kDiff, 16, kOkOnly>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+    case 8:
+      return launch_fleet_select<kDiff, 8, kOkOnly>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+    case 4:
+      return launch_fleet_select<kDiff, 4, kOkOnly>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+    default:
+      return launch_fleet_select<kDiff, 1, kOkOnly>(p, B, P, C, A, V, D, per_area, TP, big, stream);
   }
 }
 
-template <bool kDelta>
-int launch_select(const void* dist, const void* nh, const void* overloaded,
-                  const void* soft, const void* cand_area,
-                  const void* cand_node, const void* cand_ok,
-                  const void* drain_metric, const void* path_pref,
-                  const void* source_pref, const void* distance,
-                  const void* cand_node_in_area, void* use, void* shortest,
-                  void* lanes, void* valid, const void* prev_use,
-                  const void* prev_shortest, const void* prev_lanes,
-                  const void* prev_valid, const void* node_changed,
-                  void* changed, int P, int C, int A, int V, int D,
-                  int per_area, float big, void* stream) {
+// Kernel 13 (ok_only false) or kernel 3 (B = 1, no previous generation,
+// ok_only true): checks, the changed flags zeroed, the launch.
+int launch_fleet(const void* const* p, int B, int P, int C, int A, int V, int D, int per_area,
+                 int tile_rows, float big, bool ok_only, cudaStream_t stream) {
+  const int TP = tile_rows < P ? tile_rows : P;
+  // a tile's winner masks and lane flags must fit shared memory
+  if (C > 64 || tile_rows < 1 || fleet_select_smem(TP, A) > kSelectDynamicSmem)
+    return (int)cudaErrorInvalidValue;
+  const bool diff = p[16] != nullptr;
+  if (diff) {
+    cudaError_t err = cudaMemsetAsync(const_cast<void*>(p[20]), 0, (size_t)B, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (B == 0 || P == 0) return (int)cudaSuccess;
+  if (diff) return launch_fleet_select_w<true, false>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+  return ok_only
+             ? launch_fleet_select_w<false, true>(p, B, P, C, A, V, D, per_area, TP, big, stream)
+             : launch_fleet_select_w<false, false>(p, B, P, C, A, V, D, per_area, TP, big, stream);
+}
+
+int launch_select_delta(const void* dist, const void* nh, const void* overloaded,
+                        const void* soft, const void* cand_area, const void* cand_node,
+                        const void* cand_ok, const void* drain_metric, const void* path_pref,
+                        const void* source_pref, const void* distance,
+                        const void* cand_node_in_area, void* use, void* shortest, void* lanes,
+                        void* valid, const void* prev_use, const void* prev_shortest,
+                        const void* prev_lanes, const void* prev_valid,
+                        const void* node_changed, void* changed, int P, int C, int A, int V,
+                        int D, int per_area, float big, void* stream) {
   if (C > 64) return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
   const int blocks = (P + kThreads - 1) / kThreads;
-  multi_area_select_kernel<kDelta>
-      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
-          (const int32_t*)soft, (const int32_t*)cand_area,
-          (const int32_t*)cand_node, (const uint8_t*)cand_ok,
-          (const int32_t*)drain_metric, (const int32_t*)path_pref,
-          (const int32_t*)source_pref, (const int32_t*)distance,
-          (const int32_t*)cand_node_in_area, (uint8_t*)use, (float*)shortest,
-          (uint8_t*)lanes, (uint8_t*)valid, (const uint8_t*)prev_use,
-          (const float*)prev_shortest, (const uint8_t*)prev_lanes,
-          (const uint8_t*)prev_valid, (const uint8_t*)node_changed,
-          (uint8_t*)changed, P, C, A, V, D, per_area, big);
+  multi_area_select_delta_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
+      (const int32_t*)soft, (const int32_t*)cand_area, (const int32_t*)cand_node,
+      (const uint8_t*)cand_ok, (const int32_t*)drain_metric, (const int32_t*)path_pref,
+      (const int32_t*)source_pref, (const int32_t*)distance,
+      (const int32_t*)cand_node_in_area, (uint8_t*)use, (float*)shortest, (uint8_t*)lanes,
+      (uint8_t*)valid, (const uint8_t*)prev_use, (const float*)prev_shortest,
+      (const uint8_t*)prev_lanes, (const uint8_t*)prev_valid, (const uint8_t*)node_changed,
+      (uint8_t*)changed, P, C, A, V, D, per_area, big);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+extern "C" int openr_fleet_select(
+    const void* dist, const void* nh, const void* overloaded, const void* soft,
+    const void* cand_area, const void* cand_node, const void* cand_ok,
+    const void* drain_metric, const void* path_pref, const void* source_pref,
+    const void* distance, const void* cand_node_in_area, void* use,
+    void* shortest, void* lanes, void* valid, const void* prev_use,
+    const void* prev_shortest, const void* prev_lanes, const void* prev_valid,
+    void* changed, int B, int P, int C, int A, int V, int D, int per_area,
+    int tile_rows, float big, void* stream) {
+  const void* p[21] = {dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+                       drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+                       use, shortest, lanes, valid, prev_use, prev_shortest, prev_lanes,
+                       prev_valid, changed};
+  return launch_fleet(p, B, P, C, A, V, D, per_area, tile_rows, big, false,
+                      (cudaStream_t)stream);
+}
+
+// Kernel 3: kernel 13 at one batch row (its [A, V] tables are the
+// [1, A, V] ones), without a previous generation, over each row's ok
+// candidates alone.
 extern "C" int openr_multi_area_select(
     const void* dist, const void* nh, const void* overloaded, const void* soft,
     const void* cand_area, const void* cand_node, const void* cand_ok,
     const void* drain_metric, const void* path_pref, const void* source_pref,
     const void* distance, const void* cand_node_in_area, void* use,
     void* shortest, void* lanes, void* valid, int P, int C, int A, int V,
-    int D, int per_area, float big, void* stream) {
-  return launch_select<false>(
-      dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
-      path_pref, source_pref, distance, cand_node_in_area, use, shortest,
-      lanes, valid, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, P,
-      C, A, V, D, per_area, big, stream);
+    int D, int per_area, int tile_rows, float big, void* stream) {
+  const void* p[21] = {dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
+                       drain_metric, path_pref, source_pref, distance, cand_node_in_area,
+                       use, shortest, lanes, valid, nullptr, nullptr, nullptr, nullptr,
+                       nullptr};
+  return launch_fleet(p, 1, P, C, A, V, D, per_area, tile_rows, big, true,
+                      (cudaStream_t)stream);
 }
 
 extern "C" int openr_multi_area_select_delta(
@@ -539,38 +603,9 @@ extern "C" int openr_multi_area_select_delta(
     const void* prev_shortest, const void* prev_lanes, const void* prev_valid,
     const void* node_changed, void* changed, int P, int C, int A, int V,
     int D, int per_area, float big, void* stream) {
-  return launch_select<true>(
+  return launch_select_delta(
       dist, nh, overloaded, soft, cand_area, cand_node, cand_ok, drain_metric,
       path_pref, source_pref, distance, cand_node_in_area, use, shortest,
       lanes, valid, prev_use, prev_shortest, prev_lanes, prev_valid,
       node_changed, changed, P, C, A, V, D, per_area, big, stream);
-}
-
-extern "C" int openr_fleet_select(
-    const void* dist, const void* nh, const void* overloaded, const void* soft,
-    const void* cand_area, const void* cand_node, const void* cand_ok,
-    const void* drain_metric, const void* path_pref, const void* source_pref,
-    const void* distance, const void* cand_node_in_area, void* use,
-    void* shortest, void* lanes, void* valid, const void* prev_use,
-    const void* prev_shortest, const void* prev_lanes, const void* prev_valid,
-    void* changed, int B, int P, int C, int A, int V, int D, int per_area,
-    int tile_rows, float big, void* stream) {
-  const int TP = tile_rows < P ? tile_rows : P;
-  // a tile's winner masks and lane flags must fit shared memory
-  if (C > 64 || tile_rows < 1 || fleet_select_smem(TP, A) > kSelectDynamicSmem)
-    return (int)cudaErrorInvalidValue;
-  const bool diff = prev_use != nullptr;
-  if (diff) {
-    cudaError_t err = cudaMemsetAsync(changed, 0, (size_t)B, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (B == 0 || P == 0) return (int)cudaSuccess;
-  const void* p[21] = {dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
-                       drain_metric, path_pref, source_pref, distance, cand_node_in_area,
-                       use, shortest, lanes, valid, prev_use, prev_shortest, prev_lanes,
-                       prev_valid, changed};
-  return diff ? launch_fleet_select_w<true>(p, B, P, C, A, V, D, per_area, TP, big,
-                                            (cudaStream_t)stream)
-              : launch_fleet_select_w<false>(p, B, P, C, A, V, D, per_area, TP, big,
-                                             (cudaStream_t)stream);
 }

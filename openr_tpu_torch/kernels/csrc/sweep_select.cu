@@ -36,9 +36,9 @@
 //     across the warp (five shuffles), after which lane s holds snapshot
 //     s's bits; below, one broadcast word nh[node, d, sw] per (winner, d),
 //     of which each lane takes its own bit.
-// The chain skips what cannot change its result (select_chain's kLean:
-// candidates that are not ok past the first loop, and the keep filters
-// where one candidate is left).
+// The chain (select_chain, shared with kernel 17) skips what cannot change
+// its result: candidates that are not ok past the first loop, and the keep
+// filters where one candidate is left.
 // Results are staged in shared memory (a snapshot's row of the stage
 // padded by the lane-group count, so the stores of a warp hit 32 banks),
 // then written transposed: a warp stores 32 consecutive prefixes of one
@@ -71,23 +71,41 @@
 // prefix), with the row's own hard drains, soft drains and root, against
 // row tables dist [B, V] and unpacked int8 lanes nh [B, V, D]; it writes
 // all five outputs (valid, metric, lanes [B, P, D] int8, num_nexthops,
-// use [B, P, C]).  Design: one thread per (row, prefix), rows on grid x
-// through a grid-stride loop (kernel 10's per-snapshot grid y stops at
-// 65,535).  What bounds it: bytes — the outputs are written once (the
-// lanes [B, P, D] and use [B, P, C] dominate), each row's dist and the
-// winners' lane rows are gathered from L2.
+// use [B, P, C]).  Design: a block of 256 threads per tile of TP
+// consecutive prefixes of one row b (TP from the launcher), so each of the
+// tile's outputs is one contiguous span of [B, P, *].  The block stages
+// row b's dist, overloaded and soft, and then its lane rows nh[b], in
+// shared memory by cp.async where they fit beside the tile's lane and use
+// stages (else it reads them from L2).  A thread per prefix then runs the chain, writes metric,
+// num and valid at once (consecutive prefixes, consecutive addresses),
+// and forms its D lane bytes as up to 16 words in registers: the bytewise
+// signed max (__vmaxs4) of the winners' lane words (each two aligned
+// words and a funnel shift), the first winner's clamped at 0 where a
+// candidate is no winner (a non-winner contributes 0, so a lone winner's
+// -128 fill survives only where every candidate wins, as in the
+// reference), num the signed byte sum (__dp4a).  It ORs its lane words
+// and its use bytes (4 a word) into zeroed stages in shared memory, placed
+// at the output spans' alignment mod 16 (neighbouring prefixes share
+// words: shared atomics); the block then stores both spans as 16-byte
+// words, with the head and tail bytes apart (at D = 17 a span starts
+// mid-word).  What bounds it: bytes — the outputs are written once (the
+// lanes [B, P, D] and use [B, P, C] dominate) and each row's tables, the
+// lane table among them, read once; at the flagship shape the chain and
+// the lanes' instructions cost more than the copies (PERF.md).
 //
 // Traps: metric comparisons are exact (no --use_fast_math); a prefix
 // beyond P in the last changed word is masked off; kernel 17's lane rows
-// (D = 17 on the flagship world) are read and written bytewise, no
-// alignment assumed.
+// (D = 17 on the flagship world) start at any byte, so a lane word is read
+// as two aligned words and a funnel shift (from L2 the second only where
+// the row reaches into it: never past the table).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
-constexpr int kSelectThreads = 256;
 constexpr int kCompactThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -117,16 +135,15 @@ struct Selection {
   bool self_wins;    // the root advertises among the winners
 };
 
-// kLean (kernel 10) drops work that cannot change the result; kernel 17
-// runs the chain in full (the default):
+// The chain skips what cannot change its result:
 //   * a candidate that is not ok is never reached, so it needs no
-//     hard-drain bit, and the candidates after the last ok one never join
-//     the selection: the later loops stop before them (a row with no ok
-//     candidate has no winner, so its min-nexthop requirement, then
-//     INT32_MIN rather than 0, decides nothing);
+//     distance or hard-drain bit, and the candidates after the last ok one
+//     never join the selection: the later loops stop before them (a row
+//     with no ok candidate has no winner, so its min-nexthop requirement,
+//     then INT32_MIN rather than 0, decides nothing);
 //   * where at most one candidate survives the reach and hard-drain
 //     filters, the keep-max and keep-min filters keep it as it is.
-template <class Dist, class Hard, class Soft, bool kLean = false>
+template <class Dist, class Hard, class Soft>
 __device__ __forceinline__ Selection select_chain(
     const int32_t* node, const uint8_t* ok, const int32_t* drain_metric,
     const int32_t* path_pref, const int32_t* source_pref,
@@ -136,21 +153,16 @@ __device__ __forceinline__ Selection select_chain(
   int last_ok = -1;
   for (int c = 0; c < C; ++c) {
     const int n = node[c];
-    if constexpr (kLean) {
-      if (ok[c]) {
-        last_ok = c;
-        if (dist_of(n) < big) reach |= bit(c);
-        if (hard_of(n)) hard |= bit(c);
-      }
-    } else {
-      if (ok[c] && dist_of(n) < big) reach |= bit(c);
+    if (ok[c]) {
+      last_ok = c;
+      if (dist_of(n) < big) reach |= bit(c);
       if (hard_of(n)) hard |= bit(c);
     }
   }
-  if constexpr (kLean) C = last_ok + 1;
+  C = last_ok + 1;
   const uint64_t nonhard = reach & ~hard;
   uint64_t use = nonhard ? nonhard : reach;
-  if (!kLean || (use & (use - 1))) {
+  if (use & (use - 1)) {
     // not drained: neither an advertised drain metric nor a soft drain
     int32_t best = INT32_MIN;
     for (int c = 0; c < C; ++c)
@@ -261,10 +273,9 @@ __global__ void __launch_bounds__(kTileThreads) select_chunk_kernel(
     const auto dist_of = [&](int n) { return dist[(size_t)n * b + sc]; };
     const auto hard_of = [&](int n) { return overloaded[n] != 0; };
     const auto soft_of = [&](int n) { return soft[n]; };
-    const Selection sel =
-        select_chain<decltype(dist_of), decltype(hard_of), decltype(soft_of), true>(
-            node, cand_ok + row, drain_metric + row, path_pref + row, source_pref + row,
-            distance + row, min_nexthop + row, C, root, big, dist_of, hard_of, soft_of);
+    const Selection sel = select_chain(
+        node, cand_ok + row, drain_metric + row, path_pref + row, source_pref + row,
+        distance + row, min_nexthop + row, C, root, big, dist_of, hard_of, soft_of);
 
     int num_nh = 0;
     bool lanes_differ = false;
@@ -346,14 +357,98 @@ __global__ void __launch_bounds__(kTileThreads) select_chunk_kernel(
   }
 }
 
-// Kernel 17: the chain for every (row, prefix) pair i = b * P + p, one
-// thread each in a grid-stride loop (rows on grid x: no 65,535 limit),
-// against row b's tables dist [B, V] and unpacked int8 lanes nh [B, V, D],
-// hard drains overloaded [B, V], soft drains soft [B, V] and root
-// roots[b].  The lane union is the reference's int8 max over the
-// candidates, a non-winner contributing 0 (so a lone winner's -128 fill
-// row survives, as there); num_nh sums the lanes in int32.
-__global__ void __launch_bounds__(kSelectThreads) batched_select_kernel(
+// Kernel 17's blocks: kBatchedThreads threads, a stage of at most
+// kBatchedSmemMax bytes (the card's dynamic shared memory a block) laid
+// out by batched_layout.
+constexpr int kBatchedThreads = 256;
+constexpr size_t kBatchedSmemMax = 232448;
+// lane words a thread holds in registers at a time (64 lane bytes)
+constexpr int kLaneWords = 16;
+
+// Byte offsets of kernel 17's stage regions: each starts on 16 bytes and
+// keeps 16 more, so that the data can sit at its source's (or its
+// destination's) address mod 16; the lane table keeps 8 more, so a
+// lane word read as two aligned words stays inside it.
+struct BatchedLayout {
+  size_t lanes, use, dist, soft, ovl, nh, total;  // nh: the row tables' end
+};
+
+__host__ __device__ inline size_t region(size_t bytes) { return (bytes + 16 + 15) & ~(size_t)15; }
+
+__host__ __device__ inline BatchedLayout batched_layout(int TP, int V, int C, int D) {
+  BatchedLayout L;
+  L.lanes = 0;
+  L.use = L.lanes + region((size_t)TP * D);
+  L.dist = L.use + region((size_t)TP * C);
+  L.soft = L.dist + region((size_t)V * 4);
+  L.ovl = L.soft + region((size_t)V * 4);
+  L.nh = L.ovl + region((size_t)V);
+  L.total = L.nh + region((size_t)V * D + 8);
+  return L;
+}
+
+// The block copies n bytes from global src to shared dst, equal mod 16:
+// the head bytes up to a 16-byte boundary, then 16-byte words by cp.async
+// (all in flight at once; the caller waits), then the tail bytes.
+__device__ __forceinline__ void load_span(uint8_t* dst, const uint8_t* src, size_t n) {
+  const size_t head = min(n, (size_t)((16 - ((uintptr_t)src & 15)) & 15));
+  const size_t words = (n - head) / 16;
+  for (size_t i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  for (size_t k = threadIdx.x; k < words; k += blockDim.x) {
+    const unsigned to = (unsigned)__cvta_generic_to_shared(dst + head + 16 * k);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(src + head + 16 * k));
+  }
+  for (size_t i = head + 16 * words + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// The block copies n bytes from shared src to global dst, equal mod 16:
+// head bytes, 16-byte words, tail bytes.
+__device__ __forceinline__ void store_span(uint8_t* dst, const uint8_t* src, size_t n) {
+  const size_t head = min(n, (size_t)((16 - ((uintptr_t)src & 15)) & 15));
+  const size_t words = (n - head) / 16;
+  for (size_t i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  uint4* dw = reinterpret_cast<uint4*>(dst + head);
+  const uint4* sw = reinterpret_cast<const uint4*>(src + head);
+  for (size_t k = threadIdx.x; k < words; k += blockDim.x) dw[k] = sw[k];
+  for (size_t i = head + 16 * words + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// Byte offset in its region of a span at global address g (the span sits
+// at g's address mod 16).
+__device__ __forceinline__ size_t span_at(const void* g) { return (uintptr_t)g & 15; }
+
+// ORs the 4 bytes x into the stage words w at byte offset off (any
+// alignment; neighbouring prefixes own the other bytes of the words).
+__device__ __forceinline__ void or_word(uint32_t* w, size_t off, uint32_t x) {
+  if (!x) return;
+  const size_t a = off >> 2;
+  const unsigned s = (unsigned)(off & 3) * 8;
+  atomicOr(w + a, x << s);
+  if (s && (x >> (32 - s))) atomicOr(w + a + 1, x >> (32 - s));
+}
+
+// A lane word's bytes clamped at 0 (the max with a non-winner's 0).
+__device__ __forceinline__ uint32_t clamp0(uint32_t v) {
+  return v & ~(((v & 0x80808080u) >> 7) * 0xFFu);
+}
+
+// Word k of a lane row whose first byte is `lo`'s byte sh / 8 (lo, hi the
+// aligned words at and after it): from the staged table the next aligned
+// word always (it stays inside the table's region); from L2 only where
+// the row's `left` bytes reach into it.
+template <bool kStaged>
+__device__ __forceinline__ uint32_t row_word(const uint32_t* w, int k, unsigned sh, int left) {
+  const uint32_t lo = w[k];
+  const uint32_t hi = (kStaged || (sh && left > 4 - (int)(sh >> 3))) ? w[k + 1] : 0u;
+  return __funnelshift_r(lo, hi, sh);
+}
+
+// Kernel 17: block (b, tile) over prefixes p0 .. p0 + np - 1 of row b (see
+// the header).  kRows: row b's dist, overloaded and soft are staged;
+// kLanes: its lane rows nh[b] too.  At most 64 registers a thread, so 4
+// blocks fit an SM where their stages do (the flagship's 50 KB each).
+template <bool kRows, bool kLanes>
+__global__ void __launch_bounds__(kBatchedThreads, 4) batched_select_kernel(
     const float* __restrict__ dist, const int8_t* __restrict__ nh,
     const uint8_t* __restrict__ overloaded, const int32_t* __restrict__ soft,
     const int32_t* __restrict__ roots, const int32_t* __restrict__ cand_node,
@@ -364,40 +459,99 @@ __global__ void __launch_bounds__(kSelectThreads) batched_select_kernel(
     const int32_t* __restrict__ distance,
     const int32_t* __restrict__ min_nexthop, uint8_t* __restrict__ valid_out,
     float* __restrict__ metric_out, int8_t* __restrict__ nh_out,
-    int32_t* __restrict__ num_out, uint8_t* __restrict__ use_out, int B,
-    int V, int P, int C, int D, float big) {
-  const size_t total = (size_t)B * P;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int b = (int)(i / P);
-    const int p = (int)(i - (size_t)b * P);
-    const size_t row = (size_t)p * C;
-    const int32_t* node = cand_node + row;
-    const float* d = dist + (size_t)b * V;
-    const uint8_t* ovl = overloaded + (size_t)b * V;
-    const int32_t* sft = soft + (size_t)b * V;
-    const Selection sel = select_chain(
-        node, cand_ok + row, drain_metric + row, path_pref + row,
-        source_pref + row, distance + row, min_nexthop + row, C, roots[b],
-        big, [&](int n) { return d[n]; }, [&](int n) { return ovl[n] != 0; },
-        [&](int n) { return sft[n]; });
-    for (int c = 0; c < C; ++c) use_out[i * C + c] = (sel.use >> c) & 1u;
-    const int8_t* lanes = nh + (size_t)b * V * D;
-    int num_nh = 0;
-    for (int l = 0; l < D; ++l) {
-      int x = INT32_MIN;
-      for (int c = 0; c < C; ++c) {
-        const int y = (sel.winners & bit(c)) ? lanes[(size_t)node[c] * D + l] : 0;
-        x = y > x ? y : x;
-      }
-      nh_out[i * D + l] = (int8_t)x;
-      num_nh += x;
-    }
-    num_out[i] = num_nh;
-    valid_out[i] = sel.winners && !sel.self_wins && sel.best_igp < big &&
-                   num_nh > 0 && num_nh >= sel.req;
-    metric_out[i] = sel.best_igp;
+    int32_t* __restrict__ num_out, uint8_t* __restrict__ use_out, int tiles,
+    int TP, int V, int P, int C, int D, float big) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const BatchedLayout L = batched_layout(TP, V, C, D);
+  const int b = blockIdx.x / tiles;
+  const int p0 = (blockIdx.x - b * tiles) * TP;
+  const int np = min(TP, P - p0);
+  const size_t out0 = (size_t)b * P + p0;  // the tile's first (row, prefix)
+  int8_t* lanes_g = nh_out + out0 * D;
+  uint8_t* use_g = use_out + out0 * C;
+
+  const float* d = dist + (size_t)b * V;
+  const uint8_t* ovl = overloaded + (size_t)b * V;
+  const int32_t* sft = soft + (size_t)b * V;
+  const int8_t* tab = nh + (size_t)b * V * D;
+  if constexpr (kRows) {
+    uint8_t* ds = smem + L.dist + span_at(d);
+    uint8_t* ss = smem + L.soft + span_at(sft);
+    uint8_t* os = smem + L.ovl + span_at(ovl);
+    load_span(ds, reinterpret_cast<const uint8_t*>(d), (size_t)V * 4);
+    load_span(ss, reinterpret_cast<const uint8_t*>(sft), (size_t)V * 4);
+    load_span(os, ovl, V);
+    d = reinterpret_cast<const float*>(ds);
+    sft = reinterpret_cast<const int32_t*>(ss);
+    ovl = os;
   }
+  if constexpr (kLanes) {
+    uint8_t* ts = smem + L.nh + span_at(tab);
+    load_span(ts, reinterpret_cast<const uint8_t*>(tab), (size_t)V * D);
+    tab = reinterpret_cast<const int8_t*>(ts);
+  }
+  // the lane and use stages start at 0: the prefixes OR their bytes in
+  uint4* zero = reinterpret_cast<uint4*>(smem);
+  for (size_t k = threadIdx.x; k < L.dist / 16; k += blockDim.x) zero[k] = make_uint4(0, 0, 0, 0);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  uint32_t* lanes_w = reinterpret_cast<uint32_t*>(smem + L.lanes);
+  uint32_t* use_w = reinterpret_cast<uint32_t*>(smem + L.use);
+  const size_t lanes0 = span_at(lanes_g), use0 = span_at(use_g);
+  const int root = roots[b];
+  const uint64_t every = C == 64 ? ~0ull : bit(C) - 1;
+  const int Dw = (D + 3) / 4;
+  for (int r = threadIdx.x; r < np; r += blockDim.x) {
+    const size_t row = (size_t)(p0 + r) * C;
+    const int32_t* node = cand_node + row;
+    const Selection sel = select_chain(
+        node, cand_ok + row, drain_metric + row, path_pref + row, source_pref + row,
+        distance + row, min_nexthop + row, C, root, big, [&](int n) { return d[n]; },
+        [&](int n) { return ovl[n] != 0; }, [&](int n) { return sft[n]; });
+    // use: 4 candidates' bits a word, one byte each
+    for (int k = 0; 4 * k < C; ++k)
+      or_word(use_w, use0 + (size_t)r * C + 4 * k,
+              (((uint32_t)(sel.use >> (4 * k)) & 0xFu) * 0x00204081u) & 0x01010101u);
+    // lanes: the reference's int8 max over the C candidates, a non-winner
+    // giving 0 (so the winners' max from 0, or from -128 where every
+    // candidate wins), kLaneWords words at a time in registers
+    const bool all = sel.winners == every;
+    int num = 0;
+    for (int k0 = 0; k0 < Dw; k0 += kLaneWords) {
+      uint32_t acc[kLaneWords];
+      bool first = true;
+      for (uint64_t m = sel.winners; m; m &= m - 1) {
+        const int8_t* src = tab + (size_t)node[__ffsll(m) - 1] * D + 4 * k0;
+        const unsigned below = (unsigned)((uintptr_t)src & 3);  // src's byte in its word
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(src - below);
+        const unsigned sh = below * 8;
+#pragma unroll
+        for (int k = 0; k < kLaneWords; ++k) {
+          if (k0 + k >= Dw) break;
+          const uint32_t v = row_word<kLanes>(w, k, sh, D - 4 * (k0 + k));
+          acc[k] = first ? (all ? v : clamp0(v)) : __vmaxs4(acc[k], v);
+        }
+        first = false;
+      }
+#pragma unroll
+      for (int k = 0; k < kLaneWords; ++k) {
+        if (k0 + k >= Dw) break;
+        uint32_t x = first ? 0u : acc[k];
+        if (k0 + k == Dw - 1 && (D & 3)) x &= (1u << (8 * (D & 3))) - 1u;
+        num = __dp4a((int)x, 0x01010101, num);
+        or_word(lanes_w, lanes0 + (size_t)r * D + 4 * (k0 + k), x);
+      }
+    }
+    const size_t i = out0 + r;
+    metric_out[i] = sel.best_igp;
+    num_out[i] = num;
+    valid_out[i] = sel.winners && !sel.self_wins && sel.best_igp < big && num > 0 &&
+                   num >= sel.req;
+  }
+  __syncthreads();
+  store_span(reinterpret_cast<uint8_t*>(lanes_g), smem + L.lanes + lanes0, (size_t)np * D);
+  store_span(use_g, smem + L.use + use0, (size_t)np * C);
 }
 
 // changed word g of the sweep-wide buffer, padding rows and the bits past
@@ -574,18 +728,32 @@ extern "C" int openr_batched_select_routes(
     const void* drain_metric, const void* path_pref, const void* source_pref,
     const void* distance, const void* min_nexthop, void* valid, void* metric,
     void* nh_out, void* num_nh, void* use, int B, int V, int P, int C, int D,
-    float big, void* stream) {
-  const size_t total = (size_t)B * P;
-  if (total == 0) return (int)cudaSuccess;
-  const size_t want = (total + kSelectThreads - 1) / kSelectThreads;
-  const int blocks = (int)(want < (1u << 30) ? want : (1u << 30));
-  batched_select_kernel<<<blocks, kSelectThreads, 0, (cudaStream_t)stream>>>(
+    int tile_rows, float big, void* stream) {
+  if (B == 0 || P == 0) return (int)cudaSuccess;
+  const int TP = tile_rows < P ? tile_rows : P;
+  const BatchedLayout L = batched_layout(TP, V, C, D);
+  // the lane and use stages are required; the row tables, then the lane
+  // table, are staged where the stage still fits
+  if (C < 1 || C > 64 || TP < 1 || L.dist > kBatchedSmemMax) return (int)cudaErrorInvalidValue;
+  const bool rows = L.nh <= kBatchedSmemMax;
+  const bool lanes = L.total <= kBatchedSmemMax;
+  const size_t smem = lanes ? L.total : rows ? L.nh : L.dist;
+  const int tiles = (P + TP - 1) / TP;
+  constexpr auto all = batched_select_kernel<true, true>;
+  constexpr auto rows_only = batched_select_kernel<true, false>;
+  constexpr auto none = batched_select_kernel<false, false>;
+  const auto kernel = lanes ? all : rows ? rows_only : none;
+  const cudaError_t err = lanes  ? allow_smem<all>(smem)
+                          : rows ? allow_smem<rows_only>(smem)
+                                 : allow_smem<none>(smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((size_t)B * tiles), kBatchedThreads, smem, (cudaStream_t)stream>>>(
       (const float*)dist, (const int8_t*)nh, (const uint8_t*)overloaded,
       (const int32_t*)soft, (const int32_t*)roots, (const int32_t*)cand_node,
       (const uint8_t*)cand_ok, (const int32_t*)drain_metric,
       (const int32_t*)path_pref, (const int32_t*)source_pref,
       (const int32_t*)distance, (const int32_t*)min_nexthop, (uint8_t*)valid,
-      (float*)metric, (int8_t*)nh_out, (int32_t*)num_nh, (uint8_t*)use, B, V,
+      (float*)metric, (int8_t*)nh_out, (int32_t*)num_nh, (uint8_t*)use, tiles, TP, V,
       P, C, D, big);
   return (int)cudaGetLastError();
 }

@@ -119,11 +119,24 @@ call (parent, change, change, parent):
     4 and 8, and with its records in the global list and its state global.
     The group drives ``chip_smoke.py``'s own helpers and bounds: to time
     an older checkout, copy this file and ``chip_smoke.py`` into it.
+  * ``selection``: kernel 17 (``batched_select_routes``) at phase (i)'s
+    4,096 flagship rows on kernel 16's tables and at ``entry()``'s batch;
+    kernel 3 (``multi_area_select_from_tables``) at every shape
+    ``chip_smoke.py`` gives it, recorded through ``chip_smoke.KernelPath``
+    (the grid's full build, also at tiles of 32-512 rows, the churn's
+    gathered rows, the restore's warm-selective rows, the 3-area world,
+    the hubs of (e) and (h), (g)'s KSP2 cold build, churn and device-build
+    what-if); kernel
+    7 at the grid's drain delta; the flagship step's wall; kernel 10 at
+    the (a) and (c) chunks and kernel 13 at its seven shapes; each per
+    launch, queued and per call, with its bound (``chip_smoke``'s byte
+    counts: kernel 3's on its [1, A, V] view).  It reads the checkout's
+    ``chip_smoke.py`` for the worlds.
 
 Run from the root of the checkout to time, naming the groups (default:
 all of them)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset] [chunkwarm]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset] [chunkwarm] [selection]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
@@ -138,6 +151,7 @@ back-to-back binds) at (d), (f), the hub row and the (g) rows.
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import json
 import statistics
@@ -984,6 +998,239 @@ def chunk_warm_kernels(dev) -> dict:
     return out
 
 
+def hub_world(leaves: int):
+    """``chip_smoke``'s hub: ``leaves`` leaves on one hub, 64 of them with a
+    /24 (phases (e) and (h))."""
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.types import PrefixEntry
+
+    hub = link_state([("hub", f"leaf{i}", 1) for i in range(leaves)], "hub")
+    ps = PrefixState()
+    for i in range(64):
+        ps.update_prefix(f"leaf{i}", "0", PrefixEntry(f"10.3.{i}.0/24"))
+    return {"0": hub}, ps
+
+
+def recorded_route_selects() -> dict:
+    """label -> (kernel, args) of kernels 3 and 7 where ``chip_smoke.py``'s
+    main path runs them, recorded through ``chip_smoke.KernelPath`` on
+    its ticks in its order: kernel 3 at the grid's full build (64 x 64,
+    100 prefixes a node), at the churn tick's gathered rows (2,048
+    withdrawals and 2,048 new prefixes drawn with seed 0), at the
+    warm-selective rows of the restore tick (after the link-metric change,
+    node1's drain and undrain and the weakening), on the 3-area world, the
+    hubs of phases (e) and (h), phase (g)'s KSP2 cold build (the
+    wan_hierarchy backbone at 8,192 nodes, a loopback a node but the last
+    two), its churn tick (the two late loopbacks and one withdrawal) and
+    the device-build what-if's builds (64 loopbacks drawn with seed 0, on
+    backbone links of their first paths); kernel 7 at the grid's second
+    unhinted drain tick."""
+    import chip_smoke as cs
+    from openr_tpu_torch.decision import backend as backend_mod
+    from openr_tpu_torch.decision import whatif_api
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.types import PrefixEntry
+
+    out = {}
+
+    def build(label, be, areas, ps, key="select", **hints):
+        be.build_route_db(areas, ps, **hints)
+        torch.cuda.synchronize()
+        if label:
+            out[label] = ("multi_area_select_from_tables", be.io[key][0])
+        return be
+
+    dbs, areas, ps = cs.grid_world()
+    be = build("grid full build", cs.KernelPath(SpfSolver("node0")), areas, ps)
+    side = cs.GRID_SIDE
+    n = len(dbs)
+    mid = f"node{n // 2 + side // 2}"
+    adj = dbs[mid].adjacencies[0]
+    cs.set_metric(areas, dbs, mid, adj.other_node_name, adj.metric + 4)
+    build(None, be, areas, ps)
+    cs.set_overload(areas, dbs, "node1", True)
+    build(None, be, areas, ps)
+    owners = {p: next(iter(e))[0] for p, e in ps.prefixes().items()}
+    held = sorted(owners)
+    rng = np.random.default_rng(0)
+    changed = set()
+    for p in [held[i] for i in rng.choice(len(held), cs.CHURN, replace=False)]:
+        changed |= ps.delete_prefix(owners[p], "0", p)
+    names = sorted(dbs)
+    for i in range(cs.CHURN):
+        node = names[int(rng.integers(len(names)))]
+        changed |= ps.update_prefix(node, "0", PrefixEntry(f"10.100.{i >> 8}.{i & 255}/32"))
+    build("churn's gathered rows", be, areas, ps, changed_prefixes=changed)
+    warm = dict(changed_prefixes=set(), force_full=True, warm_delta=True)
+    cs.set_overload(areas, dbs, "node1", False)
+    build(None, be, areas, ps, **warm)
+    a, b = f"node{(side // 2) * side}", f"node{(side // 2 + 1) * side}"
+    for metric in (11, 1):  # the weakening, then the restore
+        cs.set_metric(areas, dbs, a, b, metric)
+        cs.set_metric(areas, dbs, b, a, metric)
+        build(None, be, areas, ps, **warm)
+    out["warm-selective rows"] = ("multi_area_select_from_tables", be.io["select"][0])
+    unhinted = dict(changed_prefixes=set(), force_full=True)
+    for node in (f"node{(side * 3 // 8) * side + side * 3 // 8}",
+                 f"node{(side * 5 // 8) * side + side * 5 // 8}"):
+        cs.set_overload(areas, dbs, node, True)
+        build(None, be, areas, ps, **unhinted)
+    out["grid drain delta"] = ("multi_area_select_delta_from_tables", be.io["delta"][0])
+    a3, ps3, me = cs.three_area_world()
+    build("3-area", cs.KernelPath(SpfSolver(me)), a3, ps3)
+    build("(e) hub", cs.KernelPath(SpfSolver("hub")), *hub_world(cs.HUB_LEAVES))
+    build("(h) hub", cs.KernelPath(SpfSolver("hub")), *hub_world(cs.HUB_LEAVES_LARGE))
+
+    bdbs, nodes = cs.backbone_dbs()
+    bps = PrefixState()
+    for i, node in enumerate(nodes[:-2]):
+        bps.update_prefix(node, "0", cs.loopback(i))
+    backbone = cs.backbone_copy(bdbs)
+    be = build("(g) KSP2 cold", cs.KernelPath(SpfSolver("core0")), backbone, bps, force_full=True)
+    changed = set()
+    for i in (len(nodes) - 2, len(nodes) - 1, 1):
+        if i == 1:
+            changed |= bps.delete_prefix(nodes[i], "0", cs.loopback(i).prefix)
+        else:
+            changed |= bps.update_prefix(nodes[i], "0", cs.loopback(i))
+    build("(g) churn", be, backbone, bps, changed_prefixes=changed)
+    wps = PrefixState()
+    owners = {p: next(iter(e)) for p, e in bps.prefixes().items()}
+    held = sorted(owners)
+    links = []
+    for i in np.random.default_rng(0).choice(len(held), cs.KSP2_WHATIF_PREFIXES, replace=False):
+        node, area = owners[held[i]]
+        wps.update_prefix(node, area, bps.prefixes()[held[i]][(node, area)])
+        for path in backbone["0"].get_kth_paths("core0", node, 1)[:1]:
+            links += [(l.n1, l.n2) for l in path if (l.n1, l.n2) not in links
+                      and l.n1.startswith("core") and l.n2.startswith("core")
+                      and "core0" not in (l.n1, l.n2)]
+    calls = []
+    real = backend_mod.multi_area_select_from_tables
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    backend_mod.multi_area_select_from_tables = record
+    try:
+        whatif_api.DeviceBuildWhatIfEngine(SpfSolver("core0")).run(
+            links[:cs.KSP2_WHATIF_LINKS], backbone, wps, 1)
+        torch.cuda.synchronize()
+    finally:
+        backend_mod.multi_area_select_from_tables = real
+    out["(g) device-build what-if"] = ("multi_area_select_from_tables", calls[0])
+    return out
+
+
+def selection_kernels(dev) -> dict:
+    """Kernels 17 and 3 at every shape ``chip_smoke.py`` runs them, per
+    launch (back to back and queued) and per call of the entry point, with
+    each shape's bound: kernel 17 at phase (i) (the flagship rows of
+    ``chip_smoke.flagship_rows`` on kernel 16's tables, with candidates of
+    ``chip_smoke.flagship_world`` drawn with seed 0) and at ``entry()``'s
+    batch; kernel 3 at :func:`recorded_route_selects`' shapes, the grid's also at
+    tiles of 32-512 rows (``rs.SELECT_TILE_ROWS``); kernel 7 at the grid's
+    drain delta; the flagship step's wall; kernel 10 at the (a) and (c)
+    chunks of :func:`recorded_chunks` and kernel 13 at the seven shapes
+    of :func:`recorded_selects`, as in the ``chunkwarm`` and ``select``
+    groups."""
+    import chip_smoke as cs
+    from openr_tpu_torch import graft_entry
+    from openr_tpu_torch.ops import route_select as rs
+    from openr_tpu_torch.ops import sweep_select
+
+    def timings(key, launch, call, t_bytes, ops):
+        out[f"{key} bound ms"] = bound_ms(t_bytes, ops)
+        out[key] = launch_ms(launch)
+        out[f"{key}, queued"] = queued_ms(launch)
+        out[f"{key}, per call"] = launch_ms(call)
+
+    out = {}
+    _edges, _ls, topo, cands = cs.flagship_world(np.random.default_rng(0))
+    failed, ovl, soft, roots = cs.flagship_rows(topo)
+    mask = csr.link_failure_batch(topo, [[int(f)] for f in failed])
+    D = topo.max_out_degree()
+    src, dst, w, ok, m, o, s, r = tables_from_numpy(
+        [topo.src, topo.dst, topo.w, topo.edge_ok, mask, ovl, soft, roots], dev)
+    cand = tables_from_numpy([cands.cand_node, cands.cand_ok, cands.drain_metric,
+                              cands.path_pref, cands.source_pref, cands.distance,
+                              cands.min_nexthop], dev)
+    dist, nh = spf.batched_spf(src, dst, w, ok, m, o, r, D)
+    flagship = (*cand, dist, nh, o, s, r)
+    calls = []
+    real = rs.batched_select_routes
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    forward, e_args = graft_entry.entry()
+    rs.batched_select_routes = record
+    try:
+        forward(*e_args)
+        torch.cuda.synchronize()
+    finally:
+        rs.batched_select_routes = real
+    for label, args in (("(i)", flagship), (f"entry() B={calls[0][8].shape[0]}", calls[0])):
+        key = f"batched_select_routes {label}"
+        launch, outs = rs.batched_select_routes_launcher(*args)
+        B, P, C, Dk = args[8].shape[0], args[0].shape[0], args[0].shape[1], args[8].shape[-1]
+        out[f"{key} B,V,P,C,D"] = [B, args[7].shape[1], P, C, Dk]
+        timings(key, launch, lambda: rs.batched_select_routes(*args),
+                cs.nbytes(*args, *outs), B * cs.select_ops(P, C, 1, Dk))
+    step = (src, dst, w, ok, m, o, s, r, *cand)
+    out["flagship step wall (host ms)"] = wall_ms(lambda: rs.spf_and_select(*step, max_degree=D), 5)
+
+    for label, (name, args) in recorded_route_selects().items():
+        key = f"{name} {label}"
+        if name == "multi_area_select_delta_from_tables":
+            make = lambda: rs.multi_area_select_delta_from_tables_launcher(*args)  # noqa: E731
+            call = lambda: rs.multi_area_select_delta_from_tables(*args)  # noqa: E731
+        else:
+            make = lambda: rs.multi_area_select_from_tables_launcher(*args)  # noqa: E731
+            call = lambda: rs.multi_area_select_from_tables(*args)  # noqa: E731
+        launch, outs = make()
+        launch()
+        P, C = args[4].shape
+        A, V, Dk = args[1].shape
+        out[f"{key} P,C,A,V,D"] = [P, C, A, V, Dk]
+        out[f"{key} rows with no ok candidate"] = int((~args[6].any(dim=1)).sum())
+        if name == "multi_area_select_delta_from_tables":  # chip_smoke's count for kernel 7
+            t_bytes = cs.nbytes(*args, *outs)
+        else:  # kernel 3 counted by its ok slots where the checkout's count has them
+            view = (args[0][None], args[1][None], *args[2:12])
+            ok_only = {"ok_only": True} if "ok_only" in inspect.signature(cs.select_bytes).parameters else {}
+            t_bytes = cs.select_bytes(view, {}, tuple(o[None] for o in outs), **ok_only)
+        timings(key, launch, call, t_bytes, cs.select_ops(P, C, A, Dk))
+        if label == "grid full build":
+            sweep(make, key, {"SELECT_TILE_ROWS": (32, 64, 128, 256, 512)}, out, mod=rs)
+
+    for label, chunk_calls in recorded_chunks(dev).items():
+        if label not in ("(a)", "(c)"):
+            continue
+        shapes = {}
+        for args, kw in chunk_calls:
+            shapes.setdefault(args[0].shape[1], (args, kw, []))[2].append(1)
+        for b, (args, kw, n) in sorted(shapes.items()):
+            key = f"select_chunk {label} b={b}"
+            launch, outs = sweep_select.select_chunk_launcher(*args, **kw)
+            launch()
+            out[f"{key} launches"] = len(n)
+            timings(key, launch, lambda: sweep_select.select_chunk(*args, **kw),
+                    cs.chunk_bytes(args, outs), cs.chunk_ops(args))
+    for label, (args, kw) in recorded_selects(dev).items():
+        key = f"fleet_select {label}"
+        B, A, _V = args[0].shape
+        P, C = args[4].shape
+        launch, outs = rs.fleet_select_launcher(*args, **kw)
+        launch()
+        timings(key, launch, lambda: rs.fleet_select(*args, **kw), cs.select_bytes(args, kw, outs),
+                B * cs.select_ops(P, C, A, args[1].shape[-1]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_batch_kernels: no CUDA device available", file=sys.stderr)
@@ -995,7 +1242,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree", "flagship",
-                              "repair", "dense", "select", "sweep", "reset", "chunkwarm"]
+                              "repair", "dense", "select", "sweep", "reset", "chunkwarm",
+                              "selection"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
@@ -1023,6 +1271,8 @@ def main() -> int:
         out.update(reset_kernel(dev))
     if "chunkwarm" in groups:
         out.update(chunk_warm_kernels(dev))
+    if "selection" in groups:
+        out.update(selection_kernels(dev))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -30,9 +30,10 @@ The host does skip-if-self, the min-nexthop gate and the cross-area
 min-metric merge during decode.  The delta variant also diffs every row
 against the previous generation's outputs, so a full rebuild moves only
 the changed rows to the host.  Both selections dispatch on the device of
-their inputs: the hand-written kernel (``kernels/csrc/route_select.cu``,
-one body under a template flag) for CUDA tensors, the plain version for
-CPU tensors, never a fallback.
+their inputs: the hand-written kernel (``kernels/csrc/route_select.cu``:
+the selection is kernel 13's tile body at one batch row, the delta its
+own) for CUDA tensors, the plain version for CPU tensors, never a
+fallback.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from openr_tpu_torch.kernels.build import (
     check_tensor,
     function,
     ptr,
+    sm_count,
     stream,
 )
 from openr_tpu_torch.ops.consts import BIG
@@ -59,18 +61,22 @@ I32_MAX = 2**31 - 1
 #: the kernel holds a row's candidate sets as 64-bit masks
 MAX_KERNEL_CANDIDATES = 64
 
-#: prefix rows per block (tile) of kernel 13; None: by the rule of
+#: prefix rows per block (tile) of kernels 13 and 3; None: by the rule of
 #: :func:`fleet_select_tile_rows`
 SELECT_TILE_ROWS = None
+
+#: a kernel-17 block's dynamic shared memory (``kBatchedSmemMax`` in
+#: ``kernels/csrc/sweep_select.cu``), which its tile's stage must fit
+BATCHED_SELECT_SMEM = 232448
 
 #: the ctypes argument types of the C entry points of this module's
 #: kernels (``openr_<name>``), in order: pointers (and the stream) as
 #: c_void_p, then the ints and BIG
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-MULTI_AREA_SELECT_ARGTYPES = [_P] * 16 + [_I] * 6 + [_F, _P]
+MULTI_AREA_SELECT_ARGTYPES = [_P] * 16 + [_I] * 7 + [_F, _P]
 MULTI_AREA_SELECT_DELTA_ARGTYPES = [_P] * 22 + [_I] * 6 + [_F, _P]
 FLEET_SELECT_ARGTYPES = [_P] * 21 + [_I] * 8 + [_F, _P]
-BATCHED_SELECT_ROUTES_ARGTYPES = [_P] * 17 + [_I] * 5 + [_F, _P]
+BATCHED_SELECT_ROUTES_ARGTYPES = [_P] * 17 + [_I] * 6 + [_F, _P]
 
 
 def select_routes_one(
@@ -298,14 +304,18 @@ def multi_area_select_from_tables_launcher(
 
     Returns ``(launch, (use, shortest, lanes, valid))``: each ``launch()``
     enqueues the kernel on the current stream (no synchronize), writes the
-    four outputs and counts one launch."""
+    four outputs and counts one launch.  The kernel is kernel 13's at one
+    batch row: a block per tile of :func:`fleet_select_tile_rows` prefix
+    rows (at most 256)."""
     dims, ins, outs = _select_operands(
         dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
         drain_metric, path_pref, source_pref, distance, cand_node_in_area,
     )
+    P, _C, A, _V, _D = dims
+    sms = sm_count(dist.device)
     fn = function("route_select", "openr_multi_area_select", MULTI_AREA_SELECT_ARGTYPES)
     args = (*ins, *(ptr(o) for o in outs), *dims, int(bool(per_area_distance)),
-            BIG, stream(dist.device))
+            fleet_select_tile_rows(1, P, A, sms, most=256), BIG, stream(dist.device))
 
     def launch() -> None:
         if dims[0] == 0:
@@ -468,16 +478,18 @@ def fleet_select_plain(
     return (*outs, changed)
 
 
-def fleet_select_tile_rows(B: int, P: int, A: int, sms: int) -> int:
-    """Prefix rows per block of kernel 13 (``SELECT_TILE_ROWS`` where it is
-    set): the most, up to 128, whose winner masks and lane flags
+def fleet_select_tile_rows(B: int, P: int, A: int, sms: int, most: int = 128) -> int:
+    """Prefix rows per block of kernel 13, or of kernel 3 (``most`` 256:
+    at one batch row the grid build's tiles of 256 were 7 % faster than
+    of 128, PERF.md) where ``SELECT_TILE_ROWS`` is not set: the
+    most, up to ``most``, whose winner masks and lane flags
     (``fleet_select_smem``: 8 bytes a row and 12 a (row, area) pair) fit
     24 KiB, halved (not below 16) while the B * ceil(P / rows) blocks would
     give the card's ``sms`` SMs fewer than 4 each, and at most P."""
     if SELECT_TILE_ROWS is not None:
         rows = int(SELECT_TILE_ROWS)
     else:
-        rows = min(128, max(1, 24576 // (8 + 12 * A)))
+        rows = min(most, max(1, 24576 // (8 + 12 * A)))
         while rows > 16 and B * -(-P // rows) < 4 * sms:
             rows //= 2
     return max(1, min(rows, P))
@@ -514,7 +526,7 @@ def fleet_select_launcher(
                                  prev, outs):
             check_tensor(name, t, like.dtype, like.shape, dev)
         changed = torch.empty((B,), dtype=torch.bool, device=dev)
-    rows = fleet_select_tile_rows(B, P, A, torch.cuda.get_device_properties(dev).multi_processor_count)
+    rows = fleet_select_tile_rows(B, P, A, sm_count(dev))
     fn = function("route_select", "openr_fleet_select", FLEET_SELECT_ARGTYPES)
     ins = (dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
            drain_metric, path_pref, source_pref, distance, cand_node_in_area)
@@ -575,6 +587,29 @@ def batched_select_routes_plain(
     return valid, metric, nh_out, num.to(torch.int32), use
 
 
+def batched_select_stage_bytes(TP: int, C: int, D: int) -> int:
+    """A kernel-17 block's lane and use stages for TP prefixes
+    (``batched_layout``: each region 16 bytes past its data, rounded up to
+    16)."""
+    return ((TP * D + 31) & ~15) + ((TP * C + 31) & ~15)
+
+
+def batched_select_tile_rows(B: int, P: int, C: int, D: int, sms: int) -> int:
+    """Prefixes per block of kernel 17: a whole row of P where its lane
+    and use stage (D + C bytes a prefix) fits 48 KiB and the B * ceil(P /
+    rows) blocks give the card's ``sms`` SMs 4 each, else P halved
+    (rounded up) until both hold or 32 is reached; below 32 it is halved
+    further only while the stage does not fit ``BATCHED_SELECT_SMEM``
+    (wide lanes: at D 8,192 a tile of 28)."""
+    rows = max(P, 1)
+    while rows > 1 and (
+        batched_select_stage_bytes(rows, C, D) > BATCHED_SELECT_SMEM
+        or rows > 32 and (rows * (D + C) > 49152 or B * -(-P // rows) < 4 * sms)
+    ):
+        rows = -(-rows // 2)
+    return rows
+
+
 def batched_select_routes_launcher(
     cand_node, cand_ok, drain_metric, path_pref, source_pref, distance, min_nexthop,
     dist, nh, overloaded, soft, roots,
@@ -582,7 +617,9 @@ def batched_select_routes_launcher(
     """Check the inputs, allocate the five outputs and bind kernel 17
     (``kernels/csrc/sweep_select.cu``) once: ``(launch, (valid, metric,
     nh, num_nexthops, use))``, each ``launch()`` enqueueing the kernel (no
-    synchronize) and counting one launch."""
+    synchronize) and counting one launch.  A block takes a tile of
+    :func:`batched_select_tile_rows` prefixes of one row; a prefix's D
+    lane and C use bytes must fit ``BATCHED_SELECT_SMEM``."""
     dev = dist.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called on {dev}")
@@ -591,8 +628,8 @@ def batched_select_routes_launcher(
     B, V = dist.shape
     P, C = cand_node.shape
     D = nh.shape[-1]
-    if C > MAX_KERNEL_CANDIDATES:
-        raise ValueError(f"{C} candidates exceed the kernel's {MAX_KERNEL_CANDIDATES}")
+    if not 1 <= C <= MAX_KERNEL_CANDIDATES:
+        raise ValueError(f"{C} candidates: the kernel takes 1 to {MAX_KERNEL_CANDIDATES}")
     check_tensor("dist", dist, torch.float32, (B, V), dev)
     check_tensor("nh", nh, torch.int8, (B, V, D), dev)
     check_tensor("overloaded", overloaded, torch.bool, (B, V), dev)
@@ -609,10 +646,14 @@ def batched_select_routes_launcher(
         torch.empty((B, P), dtype=torch.int32, device=dev),
         torch.empty((B, P, C), dtype=torch.bool, device=dev),
     )
+    rows = batched_select_tile_rows(B, P, C, D, sm_count(dev))
+    if batched_select_stage_bytes(rows, C, D) > BATCHED_SELECT_SMEM:
+        raise ValueError(f"{D} lanes and {C} candidates a prefix exceed the kernel's "
+                         f"{BATCHED_SELECT_SMEM} bytes of shared memory")
     fn = function("sweep_select", "openr_batched_select_routes", BATCHED_SELECT_ROUTES_ARGTYPES)
     args = (
         *(ptr(t) for t in (dist, nh, overloaded, soft, roots, *cand)),
-        *(ptr(o) for o in outs), B, V, P, C, D, BIG, stream(dev),
+        *(ptr(o) for o in outs), B, V, P, C, D, rows, BIG, stream(dev),
     )
 
     def launch() -> None:
