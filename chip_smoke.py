@@ -204,6 +204,9 @@ CHURN = 2048
 #: back-to-back launches per timed span, and timed spans per figure
 TIMED_LAUNCHES = 50
 TIMED_SPANS = 5
+#: clock cycles the card spins before a queued span (about 2 ms at 1.98
+#: GHz: longer than the host takes to issue the span's launches)
+QUEUE_CYCLES = 4_000_000
 
 #: NVIDIA H100 SXM data-sheet peaks (at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -459,6 +462,27 @@ def per_launch_ms(fn, launches=TIMED_LAUNCHES, spans=TIMED_SPANS):
         dev.append(start.elapsed_time(end) / launches)
         host.append(issued * 1e3 / launches)
     return statistics.median(dev), statistics.median(host)
+
+
+def queued_ms(launch, launches=TIMED_LAUNCHES, spans=TIMED_SPANS):
+    """Median device ms per launch of a pre-bound ``launch`` with the span's
+    launches queued behind a kernel that keeps the card busy while the host
+    issues them (``torch.cuda._sleep``), so the events bracket the kernels'
+    own back-to-back time and not the host's issue rate."""
+    launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(spans):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        for _ in range(launches):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
 
 
 def plain_ms(fn, spans=TIMED_SPANS):
@@ -721,7 +745,7 @@ class KernelReport:
         if "warm" in io:
             self._check_warm(*io["warm"], timed)
         if "sub" in io:
-            self._check_sub(*io["sub"], timed)
+            self._check_sub(*io["sub"])
         if "select" in io:
             self._check_select(*io["select"], io["select_calls"])
         if "delta" in io:
@@ -829,7 +853,11 @@ class KernelReport:
             if what and self.zero_seed_ms is None:
                 self.zero_seed_ms = self.timing[key]["ms"]
 
-    def _check_sub(self, args, out, timed):
+    def _check_sub(self, args, out):
+        """Hold kernel 6 against its plain version on the build's inputs and
+        time it at every tick that runs it (the grid's weakening first,
+        under the kernels line's key), per launch back to back and queued
+        and per call."""
         def p_sub():
             return spf.warm_subgraph_repair_plain(*args)
 
@@ -840,9 +868,11 @@ class KernelReport:
             "warm_subgraph_repair",
             [(got[0], want[0]), (got[1], want[1]), (out[0], want[0]), (out[1], want[1])],
         )
-        if not timed:
+        name = "warm_subgraph_repair"
+        key = name if name not in self.timing else f"{name} at {self.tick}"
+        if key in self.timing:
             return
-        ok_sub, rank_sub, D = args[3], args[4], args[-1]
+        ok_sub, rank_sub, reset, D = args[3], args[4], args[7], args[-1]
         _d, _n, r_d, r_l = spf.warm_subgraph_repair_plain(*args, unroll=1)
         r_d, r_l = int(r_d.max()), int(r_l.max())
         # one relaxation per usable sub-edge, a max per lane a root
@@ -850,10 +880,15 @@ class KernelReport:
         usable = ok_sub.sum(dim=1)
         lanes = (rank_sub >= 0).sum(dim=1).clamp(max=D)
         self.time(
-            "warm_subgraph_repair", launch, p_sub,
+            name, launch, p_sub,
             nbytes(*args[:-1], want[0], want[1]), int((2 * usable + usable * lanes).sum()),
-            nbytes(*args[:4]) + 2 * nbytes(want[0]) + 2 * nbytes(want[1]), r_d + r_l,
+            nbytes(*args[:4]) + 2 * nbytes(want[0]) + 2 * nbytes(want[1]), r_d + r_l, key=key,
         )
+        self.timing[key]["launches"] = 1
+        self.timing[key]["queued_ms"] = queued_ms(launch)
+        self.timing[key]["shape"] = [*reset.shape, args[0].shape[1], D, int(reset.sum())]
+        self.per_call[f"{name} at {self.tick}, spf.warm_subgraph_repair"] = (
+            per_launch_ms(lambda: spf.warm_subgraph_repair(*args)))
 
     def _check_select(self, args, out, calls):
         """Hold kernel 3's last call of the build against its plain
@@ -1241,6 +1276,7 @@ def whatif_run(report, label, expect, fn, entries=None):
           flush=True)
     if entries is None:
         hold_whatif(report, rec)
+        time_compacts(report, rec, label)
     else:
         hold_recorded(report, rec)
     return out, rec, wall
@@ -1318,9 +1354,10 @@ def time_chunks(report, rec, label):
 
 
 def time_whatif(report, rec, label):
-    """Time each of kernels 8, 9 and 11 on the first call ``rec`` holds
-    for it, and kernel 10 at each of its shapes (:func:`time_chunks`), with
-    its bound from these inputs."""
+    """Time each of kernels 8 and 9 on the first call ``rec`` holds for it,
+    and kernel 10 at each of its shapes (:func:`time_chunks`), with its
+    bound from these inputs (kernel 11: :func:`time_compacts`, at every
+    call of every what-if run)."""
     if rec.calls["sweep_spf_link_failures"] and "sweep_spf_link_failures" not in report.timing:
         args, _kw, _outs = rec.calls["sweep_spf_link_failures"][0]
         time_sweep(report, "sweep_spf_link_failures", "the base solve", args)
@@ -1344,22 +1381,35 @@ def time_whatif(report, rec, label):
         )
     if rec.calls["select_chunk"]:
         time_chunks(report, rec, label)
-    if rec.calls["compact_deltas"] and "compact_deltas" not in report.timing:
-        args, kw, outs = rec.calls["compact_deltas"][0]
+
+
+def time_compacts(report, rec, label):
+    """Time kernel 11 at each call ``rec`` holds (the first of the run under
+    the kernels line's key), per launch back to back and queued and per
+    call of ``sweep_select.compact_deltas``, with its bound from these
+    inputs (the changed words and row ids read once, the min(count, cap)
+    rows it copies, its outputs written once) and the one PyTorch call that
+    finds the same rows (``torch.nonzero`` of the flat changed mask)."""
+    name = "compact_deltas"
+    for i, (args, kw, outs) in enumerate(rec.calls[name]):
         changed, valid, metric, lanes, row_id, cap = args
-        count = int(outs[0][0])
-        launch, _ = sweep_select.compact_deltas_launcher(*args)
-        P = valid.shape[1]
+        R, P = valid.shape
         Dw = lanes.shape[2]
-        # the one PyTorch call that finds the same rows: nonzero of the
-        # flat changed mask
+        count = int(outs[0][0])
+        key = name if name not in report.timing else (
+            f"{name} at {label} (call {i + 1}: R {R}, P {P}, Dw {Dw}, cap {cap}, count {count})")
+        launch, _ = sweep_select.compact_deltas_launcher(*args)
         flat = (unpack_bits_last(changed, P) & (row_id >= 0)[:, None]).reshape(-1)
-        t_bytes = nbytes(changed, row_id) + count * (1 + 4 + 4 * Dw) + nbytes(*outs)
+        t_bytes = nbytes(changed, row_id) + min(count, cap) * (1 + 4 + 4 * Dw) + nbytes(*outs)
         report.time(
-            "compact_deltas", launch, lambda: _plain_compact(*args),
-            t_bytes, 3 * changed.numel(), t_bytes, 1,
+            name, launch, lambda: _plain_compact(*args),
+            t_bytes, 3 * changed.numel(), t_bytes, 1, key=key,
             library_fn=lambda: torch.nonzero(flat),
         )
+        report.timing[key]["launches"] = 1
+        report.timing[key]["queued_ms"] = queued_ms(launch)
+        report.per_call[f"{key}, sweep_select.compact_deltas"] = (
+            per_launch_ms(lambda: sweep_select.compact_deltas(*args, **kw)))
 
 
 def headline_world(metric_bump=None):
@@ -2589,8 +2639,10 @@ def main():
     for name in KERNEL_NAMES:
         t = report.timing[name]
         bound_rounds_ms = t["per_round_bytes"] * t["rounds"] / HBM_BYTES_PER_S * 1e3
+        queued = f", queued {t['queued_ms']:.4f}" if "queued_ms" in t else ""
         print(f"kernel {name}: {t['ms']:.4f} ms per launch over {TIMED_LAUNCHES} "
-              f"back-to-back launches (host issue {t['host_issue_ms']:.4f} ms per launch), "
+              f"back-to-back launches (host issue {t['host_issue_ms']:.4f} ms per launch"
+              f"{queued}), "
               f"plain {t['plain_ms']:.4f} ms, launches {report.launches[name]}, "
               f"rounds {t['rounds']}, bytes-per-round x rounds bound {bound_rounds_ms:.5f} ms "
               f"({smi})", flush=True)
@@ -2598,9 +2650,12 @@ def main():
         if key in KERNEL_NAMES:
             continue
         bound, bound_by = report.bound_ms(key)
-        print(f"kernel {key}: {t['ms']:.4f} ms per launch (host issue {t['host_issue_ms']:.4f}), "
-              f"plain {t['plain_ms']:.4f} ms, bound {bound:.5f} ms ({bound_by}), rounds "
-              f"{t['rounds']}, launches there {t.get('launches', 'n/a')} ({smi})", flush=True)
+        queued = f", queued {t['queued_ms']:.4f}" if "queued_ms" in t else ""
+        library = f", library {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
+        print(f"kernel {key}: {t['ms']:.4f} ms per launch (host issue {t['host_issue_ms']:.4f}"
+              f"{queued}), plain {t['plain_ms']:.4f} ms{library}, bound {bound:.5f} ms "
+              f"({bound_by}), rounds {t['rounds']}, launches there {t.get('launches', 'n/a')}, "
+              f"shape {t.get('shape', 'n/a')} ({smi})", flush=True)
     shapes = {key: report.timing[key]["launches"] for key in report.select_keys.values()}
     check(sum(shapes.values()) == report.launches[SELECT],
           "kernel 3's launches by shape do not sum to its launches")

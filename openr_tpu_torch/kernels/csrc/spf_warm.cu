@@ -24,10 +24,10 @@
 // step of __graft_entry__.py.
 //
 // All three read the SEGMENT form of the topology: directed edges sorted
-// by dst, so vertex v's in-edges are the run [off[v], off[v+1]) (kernels
-// 5 and 6: the wrapper derives the offsets from dst; kernel 4 finds its
-// runs from dst itself).  Padding edges carry edge_ok = false and still
-// sit in their dst's run.
+// by dst, so vertex v's in-edges are the run [off[v], off[v+1]) (kernel
+// 5: the wrapper derives the offsets from dst; kernel 4 finds its runs
+// from dst itself; kernel 6 reads its sub-edge list edge by edge).
+// Padding edges carry edge_ok = false and still sit in their dst's run.
 //   4. dist: masked Bellman-Ford from the host-planned over-estimate d0
 //      (reset vertices BIG, the root pinned at 0).
 //   5. lanes with RESET semantics: every round REPLACES lane (v, l) by
@@ -73,9 +73,53 @@
 // list.  The rounds are instantiated once per address space of their
 // state and records, so their loads are shared- or global-memory ones.
 //
-// Kernel 6: one thread block per area, the area's distances in dynamic
-// shared memory (cudaFuncSetAttribute), rounds loop inside the kernel and
-// end on a block-wide changed vote, so there are no host round trips.
+// Kernel 6 works on each area's reset list, not on all V vertices.  One
+// solving block per area (1,024 threads) counts and lists the area's
+// reset vertices in ascending order (16 flags a thread, one 16-byte load,
+// and a block scan; where shared memory still holds it, a [V] map of
+// vertex to list index too, else a binary search over the list), then
+// reads the sub-edge list once, 4 consecutive edges a thread a pass (the
+// dst-ascending order of the planner, pads after): an edge whose dst is
+// listed marks its vertex as having a run (even a padding or unusable
+// edge: the -128 fill is for an empty run); a usable one becomes a record
+// {source, vertex, w, lane rank} in a list the launcher holds ([4, Es] an
+// area, a warp's places by one atomicAdd).  An INNER record (its source
+// listed too, kept as its list index) goes to the front of that list and
+// counts an out-record of its source; an OUTER one (its source keeps its
+// previous distance) goes to the back, and its constant candidate
+// prev_dist[src] + w lowers the vertex's distance at once (an integer
+// atomicMin: distances are >= 0).  The inner records are then placed by
+// source (a block scan of the counts, cursors) in the block's state, so
+// the rounds touch only the out-records of a frontier, and the launcher
+// derives nothing.  The first K threads run the rounds (K = 32 up to 256
+// listed vertices, then a warp per 256, 256 at most), kFrontierLanes of
+// them a frontier vertex: a ROUND relaxes the out-records of the vertices
+// its frontier lists (the first: every vertex the outer records lowered
+// below BIG), lists each lowered vertex once for the next round (a
+// per-round tag), and ends on the K threads' vote (a warp vote, __syncwarp
+// then __any_sync, where K = 32; a reduction on named barrier 1 over the
+// K threads above); the last round lowered nothing, and rounds_d and
+// rounds_l count them (0 where no vertex is reset).  After the distances
+// the records are classified against them (on the DAG: d[src] + w ==
+// d[v] < BIG; a thread an outer record, then a thread a source for the
+// inner ones): a seed sets its lane bit, an outer source ORs in its
+// previous lanes (bit l set where its lane l is 1), an inner record off
+// the DAG or out of the root is dropped and the others stay as
+// propagating sources.  The lane rounds are frontier rounds too, from
+// every vertex with a bit set, each ORing (atomicOr) its bit words (W =
+// ceil(D / 32) a vertex, bit l % 32 of word l / 32 lane l) into the
+// vertices of its propagating out-records and listing each vertex that
+// gained a bit.  The listed rows are written from the block's state (-128
+// where the vertex has no run, else the bit); the blocks after the A
+// solving blocks copy the other rows of both tables from the previous
+// ones, 16 bytes at a time where both are aligned (a word that touches a
+// listed row byte by byte, one wholly in listed rows skipped), so no
+// solving block copies.  The state ((8 + W) words a listed vertex, 3 an
+// inner record) lives in dynamic shared memory where the area's list fits
+// the C entry's grant (enough for a list of every vertex and the map, up
+// to the block's 226,304 bytes, kRepairSmemMax), else in the area's slice
+// of a global scratch held by the launcher, read there through L2
+// (__ldcg); the solve is instantiated once per address space.
 // Updates are in place (Gauss-Seidel) in kernels 4 and 6, and the fixed
 // points are the reference's, bit for bit:
 //   * distances: from a seed d0 the relaxation converges to
@@ -84,16 +128,25 @@
 //     Skipping an unusable edge is exact: its term is BIG, never below a
 //     seed.  A vote's rounds in which no block changed anything read a
 //     constant state, every copy equal to its owners' values.
+//     Folding an outer record's constant candidate in before the rounds
+//     is one of those orders.
+//   * kernel 6's distances: a frontier round relaxes every out-record of
+//     each vertex lowered in the round before, so a round that lowers
+//     nothing leaves every record relaxed against the final values.
 //   * kernel 6's lanes: propagating edges lie on the shortest-path DAG
 //     (d[src] + w == d[dst] < BIG with w >= 1), so they form an acyclic
-//     graph and the reset-semantics update has a unique fixed point.  By
-//     induction on DAG depth, after round k every vertex of depth < k is
-//     final whether a thread read a neighbour's old or new value, and a
-//     round in which no thread changed anything read one consistent state
-//     that is therefore the fixed point.  So no second [V, D] buffer is
-//     needed.  The round counts are telemetry and differ from the
-//     reference's synchronous counts.
-// Load balance (kernel 6, and kernel 14's round form): padding edges all
+//     graph and the reset-semantics update has a unique fixed point: by
+//     induction on DAG depth, each listed vertex's lanes are its seeds OR
+//     its propagating sources' lanes.  A propagating source is reached
+//     and not the root, so it has a usable in-edge and its lanes (the
+//     previous table's, for an outer source) are 0 or 1, never -128: the
+//     reference's int8 max over them (from 0, where the run is not empty)
+//     is an OR of bits.  OR-accumulation from the seeds reaches the least
+//     fixed point above them, which is that one, in any order; a round in
+//     which no owner changed anything read one consistent state.  The
+//     round counts are telemetry and differ from the reference's
+//     synchronous counts.
+// Load balance (kernel 14's round form): padding edges all
 // sit in the run of vertex V-1 (half the edge list on a full node bucket),
 // so a thread walking that run every round serialises the block.  A
 // parallel prologue records, per vertex, the end of its run's last enabled
@@ -238,8 +291,11 @@
 // depth of the perturbed region from its seed, a round a few shared-memory
 // loads per usable edge of a thread's vertices on the cluster's 8 SMs and
 // a vote every 16 rounds (kWarmSweeps), after one packing pass over the edges;
-// kernel 6 re-reads the area's edge arrays each round (L2-resident at
-// these sizes), one block on 1 of the card's 132 SMs when A = 1; kernel 5
+// kernel 6 runs for the depth of its reset region (about 30 rounds of
+// each fixed point at the grid's weakening, whose list holds 1,984
+// vertices, a row of 64 a round), each round the out-records of its
+// frontier and a vote on one SM, after a listing pass over the area's V
+// reset flags and two passes over its sub-edges; kernel 5
 // runs for the depth of the DAG (126 rounds from node0 on the 64 x 64
 // grid), each round a few shared-memory loads a thread of the cluster's 8
 // SMs, a vote every 8 rounds.
@@ -257,6 +313,7 @@
 #include <type_traits>
 
 #include "frontier.cuh"
+#include "smem.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -268,12 +325,6 @@ constexpr int kThreads = 1024;
 constexpr uint8_t kOffDag = 0;
 constexpr uint8_t kSeed = 1;       // on-DAG edge out of the root
 constexpr uint8_t kPropagate = 2;  // on-DAG edge out of any other node
-
-// sub-edge list: usability precomputed on the host (edge_ok & transit)
-struct SubEdges {
-  const uint8_t* ok;
-  __device__ bool usable(int e, int) const { return ok[e]; }
-};
 
 // seg_end[v] = end of the last enabled edge of v's run (off[v] if none);
 // ends with a barrier.
@@ -287,18 +338,15 @@ __device__ void enabled_run_ends(int32_t* seg_end, const int32_t* off,
   __syncthreads();
 }
 
-// Relax the selected vertices (all when `only` is null) to the fixed
-// point; returns the number of rounds run.
+// Relax every vertex to the fixed point; returns the number of rounds run.
 template <class Edges>
 __device__ int relax_distances(float* d, const int32_t* off,
                                const int32_t* seg_end, const int32_t* src,
-                               const float* w, Edges edges,
-                               const uint8_t* only, int V, float big) {
+                               const float* w, Edges edges, int V, float big) {
   int rounds = 0;
   for (int round = 0; round < V; ++round) {
     int changed = 0;
     for (int v = threadIdx.x; v < V; v += blockDim.x) {
-      if (only && !only[v]) continue;
       const float cur = d[v];
       float best = cur;
       for (int e = off[v]; e < seg_end[v]; ++e) {
@@ -316,17 +364,15 @@ __device__ int relax_distances(float* d, const int32_t* off,
   return rounds;
 }
 
-// Classify the in-edges of the selected vertices against the converged
-// distances: shortest-path DAG edges seed (lane_rank >= 0: an out-edge of
-// the root) or propagate.
+// Classify every in-edge against the converged distances: shortest-path
+// DAG edges seed (lane_rank >= 0: an out-edge of the root) or propagate.
 template <class Edges>
 __device__ void classify_edges(uint8_t* cls, const float* d,
                                const int32_t* off, const int32_t* seg_end,
                                const int32_t* src, const float* w,
-                               const int32_t* lane_rank, Edges edges,
-                               const uint8_t* only, int V, float big) {
+                               const int32_t* lane_rank, Edges edges, int V,
+                               float big) {
   for (int v = threadIdx.x; v < V; v += blockDim.x) {
-    if (only && !only[v]) continue;
     const float dv = d[v];
     for (int e = off[v]; e < seg_end[v]; ++e) {
       const int s = src[e];
@@ -336,23 +382,21 @@ __device__ void classify_edges(uint8_t* cls, const float* d,
   }
 }
 
-// Reset-semantics lane fixed point over the selected vertices (all when
-// `only` is null; the `count` vertices of `list` when it is given), in
-// place in nh [V, D], over its first L lanes (L = D but in kernel 14);
-// returns the number of rounds run.
+// Reset-semantics lane fixed point over the `count` vertices of `list`
+// (kernel 14's moving vertices), in place in nh [V, D], over its first L
+// lanes; returns the number of rounds run.
 __device__ int propagate_lanes(int8_t* nh, const uint8_t* cls,
                                const int32_t* off, const int32_t* seg_end,
                                const int32_t* src, const int32_t* lane_rank,
-                               const uint8_t* only, int V, int L, int D,
-                               const int32_t* list = nullptr, int count = 0) {
+                               int V, int L, int D, const int32_t* list,
+                               int count) {
   int rounds = 0;
-  const int n = (list ? count : V) * L;
+  const int n = count * L;
   for (int round = 0; round < V; ++round) {
     int changed = 0;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int j = i / L;
-      const int v = list ? list[j] : j;
-      if (only && !only[v]) continue;
+      const int v = list[j];
       const int l = i - j * L;
       const size_t at = (size_t)v * D + l;
       const int e0 = off[v];
@@ -814,42 +858,550 @@ __global__ void __launch_bounds__(kThreads) spf_nexthop_lanes_reset_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) warm_subgraph_repair_kernel(
-    const int32_t* __restrict__ src_sub, const int32_t* __restrict__ dst_sub,
-    const float* __restrict__ w_sub, const uint8_t* __restrict__ ok_sub,
-    const int32_t* __restrict__ rank_sub,
-    const float* __restrict__ prev_dist, const int8_t* __restrict__ prev_nh,
-    const uint8_t* __restrict__ reset, const int32_t* __restrict__ seg_off,
-    int32_t* __restrict__ seg_end, uint8_t* __restrict__ edge_class,
-    float* __restrict__ dist_out, int8_t* nh,
-    int32_t* __restrict__ rounds_d, int32_t* __restrict__ rounds_l, int V,
-    int Es, int D, float big) {
-  extern __shared__ float d[];  // [V] this area's distances
-  const int a = blockIdx.x;
-  const size_t edges_at = (size_t)a * Es;
-  const size_t lanes_at = (size_t)a * V * D;
-  const int32_t* off = seg_off + (size_t)a * (V + 1);
-  int32_t* end = seg_end + (size_t)a * V;
-  const uint8_t* only = reset + (size_t)a * V;
-  for (int v = threadIdx.x; v < V; v += blockDim.x)
-    d[v] = only[v] ? big : prev_dist[(size_t)a * V + v];
-  for (int i = threadIdx.x; i < V * D; i += blockDim.x)
-    nh[lanes_at + i] = only[i / D] ? 0 : prev_nh[lanes_at + i];
-  enabled_run_ends(end, off, dst_sub + edges_at, ok_sub + edges_at, V, Es);
-  const SubEdges edges{ok_sub + edges_at};
-  const int rd = relax_distances(d, off, end, src_sub + edges_at,
-                                 w_sub + edges_at, edges, only, V, big);
-  for (int v = threadIdx.x; v < V; v += blockDim.x)
-    dist_out[(size_t)a * V + v] = d[v];
-  classify_edges(edge_class + edges_at, d, off, end, src_sub + edges_at,
-                 w_sub + edges_at, rank_sub + edges_at, edges, only, V, big);
+// -- kernel 6: the bounded repair over each area's reset list -------------
+
+// threads of every block of kernel 6 (an area's solving block, the copy
+// blocks)
+constexpr int kRepairThreads = 1024;
+// dynamic shared memory a solving block may take beside its static bytes
+// (ops/spf.py SUB_REPAIR_SHARED_BYTES, held equal by a test: the launcher
+// sizes the global scratch by it)
+constexpr int kRepairSmemMax = 232448 - 6144;
+// 16-byte words of the kept rows one copy block takes
+constexpr int kRepairCopyWords = 4 * kRepairThreads;
+// threads of a frontier round that share a frontier vertex's out-records
+constexpr int kFrontierLanes = 4;
+
+// A solving block's state in 4-byte words (ops/spf.py
+// sub_repair_state_ints): per listed vertex (n), the vertex, its distance,
+// its has-a-sub-edge flag, its out-record count (then cursor), its
+// frontier tag, two frontier lists, its W lane words and its out-record run
+// (off, n + 1); three words per inner record (at most Es), by source:
+// its vertex (~vertex once dropped from the lane rounds), w and lane rank.
+__host__ __device__ inline size_t sub_repair_state_ints(int n, int Es, int W) {
+  return (size_t)(8 + W) * n + 1 + 3 * (size_t)Es;
+}
+
+struct RepairState {
+  int32_t* list;
+  float* d;
+  int32_t* has;
+  int32_t* cnt;  // out-record counts, then cursors
+  int32_t* tag;  // the round tag of the frontier list a vertex was last put in
+  int32_t* fa;   // frontier lists: even rounds read fa, odd ones fb
+  int32_t* fb;
+  uint32_t* bits;
+  int32_t* off;  // [n + 1] out-record runs
+  int32_t* ci;   // inner records by source: vertex, w, lane rank
+  float* cw;
+  int32_t* cr;
+  int32_t* map;  // [V] each vertex's list index (-1: not listed), or null
+  __device__ __forceinline__ RepairState(int32_t* base, int n, int Es, int W, bool mapped) {
+    list = base;
+    d = reinterpret_cast<float*>(base + n);
+    has = base + 2 * (size_t)n;
+    cnt = base + 3 * (size_t)n;
+    tag = base + 4 * (size_t)n;
+    fa = base + 5 * (size_t)n;
+    fb = base + 6 * (size_t)n;
+    bits = reinterpret_cast<uint32_t*>(base + 7 * (size_t)n);
+    off = base + (size_t)(7 + W) * n;
+    ci = off + n + 1;
+    cw = reinterpret_cast<float*>(ci + Es);
+    cr = ci + 2 * (size_t)Es;
+    map = mapped ? cr + Es : nullptr;
+  }
+};
+
+// A state word: a plain load in shared memory; in the global scratch an L2
+// load (__ldcg), so a word another thread stored or changed by an atomic
+// is never read from a stale L1 line.
+template <bool kShared, class T>
+__device__ __forceinline__ T state_load(const T* p) {
+  if constexpr (kShared)
+    return *p;
+  else
+    return __ldcg(p);
+}
+
+// Exclusive scan of c over the block in thread order; the block's sum in
+// *total.  Ends with a barrier.
+__device__ __forceinline__ int block_scan_count(int c, int* total) {
+  __shared__ int32_t warp_sums[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int inc = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) warp_sums[warp] = inc;
   __syncthreads();
-  const int rl = propagate_lanes(nh + lanes_at, edge_class + edges_at, off,
-                                 end, src_sub + edges_at, rank_sub + edges_at,
-                                 only, V, D, D);
+  int before = 0, all = 0;
+  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) {
+    const int x = warp_sums[k];
+    before += k < warp ? x : 0;
+    all += x;
+  }
+  __syncthreads();
+  *total = all;
+  return before + inc - c;
+}
+
+// Bit k set where flag f[v + k] is (k < 16, v + k < V): one 16-byte load
+// where the flags allow.
+__device__ __forceinline__ uint32_t flag_bits16(const uint8_t* f, int v, int V) {
+  uint32_t out = 0;
+  if (v + 16 <= V && (reinterpret_cast<uintptr_t>(f + v) & 15) == 0) {
+    const uint4 x = *reinterpret_cast<const uint4*>(f + v);
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) out |= (uint32_t)(((w[k >> 2] >> (8 * (k & 3))) & 0xffu) != 0) << k;
+  } else {
+    for (int k = 0; k < 16 && v + k < V; ++k) out |= (uint32_t)(f[v + k] != 0) << k;
+  }
+  return out;
+}
+
+// The list index of vertex v in the ascending list, or -1.
+template <bool kShared>
+__device__ __forceinline__ int find_listed(const int32_t* list, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (state_load<kShared>(list + mid) < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo < n && state_load<kShared>(list + lo) == v ? lo : -1;
+}
+
+// The list index of vertex v: from the map where the state holds one,
+// else by binary search.
+template <bool kShared>
+__device__ __forceinline__ int listed_index(const RepairState& S, int n, int v) {
+  return S.map ? state_load<kShared>(S.map + v) : find_listed<kShared>(S.list, n, v);
+}
+
+// The vote that ends a round of the K round threads (the first K of the
+// block, K a multiple of 32): warp votes where K is one warp, else a
+// reduction on named barrier 1 (the other warps are not held).  Either
+// orders the round's shared- and global-memory accesses before the next's.
+__device__ __forceinline__ int round_vote(int changed, int K) {
+  if (K == 32) {
+    __syncwarp();
+    return __any_sync(0xffffffffu, changed);
+  }
+  int out;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\tsetp.ne.s32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, 1, %2, p;\n\tselp.s32 %0, 1, 0, q;\n\t}"
+      : "=r"(out)
+      : "r"(changed), "r"(K)
+      : "memory");
+  return out;
+}
+
+// Kernel 6's frontier list sizes (three rotating counters), its record
+// counts (inner from the front, outer from the back) and block scan
+// counts.
+__shared__ int frontier_sizes[3];
+__shared__ int record_counts[2];
+__shared__ int32_t scan_counts[kRepairThreads + 1];
+
+// Round r of a frontier solve by the K round threads, kFrontierLanes
+// threads a frontier vertex: each vertex u of the frontier list (fa on
+// even rounds, fb on odd ones; its size in sizes[r % 3]) calls move(q, u)
+// on each of its out-records q (a thread every kFrontierLanes-th), whose
+// vertex is i (returned: moved, i); a moved vertex goes into the next
+// round's list once (its tag: base + r + 1).  The sizes rotate over three
+// counters: thread 0 clears the one the round before read, so the next
+// round's counter is 0 before any thread appends to it (the vote between
+// rounds orders both).  Sets *changed; returns r + 1.
+template <bool kShared, class Move>
+__device__ __forceinline__ int frontier_round(const RepairState& S, int r, int base, int K,
+                                              Move move, int* changed) {
+  volatile int* sizes = frontier_sizes;
+  const int size = sizes[r % 3];
+  const int32_t* cur = (r & 1) ? S.fb : S.fa;
+  int32_t* next = (r & 1) ? S.fa : S.fb;
+  if (threadIdx.x == 0) sizes[(r + 2) % 3] = 0;
+  const int tag = base + r + 1;
+  const int g = threadIdx.x % kFrontierLanes;
+  for (int k = threadIdx.x / kFrontierLanes; k < size; k += K / kFrontierLanes) {
+    const int u = state_load<kShared>(cur + k);
+    const int q1 = state_load<kShared>(S.off + u + 1);
+    for (int q = state_load<kShared>(S.off + u) + g; q < q1; q += kFrontierLanes) {
+      const int2 m = move(q, u);
+      if (m.x) {
+        *changed = 1;
+        if (atomicExch(S.tag + m.y, tag) != tag)
+          next[atomicAdd(const_cast<int*>(sizes + (r + 1) % 3), 1)] = m.y;
+      }
+    }
+  }
+  return r + 1;
+}
+
+// OR the lane bits (value > 0: lanes are -128, 0 or 1) of one row of D
+// lanes into its W words (atomicOr: an L2 operation in the global scratch).
+__device__ __forceinline__ void or_row_bits(uint32_t* words, const int8_t* row, int D) {
+  for (int l0 = 0; l0 < D; l0 += 32) {
+    const int m = D - l0 < 32 ? D - l0 : 32;
+    uint32_t x = 0;
+    for (int l = 0; l < m; ++l) x |= (uint32_t)(row[l0 + l] > 0) << l;
+    if (x) atomicOr(words + (l0 >> 5), x);
+  }
+}
+
+// Area a's solve over its n listed (reset) vertices, the state S carved
+// from `base`: shared memory, or the area's slice of the global scratch;
+// `temp` the area's [4, Es] record list in edge-pass order (inner records
+// {source index, vertex, w, rank} from the front, outer ones {source,
+// vertex, w, rank} from the back).
+template <bool kShared>
+__device__ __forceinline__ void repair_area(
+    int32_t* base, bool mapped, int32_t* temp, int n, int a, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ dst, const float* __restrict__ w,
+    const uint8_t* __restrict__ ok, const int32_t* __restrict__ rank,
+    const float* __restrict__ prev_dist, const int8_t* __restrict__ prev_nh,
+    const uint8_t* __restrict__ reset, float* __restrict__ dist_out, int8_t* nh_out,
+    int32_t* rounds_d, int32_t* rounds_l, int V, int Es, int D, float big) {
+  const int T = blockDim.x;
+  const int W = (D + 31) / 32;
+  const RepairState S(base, n, Es, W, mapped);
+  const size_t row0 = (size_t)a * V;
+  const auto load = [](const auto* p) { return state_load<kShared>(p); };
+  int32_t* t_src = temp;
+  int32_t* t_dst = temp + Es;
+  float* t_w = reinterpret_cast<float*>(temp + 2 * (size_t)Es);
+  int32_t* t_rank = temp + 3 * (size_t)Es;
+  // 1. the list: the reset vertices in ascending order, 16 flags a thread
+  // (and the map, where the state holds one)
+  if (mapped) {
+    for (int v = threadIdx.x; v < V; v += T) S.map[v] = -1;
+    __syncthreads();
+  }
+  int listed = 0;
+  for (int v0 = 0; v0 < V; v0 += 16 * T) {
+    const int v = v0 + 16 * (int)threadIdx.x;
+    uint32_t mine = v < V ? flag_bits16(reset + row0, v, V) : 0u;
+    int total;
+    int at = listed + block_scan_count(__popc(mine), &total);
+    for (; mine; mine &= mine - 1, ++at) {
+      S.list[at] = v + __ffs(mine) - 1;
+      if (mapped) S.map[v + __ffs(mine) - 1] = at;
+    }
+    listed += total;
+  }
+  for (int i = threadIdx.x; i < n; i += T) {
+    S.d[i] = big;
+    S.has[i] = 0;
+    S.cnt[i] = 0;
+    S.tag[i] = 0;
+    for (int k = 0; k < W; ++k) S.bits[(size_t)i * W + k] = 0u;
+  }
+  if (threadIdx.x == 0) {
+    record_counts[0] = record_counts[1] = 0;
+    frontier_sizes[0] = frontier_sizes[1] = frontier_sizes[2] = 0;
+  }
+  __syncthreads();
+  // 2. the records: each usable sub-edge of a listed vertex, 4 consecutive
+  // edges a thread a pass (their loads and searches together), into the
+  // temp list: inner (its source listed too) from the front, outer from
+  // the back (a warp's places by one atomicAdd); an outer record's
+  // candidate is constant and lowers the distance now (an integer
+  // atomicMin: distances are >= 0, so integer order is float order), and
+  // an inner one counts an out-record of its source
+  const int lane = threadIdx.x & 31;
+  for (int e0 = 0; e0 < Es; e0 += 4 * T) {
+    int i[4], j[4], s[4], rk[4];
+    float we[4], cand[4];
+    bool use[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + 4 * (int)threadIdx.x + u;
+      i[u] = -1;
+      use[u] = false;
+      if (e < Es) {
+        s[u] = src[e];
+        we[u] = w[e];
+        rk[u] = rank[e];
+        use[u] = ok[e] != 0;
+        cand[u] = prev_dist[row0 + s[u]] + we[u];
+        i[u] = listed_index<kShared>(S, n, dst[e]);
+        j[u] = listed_index<kShared>(S, n, s[u]);
+      }
+    }
+    int n_in = 0, n_out = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (i[u] < 0) continue;
+      S.has[i[u]] = 1;  // a padding or unusable edge too: the run is not empty
+      if (!use[u]) continue;
+      if (j[u] >= 0) {
+        ++n_in;
+        atomicAdd(S.cnt + j[u], 1);
+      } else {
+        ++n_out;
+        atomicMin(reinterpret_cast<int*>(S.d + i[u]), __float_as_int(cand[u]));
+      }
+    }
+    // the warp's places: an inclusive scan of both counts (inner in the low
+    // 16 bits), one atomicAdd each by the last lane
+    int both = n_in | (n_out << 16);
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, both, o);
+      if (lane >= o) both += y;
+    }
+    int at_in = 0, at_out = 0;
+    if (lane == 31) {
+      at_in = atomicAdd(record_counts, both & 0xffff);
+      at_out = atomicAdd(record_counts + 1, both >> 16);
+    }
+    at_in = __shfl_sync(0xffffffffu, at_in, 31) + (both & 0xffff) - n_in;
+    at_out = __shfl_sync(0xffffffffu, at_out, 31) + (both >> 16) - n_out;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (i[u] < 0 || !use[u]) continue;
+      const int p = j[u] >= 0 ? at_in++ : Es - 1 - at_out++;
+      t_src[p] = j[u] >= 0 ? j[u] : s[u];
+      t_dst[p] = i[u];
+      t_w[p] = we[u];
+      t_rank[p] = rk[u];
+    }
+  }
+  __syncthreads();
+  const int n_in = record_counts[0], n_out = record_counts[1];
+  // 3. the inner records by source: offsets (a block scan of the counts)
+  // and each record at its source's cursor
+  block_offsets(
+      scan_counts, n, [&](int u) { return load(S.cnt + u); },
+      [&](int u, int o) {
+        S.off[u] = o;
+        S.cnt[u] = o;
+      });
+  if (threadIdx.x == 0) S.off[n] = n_in;
+  for (int p = threadIdx.x; p < n_in; p += T) {
+    const int q = atomicAdd(S.cnt + __ldcg(t_src + p), 1);
+    S.ci[q] = __ldcg(t_dst + p);
+    S.cw[q] = __ldcg(t_w + p);
+    S.cr[q] = __ldcg(t_rank + p);
+  }
+  // the first frontier: every listed vertex the outer records lowered
+  for (int u = threadIdx.x; u < n; u += T) {
+    if (load(S.d + u) < big) {
+      S.tag[u] = 1;
+      S.fa[atomicAdd(frontier_sizes, 1)] = u;
+    }
+  }
+  __syncthreads();
+  // 4. distances: frontier rounds of the K round threads, each relaxing
+  // its frontier's out-records (an integer atomicMin)
+  const int warps = (n + 255) / 256;
+  const int K = 32 * (warps < 1 ? 1 : warps > 8 ? 8 : warps);
+  const bool rounder = threadIdx.x < K;
+  int rd = 0, rl = 0;
+  if (n > 0 && rounder) {
+    for (;;) {
+      int changed = 0;
+      rd = frontier_round<kShared>(S, rd, 1, K, [&](int q, int u) {
+        const int i = load(S.ci + q);
+        const float cand = load(S.d + u) + load(S.cw + q);
+        return make_int2(cand < load(S.d + i) &&
+                             __float_as_int(cand) <
+                                 atomicMin(reinterpret_cast<int*>(S.d + i), __float_as_int(cand)),
+                         i);
+      }, &changed);
+      if (!round_vote(changed, K) || rd > n) break;
+    }
+  }
+  __syncthreads();
+  // 5. lanes: the outer records on the DAG seed their lane or OR in their
+  // source's previous lanes (bit l set where its lane l is 1); the inner
+  // ones on the DAG out of the root seed their lane, and every inner one
+  // but those out of another vertex on the DAG is dropped (its vertex
+  // complemented)
+  for (int p = Es - n_out + (int)threadIdx.x; p < Es; p += T) {
+    const int i = __ldcg(t_dst + p), s = __ldcg(t_src + p), rk = __ldcg(t_rank + p);
+    const float dv = load(S.d + i);
+    if (!(dv < big) || prev_dist[row0 + s] + __ldcg(t_w + p) != dv) continue;
+    uint32_t* bi = S.bits + (size_t)i * W;
+    if (rk >= 0) {
+      if (rk < D) atomicOr(bi + (rk >> 5), 1u << (rk & 31));
+    } else {
+      or_row_bits(bi, prev_nh + (row0 + s) * D, D);
+    }
+  }
+  for (int u = threadIdx.x; u < n; u += T) {
+    const float du = load(S.d + u);
+    const int q1 = load(S.off + u + 1);
+    for (int q = load(S.off + u); q < q1; ++q) {
+      const int i = load(S.ci + q), rk = load(S.cr + q);
+      const float dv = load(S.d + i);
+      const bool on = dv < big && du + load(S.cw + q) == dv;
+      if (on && rk >= 0 && rk < D) atomicOr(S.bits + (size_t)i * W + (rk >> 5), 1u << (rk & 31));
+      if (!on || rk >= 0) S.ci[q] = ~i;
+    }
+  }
+  if (threadIdx.x == 0) frontier_sizes[0] = frontier_sizes[1] = frontier_sizes[2] = 0;
+  __syncthreads();
+  // 6. lane rounds: frontier rounds from every listed vertex with a bit set,
+  // each ORing (atomicOr) its words into the vertices of its propagating
+  // out-records (its tags after the distances')
+  const int tag0 = rd + 2;
+  for (int u = threadIdx.x; u < n; u += T) {
+    uint32_t any = 0;
+    for (int k = 0; k < W; ++k) any |= load(S.bits + (size_t)u * W + k);
+    if (any) {
+      S.tag[u] = tag0;
+      S.fa[atomicAdd(frontier_sizes, 1)] = u;
+    }
+  }
+  __syncthreads();
+  if (n > 0 && rounder) {
+    for (;;) {
+      int changed = 0;
+      rl = frontier_round<kShared>(S, rl, tag0, K, [&](int q, int u) {
+        const int i = load(S.ci + q);
+        bool grew = false;
+        for (int k = 0; k < W && i >= 0; ++k) {
+          const uint32_t x = load(S.bits + (size_t)u * W + k);
+          if ((x & ~load(S.bits + (size_t)i * W + k)) &&
+              (x & ~atomicOr(S.bits + (size_t)i * W + k, x)))
+            grew = true;
+        }
+        return make_int2(grew, i);
+      }, &changed);
+      if (!round_vote(changed, K) || rl > n) break;
+    }
+  }
+  __syncthreads();
+  // 7. the listed rows out: distances, and lanes from the words (-128 where
+  // the vertex has no sub-edge), 4 lanes an item
+  for (int i = threadIdx.x; i < n; i += T) dist_out[row0 + load(S.list + i)] = load(S.d + i);
+  const int C4 = (D + 3) / 4;
+  for (int it = threadIdx.x; it < n * C4; it += T) {
+    const int i = it / C4;
+    const int l0 = 4 * (it - i * C4);
+    const int l1 = l0 + 4 < D ? l0 + 4 : D;
+    int8_t* row = nh_out + (row0 + load(S.list + i)) * D;
+    const bool h = load(S.has + i) != 0;
+    for (int l = l0; l < l1; ++l) {
+      const uint32_t word = load(S.bits + (size_t)i * W + (l >> 5));
+      row[l] = h ? (int8_t)((word >> (l & 31)) & 1u) : (int8_t)-128;
+    }
+  }
   if (threadIdx.x == 0) {
     rounds_d[a] = rd;
     rounds_l[a] = rl;
+  }
+}
+
+// Copy the rows of a [rows, width]-byte table whose reset flag is clear,
+// 16 bytes at a time where both tables are 16-byte aligned, over this
+// block's share of the words: a thread issues the loads of 4 words and
+// their rows' flags before it stores; a word whose rows are all reset is
+// skipped, one with some reset rows stored byte by byte from the word
+// loaded (the other tail bytes one at a time).
+__device__ void copy_kept_rows(uint8_t* out, const uint8_t* in, const uint8_t* reset, size_t rows,
+                               size_t width, size_t first, size_t stride) {
+  const size_t total = rows * width;
+  size_t done = 0;
+  if (((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(in)) & 15) == 0) {
+    const size_t words = total / 16;
+    for (size_t k0 = first; k0 < words; k0 += 4 * stride) {
+      uint4 x[4];
+      uint32_t gone[4];  // bit r - r0: row r of the word reset
+      size_t r0[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const size_t k = k0 + u * stride;
+        if (k >= words) continue;
+        x[u] = reinterpret_cast<const uint4*>(in)[k];
+        r0[u] = 16 * k / width;
+        const size_t r1 = (16 * k + 15) / width;
+        gone[u] = 0;
+        for (size_t r = r0[u]; r <= r1; ++r) gone[u] |= (uint32_t)(reset[r] != 0) << (r - r0[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const size_t k = k0 + u * stride;
+        if (k >= words) continue;
+        if (!gone[u]) {
+          reinterpret_cast<uint4*>(out)[k] = x[u];
+          continue;
+        }
+        const uint32_t word[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+        size_t col = 16 * k - r0[u] * width;
+        int row = 0;
+#pragma unroll
+        for (int b = 0; b < 16; ++b, ++col) {
+          if (col == width) {
+            col = 0;
+            ++row;
+          }
+          if (!((gone[u] >> row) & 1u)) out[16 * k + b] = (uint8_t)(word[b >> 2] >> (8 * (b & 3)));
+        }
+      }
+    }
+    done = 16 * words;
+  }
+  for (size_t at = done + first; at < total; at += stride)
+    if (!reset[at / width]) out[at] = in[at];
+}
+
+// Blocks [0, A) solve an area each over its reset list (its state in
+// shared memory where sub_repair_state_ints(n, Es, W) fits `smem` bytes,
+// else in the area's slice of `scratch`); the blocks after them copy the
+// kept (non-reset) rows of both tables.
+__global__ void __launch_bounds__(kRepairThreads) warm_subgraph_repair_kernel(
+    const int32_t* __restrict__ src_sub, const int32_t* __restrict__ dst_sub,
+    const float* __restrict__ w_sub, const uint8_t* __restrict__ ok_sub,
+    const int32_t* __restrict__ rank_sub, const float* __restrict__ prev_dist,
+    const int8_t* __restrict__ prev_nh, const uint8_t* __restrict__ reset,
+    int32_t* __restrict__ scratch, int32_t* __restrict__ temp, float* __restrict__ dist_out,
+    int8_t* nh_out, int32_t* __restrict__ rounds_d, int32_t* __restrict__ rounds_l, int A, int V,
+    int Es, int D, int smem, float big) {
+  extern __shared__ int32_t repair_smem[];
+  __shared__ int32_t listed_s;
+  const int a = blockIdx.x;
+  if (a >= A) {
+    const size_t first = (size_t)(a - A) * blockDim.x + threadIdx.x;
+    const size_t stride = (size_t)(gridDim.x - A) * blockDim.x;
+    const size_t rows = (size_t)A * V;
+    copy_kept_rows(reinterpret_cast<uint8_t*>(dist_out),
+                   reinterpret_cast<const uint8_t*>(prev_dist), reset, rows, 4, first, stride);
+    copy_kept_rows(reinterpret_cast<uint8_t*>(nh_out), reinterpret_cast<const uint8_t*>(prev_nh),
+                   reset, rows, D, first, stride);
+    return;
+  }
+  // the area's reset count decides where its state lives
+  if (threadIdx.x == 0) listed_s = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int v = 16 * threadIdx.x; v < V; v += 16 * blockDim.x)
+    mine += __popc(flag_bits16(reset + (size_t)a * V, v, V));
+  for (int o = 16; o > 0; o >>= 1) mine += __shfl_xor_sync(0xffffffffu, mine, o);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&listed_s, mine);
+  __syncthreads();
+  const int n = listed_s;
+  const int W = (D + 31) / 32;
+  const size_t edges_at = (size_t)a * Es;
+  int32_t* area_temp = temp + (size_t)a * 4 * Es;
+  const size_t need = 4 * sub_repair_state_ints(n, Es, W);
+  if (need <= (size_t)smem) {
+    // the map of vertex to list index too, where it still fits
+    repair_area<true>(repair_smem, need + 4 * (size_t)V <= (size_t)smem, area_temp, n, a,
+                      src_sub + edges_at, dst_sub + edges_at, w_sub + edges_at,
+                      ok_sub + edges_at, rank_sub + edges_at, prev_dist, prev_nh, reset,
+                      dist_out, nh_out, rounds_d, rounds_l, V, Es, D, big);
+  } else {
+    repair_area<false>(scratch + (size_t)a * sub_repair_state_ints(V, Es, W), false, area_temp,
+                       n, a, src_sub + edges_at, dst_sub + edges_at, w_sub + edges_at,
+                       ok_sub + edges_at, rank_sub + edges_at, prev_dist, prev_nh, reset,
+                       dist_out, nh_out, rounds_d, rounds_l, V, Es, D, big);
   }
 }
 
@@ -935,11 +1487,10 @@ __device__ __forceinline__ void segment_pair(
   const MaskedEdges edges{edge_ok + edges_at, overloaded + (size_t)a * V,
                           link_index ? link_index + edges_at : nullptr,
                           failed, link_index ? num_failed : 0, root};
-  relax_distances(d, off, end, src + edges_at, w + edges_at, edges,
-                  nullptr, V, big);
+  relax_distances(d, off, end, src + edges_at, w + edges_at, edges, V, big);
   for (int v = threadIdx.x; v < V; v += blockDim.x) dist[v] = d[v];
   classify_edges(cls, d, off, end, src + edges_at, w + edges_at, rank,
-                 edges, nullptr, V, big);
+                 edges, V, big);
   // an empty run holds -128; every lane no root out-edge can seed stays 0
   // (16 lanes a store where whole rows of D lanes fill 16-byte words)
   if (D % 16 == 0) {
@@ -975,7 +1526,7 @@ __device__ __forceinline__ void segment_pair(
       [&](int v, int k) {
         if (k >= 0) moving[k] = v;
       });
-  propagate_lanes(lanes, cls, off, end, esrc, rank, nullptr, V, L, D, moving,
+  propagate_lanes(lanes, cls, off, end, esrc, rank, V, L, D, moving,
                   num_moving);
 }
 
@@ -1490,19 +2041,29 @@ extern "C" int openr_spf_nexthop_lanes_reset(
 extern "C" int openr_warm_subgraph_repair(
     const void* src_sub, const void* dst_sub, const void* w_sub,
     const void* ok_sub, const void* rank_sub, const void* prev_dist,
-    const void* prev_nh, const void* reset, const void* seg_off,
-    void* seg_end, void* edge_class, void* dist, void* nh, void* rounds_d,
-    void* rounds_l, int A, int V, int Es, int D, float big, void* stream) {
-  const size_t smem = (size_t)V * sizeof(float);
-  cudaError_t err = allow_smem(warm_subgraph_repair_kernel, smem);
+    const void* prev_nh, const void* reset, void* scratch, void* temp, void* dist, void* nh,
+    void* rounds_d, void* rounds_l, int A, int V, int Es, int D, float big, void* stream) {
+  if (A == 0 || V == 0) return (int)cudaSuccess;
+  const int W = (D + 31) / 32;
+  // the grant: a list of every vertex and the map, up to kRepairSmemMax;
+  // the solving blocks need the scratch where a whole area's list may not
+  // fit it (ops/spf.py sub_repair_scratch_ints)
+  const size_t need = 4 * sub_repair_state_ints(V, Es, W);
+  const size_t want = need + 4 * (size_t)V;
+  const int smem = (int)(want < (size_t)kRepairSmemMax ? want : (size_t)kRepairSmemMax);
+  if (D < 1 || (Es > 0 && temp == nullptr) || (need > (size_t)smem && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<warm_subgraph_repair_kernel>((size_t)smem);
   if (err != cudaSuccess) return (int)err;
-  warm_subgraph_repair_kernel<<<A, kThreads, smem, (cudaStream_t)stream>>>(
+  // copy blocks: one per kRepairCopyWords 16-byte words of both tables
+  const size_t words = ((size_t)A * V * (4 + (size_t)D) + 15) / 16;
+  const size_t copiers = (words + kRepairCopyWords - 1) / kRepairCopyWords;
+  const unsigned grid = (unsigned)A + (unsigned)(copiers < 132 ? copiers : 132);
+  warm_subgraph_repair_kernel<<<grid, kRepairThreads, (size_t)smem, (cudaStream_t)stream>>>(
       (const int32_t*)src_sub, (const int32_t*)dst_sub, (const float*)w_sub,
-      (const uint8_t*)ok_sub, (const int32_t*)rank_sub,
-      (const float*)prev_dist, (const int8_t*)prev_nh, (const uint8_t*)reset,
-      (const int32_t*)seg_off, (int32_t*)seg_end, (uint8_t*)edge_class,
-      (float*)dist, (int8_t*)nh, (int32_t*)rounds_d, (int32_t*)rounds_l, V,
-      Es, D, big);
+      (const uint8_t*)ok_sub, (const int32_t*)rank_sub, (const float*)prev_dist,
+      (const int8_t*)prev_nh, (const uint8_t*)reset, (int32_t*)scratch, (int32_t*)temp,
+      (float*)dist, (int8_t*)nh, (int32_t*)rounds_d, (int32_t*)rounds_l, A, V, Es, D, smem, big);
   return (int)cudaGetLastError();
 }
 

@@ -57,12 +57,45 @@
 // snapshots): every changed (row, prefix) lands in [cap] buffers in
 // global flat order (rows in order, then prefixes), rows beyond cap drop,
 // the count stays exact (int64), fills are -1 for the coordinates and 0
-// elsewhere.  Three passes, no library scan: each block popcounts 1024
-// changed words; one block scans the block counts (int64 offsets, so no
-// overflow at 16k snapshots x 409,600 prefixes); each block re-counts,
-// scans within the block (warp shuffles) and writes its set bits in bit
-// order.  What bounds it: bytes — the changed words once, the rows it
-// copies once.
+// elsewhere.  One launch, no memset: a single-pass scan with decoupled
+// look-back.  A tile is kCompactTileWords changed words (a thread loads
+// kCompactWords of them as one 16-byte word where aligned); tiles take
+// their ids from an atomic ticket, so a tile only ever waits on tiles that
+// have already started.  A tile counts its live bits (padding rows and the
+// bits past P masked), scans them within the block (warp shuffles, int64),
+// publishes its aggregate, then warp 0 looks back over its predecessors'
+// status words 32 at a time: each adds an aggregate until the nearest
+// inclusive prefix, which ends the walk; the tile then publishes its own
+// inclusive prefix.  A status word packs the call's epoch (26 bits), a
+// flag (aggregate or inclusive prefix) and the int64 sum in 36 bits (16k
+// snapshots x 409,600 prefixes is 6.7e9, past 32 bits), so words left by
+// an earlier call are never read as this call's.  The ticket word holds
+// the epoch in its high half and the ticket count in its low half (one
+// 64-bit atomicAdd gives a block both); the block that takes the last
+// ticket sets the count back to 0 and the epoch to the next, so the
+// scratch (the ticket word, the status words and a done count, zeroed
+// once when the launcher allocates it) is never reset between calls, and a
+// CUDA graph may replay the launch.  The epoch repeats every 2^26 calls,
+// and a word an earlier large call left past a later call's last tile
+// would then read as that call's: so the call whose epoch is the cycle's
+// last clears every status word, the last of its blocks to be done with
+// them (counted in the done word after them) doing it, and a word of the
+// current epoch with a flag set was always written by the current call.  The tile then writes its set bits at their
+// global ranks while the rank is below cap, spread over the block: the
+// tile's bits (consecutive ranks) go to its threads in turn,
+// bit k to thread k % 256, 8 a thread at a time with their loads issued
+// together (a thread finds a bit's word by a binary search over the
+// threads' first ranks, kept in shared memory with the tile's words, and
+// the bit by __fns), so a dense word holds up no thread and consecutive
+// threads store to consecutive slots; the last tile writes the count.
+// The blocks whose tickets come after the tiles' (ops/sweep_select.py
+// compact_fillers: one per 8,192 slots of cap, at most 264) fill the
+// slots [min(count, cap), cap) in 16-byte words: they wait for the last
+// tile's inclusive prefix, which cannot deadlock, since every tile has
+// taken its ticket, and so runs, before any filler waits.  What bounds it:
+// bytes - the changed words once, the rows it copies and the fills once;
+// a call is one launch, so on the main path's launch-sized shapes the
+// host's issue time.
 //
 // Kernel 17 replaces the jitted XLA kernel of the JAX package
 //   openr_tpu/ops/route_select.py:112 batched_select_routes
@@ -106,7 +139,14 @@
 
 namespace {
 
-constexpr int kCompactThreads = 1024;
+// kernel 11's tile: threads, the changed words a thread takes (one
+// 16-byte load) and the words a tile takes (ops/sweep_select.py
+// COMPACT_TILE_WORDS, held equal by a test)
+constexpr int kCompactThreads = 256;
+constexpr int kCompactWords = 4;
+constexpr int kCompactTileWords = kCompactThreads * kCompactWords;
+// set bits a thread of kernel 11 scatters at once (their loads together)
+constexpr int kScatterBits = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint64_t bit(int c) { return 1ull << c; }
@@ -554,19 +594,6 @@ __global__ void __launch_bounds__(kBatchedThreads, 4) batched_select_kernel(
   store_span(use_g, smem + L.use + use0, (size_t)np * C);
 }
 
-// changed word g of the sweep-wide buffer, padding rows and the bits past
-// P in a row's last word masked off
-__device__ __forceinline__ uint32_t live_word(const uint32_t* changed,
-                                              const int32_t* row_id, size_t g,
-                                              int Pw, int P) {
-  const size_t r = g / Pw;
-  const int wi = (int)(g - r * Pw);
-  uint32_t m = row_id[r] >= 0 ? changed[g] : 0u;
-  const int tail = P - wi * 32;
-  if (tail < 32) m &= (1u << tail) - 1u;
-  return m;
-}
-
 // exclusive scan of x over the block; *total gets the block's sum
 __device__ long long block_exclusive_scan(long long x, long long* total) {
   __shared__ long long warp_sums[32];
@@ -598,58 +625,256 @@ __device__ long long block_exclusive_scan(long long x, long long* total) {
   return out;
 }
 
-__global__ void __launch_bounds__(kCompactThreads) compact_count_kernel(
-    const uint32_t* __restrict__ changed, const int32_t* __restrict__ row_id,
-    long long* __restrict__ block_sums, size_t words, int Pw, int P) {
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long c = g < words ? __popc(live_word(changed, row_id, g, Pw, P)) : 0;
-  long long total;
-  block_exclusive_scan(c, &total);
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = total;
+// Kernel 11's status words: epoch (bits 38-63), flag (36-37), sum (0-35).
+constexpr int kStatusSumBits = 36;
+constexpr unsigned kEpochMask = (1u << (64 - kStatusSumBits - 2)) - 1u;
+constexpr unsigned long long kStatusAggregate = 1ull;
+constexpr unsigned long long kStatusPrefix = 2ull;
+
+__device__ __forceinline__ unsigned long long status_word(unsigned epoch,
+                                                          unsigned long long flag,
+                                                          long long sum) {
+  return ((unsigned long long)epoch << (kStatusSumBits + 2)) | (flag << kStatusSumBits) |
+         (unsigned long long)sum;
 }
 
-// one block: block counts -> exclusive block offsets, and the total
-__global__ void __launch_bounds__(kCompactThreads) compact_scan_kernel(
-    long long* __restrict__ block_sums, long long* __restrict__ count,
-    int nblocks) {
-  long long carry = 0;
-  for (int base = 0; base < nblocks; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const long long x = i < nblocks ? block_sums[i] : 0;
-    long long total;
-    const long long excl = block_exclusive_scan(x, &total);
-    if (i < nblocks) block_sums[i] = carry + excl;
-    carry += total;
+__device__ __forceinline__ long long warp_sum(long long x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Warp 0 of tile `tile` (> 0): the sum of every live bit before the tile,
+// read from its predecessors' status words (decoupled look-back).  Every
+// predecessor has taken its ticket, so it publishes its aggregate without
+// waiting on anything: the spin ends.
+__device__ long long look_back(const unsigned long long* status, int tile, unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  long long before = 0;
+  for (int base = tile - 1;; base -= 32) {
+    const int idx = base - lane;
+    unsigned long long flag = kStatusPrefix;
+    long long sum = 0;
+    if (idx >= 0) {
+      unsigned long long s;
+      do {
+        s = *reinterpret_cast<const volatile unsigned long long*>(status + idx);
+        flag = (s >> kStatusSumBits) & 3ull;
+      } while ((unsigned)(s >> (kStatusSumBits + 2)) != epoch || flag == 0);
+      sum = (long long)(s & ((1ull << kStatusSumBits) - 1));
+    }
+    const unsigned prefixes = __ballot_sync(kFull, flag == kStatusPrefix);
+    if (prefixes) {
+      const int stop = __ffs(prefixes) - 1;  // the nearest inclusive prefix
+      return before + warp_sum(lane <= stop ? sum : 0);
+    }
+    before += warp_sum(sum);
   }
-  if (threadIdx.x == 0) count[0] = carry;
 }
 
-__global__ void __launch_bounds__(kCompactThreads) compact_scatter_kernel(
+// In the call whose epoch is the cycle's last, each block once past its
+// last read of a status word: the last of them (the word after the status
+// words counts them) clears the status words and the count.
+__device__ void end_epoch_cycle(unsigned long long* status, int blocks, int status_words) {
+  unsigned long long* done = status + status_words;
+  __shared__ bool last_s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last_s = atomicAdd(done, 1ull) == (unsigned long long)(blocks - 1);
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < status_words; i += blockDim.x) status[i] = 0ull;
+  if (threadIdx.x == 0) *done = 0ull;
+}
+
+// Fill slots [lo, cap) of the compacted outputs (-1 coordinates, 0
+// elsewhere) over this thread's share (first, stride) of them: groups of 4
+// slots as 16-byte words where the outputs are aligned, the rest slot by
+// slot.
+__device__ void fill_slots(long long lo, long long cap, long long first, long long stride,
+                           int32_t* row_out, int32_t* pref_out, uint8_t* valid_out,
+                           float* metric_out, uint32_t* lanes_out, int Dw) {
+  const auto scalar = [&](long long i) {
+    row_out[i] = -1;
+    pref_out[i] = -1;
+    valid_out[i] = 0;
+    metric_out[i] = 0.0f;
+    for (int d = 0; d < Dw; ++d) lanes_out[i * Dw + d] = 0u;
+  };
+  const uintptr_t words = reinterpret_cast<uintptr_t>(row_out) |
+                          reinterpret_cast<uintptr_t>(pref_out) |
+                          reinterpret_cast<uintptr_t>(metric_out) |
+                          reinterpret_cast<uintptr_t>(lanes_out);
+  const long long g0 = (lo + 3) / 4, g1 = cap / 4;
+  if ((words & 15) || (reinterpret_cast<uintptr_t>(valid_out) & 3) || g0 >= g1) {
+    for (long long i = lo + first; i < cap; i += stride) scalar(i);
+    return;
+  }
+  for (long long i = lo + first; i < 4 * g0; i += stride) scalar(i);
+  for (long long i = 4 * g1 + first; i < cap; i += stride) scalar(i);
+  for (long long g = g0 + first; g < g1; g += stride) {
+    reinterpret_cast<int4*>(row_out)[g] = make_int4(-1, -1, -1, -1);
+    reinterpret_cast<int4*>(pref_out)[g] = make_int4(-1, -1, -1, -1);
+    reinterpret_cast<uint32_t*>(valid_out)[g] = 0u;
+    reinterpret_cast<float4*>(metric_out)[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+    uint4* l = reinterpret_cast<uint4*>(lanes_out + 4 * g * Dw);
+    for (int d = 0; d < Dw; ++d) l[d] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Kernel 11: blocks take tickets; the first `tiles` tickets are the scan's
+// tiles, the `fillers` after them fill the slots past the count, which
+// they read from the last tile's inclusive prefix (every tile has taken
+// its ticket by then, so the wait ends).
+__global__ void __launch_bounds__(kCompactThreads) compact_deltas_kernel(
     const uint32_t* __restrict__ changed, const uint8_t* __restrict__ valid,
     const float* __restrict__ metric, const uint32_t* __restrict__ lanes,
-    const int32_t* __restrict__ row_id,
-    const long long* __restrict__ block_offs, int32_t* __restrict__ row_out,
+    const int32_t* __restrict__ row_id, unsigned long long* status,
+    unsigned long long* ticket, long long* __restrict__ count, int32_t* __restrict__ row_out,
     int32_t* __restrict__ pref_out, uint8_t* __restrict__ valid_out,
-    float* __restrict__ metric_out, uint32_t* __restrict__ lanes_out,
-    size_t words, int Pw, int P, int Dw, long long cap) {
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t m = g < words ? live_word(changed, row_id, g, Pw, P) : 0u;
-  long long total;
-  long long pos = block_offs[blockIdx.x] + block_exclusive_scan(__popc(m), &total);
-  if (!m) return;
-  const size_t r = g / Pw;
-  const int wi = (int)(g - r * Pw);
-  while (m && pos < cap) {
-    const int j = __ffs(m) - 1;
-    m &= m - 1;
-    const int p = wi * 32 + j;
-    const size_t at = r * (size_t)P + p;
-    row_out[pos] = row_id[r];
-    pref_out[pos] = p;
-    valid_out[pos] = valid[at];
-    metric_out[pos] = metric[at];
-    for (int k = 0; k < Dw; ++k) lanes_out[pos * Dw + k] = lanes[at * Dw + k];
-    ++pos;
+    float* __restrict__ metric_out, uint32_t* __restrict__ lanes_out, size_t words, int Pw,
+    int P, int Dw, long long cap, int tiles, int fillers, int status_words) {
+  __shared__ int tile_s;
+  __shared__ unsigned epoch_s;
+  __shared__ long long before_s;
+  __shared__ uint32_t words_s[kCompactTileWords];
+  __shared__ int32_t first_s[kCompactThreads];
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(ticket, 1ull);
+    // the last ticket: every block of this call holds its own, so the next
+    // call (stream-ordered) starts again at 0, with the next epoch
+    if ((int)(t & 0xffffffffull) == tiles + fillers - 1) atomicExch(ticket, ((t >> 32) + 1) << 32);
+    tile_s = (int)(t & 0xffffffffull);
+    epoch_s = (unsigned)(t >> 32) & kEpochMask;
+  }
+  __syncthreads();
+  const int tile = tile_s;
+  const unsigned epoch = epoch_s;
+  if (tile >= tiles) {
+    if (threadIdx.x == 0) {
+      unsigned long long s;
+      do {
+        s = *reinterpret_cast<const volatile unsigned long long*>(status + tiles - 1);
+      } while ((unsigned)(s >> (kStatusSumBits + 2)) != epoch ||
+               ((s >> kStatusSumBits) & 3ull) != kStatusPrefix);
+      before_s = (long long)(s & ((1ull << kStatusSumBits) - 1));
+    }
+    __syncthreads();
+    const long long total = before_s;
+    if (epoch == kEpochMask) end_epoch_cycle(status, tiles + fillers, status_words);
+    fill_slots(total < cap ? total : cap, cap,
+               (long long)(tile - tiles) * blockDim.x + threadIdx.x,
+               (long long)fillers * blockDim.x, row_out, pref_out, valid_out, metric_out,
+               lanes_out, Dw);
+    return;
+  }
+  const size_t g0 = (size_t)tile * kCompactTileWords + (size_t)threadIdx.x * kCompactWords;
+  uint32_t m[kCompactWords];
+  if (g0 + kCompactWords <= words && (reinterpret_cast<uintptr_t>(changed) & 15) == 0) {
+    const uint4 v = *reinterpret_cast<const uint4*>(changed + g0);
+    m[0] = v.x;
+    m[1] = v.y;
+    m[2] = v.z;
+    m[3] = v.w;
+  } else {
+    for (int k = 0; k < kCompactWords; ++k) m[k] = g0 + k < words ? changed[g0 + k] : 0u;
+  }
+  int c = 0;
+  for (int k = 0; k < kCompactWords; ++k) {
+    const size_t g = g0 + k;
+    if (g >= words) break;
+    const size_t r = g / Pw;
+    const int tail = P - (int)(g - r * Pw) * 32;
+    if (row_id[r] < 0) m[k] = 0u;
+    if (tail < 32) m[k] &= (1u << tail) - 1u;
+    c += __popc(m[k]);
+  }
+  long long aggregate;
+  const long long in_tile = block_exclusive_scan(c, &aggregate);
+  // the tile's live words and each thread's first rank in the tile, for
+  // the scatter (made visible by the barrier after the look-back)
+  for (int k = 0; k < kCompactWords; ++k) words_s[threadIdx.x * kCompactWords + k] = m[k];
+  first_s[threadIdx.x] = (int)in_tile;
+  if (threadIdx.x < 32) {
+    long long before = 0;
+    if (tile == 0) {
+      if (threadIdx.x == 0)
+        *reinterpret_cast<volatile unsigned long long*>(status) =
+            status_word(epoch, kStatusPrefix, aggregate);
+    } else {
+      if (threadIdx.x == 0)
+        *reinterpret_cast<volatile unsigned long long*>(status + tile) =
+            status_word(epoch, kStatusAggregate, aggregate);
+      before = look_back(status, tile, epoch);
+      if (threadIdx.x == 0)
+        *reinterpret_cast<volatile unsigned long long*>(status + tile) =
+            status_word(epoch, kStatusPrefix, before + aggregate);
+    }
+    if (threadIdx.x == 0) before_s = before;
+  }
+  __syncthreads();
+  const long long before = before_s;
+  // the block reads no status word after its look-back
+  if (epoch == kEpochMask) end_epoch_cycle(status, tiles + fillers, status_words);
+  if (tile == tiles - 1 && threadIdx.x == 0) count[0] = before + aggregate;
+  // the scatter: the tile's set bits (consecutive ranks from `before`)
+  // spread over the whole block, bit k to thread k % T, kScatterBits a
+  // thread at a time with their loads issued together; a thread finds a
+  // bit's word by a binary search over the threads' first ranks and the
+  // bit by __fns, so dense words hold up no thread and consecutive threads
+  // store to consecutive slots
+  const long long room = cap - before;
+  const int todo = room <= 0 ? 0 : room < aggregate ? (int)room : (int)aggregate;
+  const int T = blockDim.x;
+  for (int k0 = 0; k0 < todo; k0 += kScatterBits * T) {
+    size_t at[kScatterBits];
+    int32_t id[kScatterBits];
+    int p[kScatterBits];
+#pragma unroll
+    for (int u = 0; u < kScatterBits; ++u) {
+      const int k = k0 + u * T + (int)threadIdx.x;
+      if (k >= todo) continue;
+      int t = 0;
+      for (int step = T >> 1; step > 0; step >>= 1)
+        if (t + step < T && first_s[t + step] <= k) t += step;
+      int rank = k - first_s[t];
+      int q = t * kCompactWords;
+      for (int n = __popc(words_s[q]); rank >= n; n = __popc(words_s[q])) {
+        rank -= n;
+        ++q;
+      }
+      const size_t g = (size_t)tile * kCompactTileWords + q;
+      const size_t r = g / Pw;
+      p[u] = (int)(g - r * Pw) * 32 + (int)__fns(words_s[q], 0, rank + 1);
+      at[u] = r * (size_t)P + p[u];
+      id[u] = row_id[r];
+    }
+    uint8_t v[kScatterBits];
+    float x[kScatterBits];
+    uint32_t l0[kScatterBits];
+#pragma unroll
+    for (int u = 0; u < kScatterBits; ++u) {
+      if (k0 + u * T + (int)threadIdx.x < todo) {
+        v[u] = valid[at[u]];
+        x[u] = metric[at[u]];
+        l0[u] = lanes[at[u] * Dw];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterBits; ++u) {
+      const int k = k0 + u * T + (int)threadIdx.x;
+      if (k < todo) {
+        const long long pos = before + k;
+        row_out[pos] = id[u];
+        pref_out[pos] = p[u];
+        valid_out[pos] = v[u];
+        metric_out[pos] = x[u];
+        lanes_out[pos * Dw] = l0[u];
+        for (int d = 1; d < Dw; ++d) lanes_out[pos * Dw + d] = lanes[at[u] * Dw + d];
+      }
+    }
   }
 }
 
@@ -689,36 +914,21 @@ extern "C" int openr_select_chunk(
 
 extern "C" int openr_compact_deltas(
     const void* changed, const void* valid, const void* metric,
-    const void* lanes, const void* row_id, void* block_sums, void* count,
+    const void* lanes, const void* row_id, void* status, void* ticket, void* count,
     void* row_out, void* pref_out, void* valid_out, void* metric_out,
-    void* lanes_out, int R, int P, int Dw, int cap, int blocks,
+    void* lanes_out, int R, int P, int Dw, int cap, int tiles, int fillers, int status_words,
     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   const int Pw = (P + 31) / 32;
   const size_t words = (size_t)R * Pw;
-  compact_count_kernel<<<blocks, kCompactThreads, 0, st>>>(
-      (const uint32_t*)changed, (const int32_t*)row_id,
-      (long long*)block_sums, words, Pw, P);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  compact_scan_kernel<<<1, kCompactThreads, 0, st>>>(
-      (long long*)block_sums, (long long*)count, blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // fills: -1 coordinates, 0 elsewhere
-  const size_t n = (size_t)cap;
-  if ((err = cudaMemsetAsync(row_out, 0xff, n * sizeof(int32_t), st)) ||
-      (err = cudaMemsetAsync(pref_out, 0xff, n * sizeof(int32_t), st)) ||
-      (err = cudaMemsetAsync(valid_out, 0, n, st)) ||
-      (err = cudaMemsetAsync(metric_out, 0, n * sizeof(float), st)) ||
-      (err = cudaMemsetAsync(lanes_out, 0, n * Dw * sizeof(uint32_t), st)))
-    return (int)err;
-  compact_scatter_kernel<<<blocks, kCompactThreads, 0, st>>>(
+  if (cap < 1 || tiles < 1 || fillers < 1 || tiles > status_words ||
+      (size_t)tiles * kCompactTileWords < words || words * 32 >= (1ull << kStatusSumBits))
+    return (int)cudaErrorInvalidValue;
+  compact_deltas_kernel<<<tiles + fillers, kCompactThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)changed, (const uint8_t*)valid, (const float*)metric,
-      (const uint32_t*)lanes, (const int32_t*)row_id,
-      (const long long*)block_sums, (int32_t*)row_out, (int32_t*)pref_out,
-      (uint8_t*)valid_out, (float*)metric_out, (uint32_t*)lanes_out, words, Pw,
-      P, Dw, (long long)cap);
+      (const uint32_t*)lanes, (const int32_t*)row_id, (unsigned long long*)status,
+      (unsigned long long*)ticket, (long long*)count, (int32_t*)row_out, (int32_t*)pref_out,
+      (uint8_t*)valid_out, (float*)metric_out, (uint32_t*)lanes_out, words, Pw, P, Dw,
+      (long long)cap, tiles, fillers, status_words);
   return (int)cudaGetLastError();
 }
 

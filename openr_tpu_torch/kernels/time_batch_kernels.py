@@ -113,7 +113,7 @@ call (parent, change, change, parent):
     (recorded as for ``reset``) and at phase (g)'s warm weakening of a
     backbone link (V = 16,384, E = 32,768); each with its launches or
     rounds and bound, per launch, per launch queued behind a busy kernel
-    (``queued_ms``: the kernel's own time where the host's issue time
+    (``chip_smoke.queued_ms``: the kernel's own time where the host's issue time
     exceeds it) and per call; kernel 4 also per bind and,
     where the checkout has ``spf.WARM_DIST_CLUSTER``, at clusters of 1, 2,
     4 and 8, and with its records in the global list and its state global.
@@ -132,11 +132,22 @@ call (parent, change, change, parent):
     launch, queued and per call, with its bound (``chip_smoke``'s byte
     counts: kernel 3's on its [1, A, V] view).  It reads the checkout's
     ``chip_smoke.py`` for the worlds.
+  * ``repaircompact``: kernel 6 (``warm_subgraph_repair``) at the grid's
+    weakening tick (recorded as for ``reset``) and at phase (g)'s backbone
+    where a weakening takes the bounded repair (the first of the backbone
+    links, drawn with seed 0, whose weakening by 5 the planner sends to
+    kernel 6; none read null), and kernel 11 (``compact_deltas``) at every
+    call ``chip_smoke.py``'s what-if phases make, recorded from the engines
+    as for ``chunkwarm`` ((a), (b), (c) with its overflow re-run, the set
+    of 3); each with its shape, rounds or count and bound, per launch back
+    to back (the host's issue rate where the launch is shorter), queued
+    behind a busy kernel (the device's own time) and per call of the
+    entry point, kernel 6 also per bind.
 
 Run from the root of the checkout to time, naming the groups (default:
 all of them)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset] [chunkwarm] [selection]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset] [chunkwarm] [selection] [repaircompact]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
@@ -187,32 +198,6 @@ def launch_ms(launch, launches: int = LAUNCHES) -> float:
         torch.cuda.synchronize()
         spans.append(start.elapsed_time(end) / launches)
     return statistics.median(spans)
-
-
-def queued_ms(launch, launches: int = LAUNCHES) -> float:
-    """:func:`launch_ms` with the launches queued behind a kernel that
-    keeps the card busy while the host issues them, so the events bracket
-    the kernels' own back-to-back time and not the host's issue rate (a
-    launch shorter than the host's issue time reads that time otherwise)."""
-    launch()
-    torch.cuda.synchronize()
-    spans = []
-    for _ in range(SPANS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(QUEUE_CYCLES)
-        start.record()
-        for _ in range(launches):
-            launch()
-        end.record()
-        torch.cuda.synchronize()
-        spans.append(start.elapsed_time(end) / launches)
-    return statistics.median(spans)
-
-
-#: clock cycles the card spins before a queued span (about 2 ms at
-#: 1.98 GHz: longer than the host takes to issue the span's launches)
-QUEUE_CYCLES = 4_000_000
 
 
 def link_state(edges, root: str, area: str = "0", **drains) -> LinkState:
@@ -793,10 +778,11 @@ def sweep_kernel(dev) -> dict:
     return out
 
 
-def reset_inputs(dev) -> dict:
-    """label -> the arguments of ``CudaBackend._warm_tables`` at the grid's
-    undrain and restoring ticks, through ``chip_smoke.py``'s topology
-    changes (one prefix a node: prefixes do not reach kernel 5)."""
+def grid_warm_ticks():
+    """Yield ``(tick, KernelPath)`` after each of the grid's ``warm_delta``
+    ticks (the undrain of node1, the weakening, the restore), through
+    ``chip_smoke.py``'s topology changes before and at them (one prefix a
+    node: prefixes do not reach the warm kernels)."""
     import chip_smoke as cs
     from openr_tpu_torch.decision.spf_solver import SpfSolver
 
@@ -816,18 +802,22 @@ def reset_inputs(dev) -> dict:
     cs.set_overload(areas, dbs, "node1", True)
     be.build_route_db(areas, ps)
     warm = dict(changed_prefixes=set(), force_full=True, warm_delta=True)
-    out = {}
     cs.set_overload(areas, dbs, "node1", False)
     be.build_route_db(areas, ps, **warm)
-    out["grid undrain"] = be.io["warm"][0]
+    yield "grid undrain", be
     a, b = f"node{(side // 2) * side}", f"node{(side // 2 + 1) * side}"
-    for metric, tick in ((11, None), (1, "grid restore")):
+    for metric, tick in ((11, "grid weakening"), (1, "grid restore")):
         cs.set_metric(areas, dbs, a, b, metric)
         cs.set_metric(areas, dbs, b, a, metric)
         be.build_route_db(areas, ps, **warm)
-        if tick:
-            out[tick] = be.io["warm"][0]
-    return out
+        yield tick, be
+
+
+def reset_inputs(dev) -> dict:
+    """label -> the arguments of ``CudaBackend._warm_tables`` at the grid's
+    undrain and restoring ticks (:func:`grid_warm_ticks`)."""
+    return {tick: be.io["warm"][0] for tick, be in grid_warm_ticks()
+            if tick != "grid weakening"}
 
 
 def reset_kernel(dev) -> dict:
@@ -908,19 +898,16 @@ def recorded_chunks(dev) -> dict:
     return out
 
 
-def warm_dist_inputs(dev) -> dict:
-    """label -> the arguments of ``CudaBackend._warm_tables`` where the
-    main path runs kernel 4: the grid's undrain and restoring ticks
-    (:func:`reset_inputs`), and phase (g)'s warm weakening on the KSP2
-    backbone (``chip_smoke.backbone_dbs``: V = 16,384, E = 32,768, vantage
-    core0, eight plain loopbacks; the first backbone link, drawn with seed
-    0, whose weakening by 5 the planner sends to kernels 4 and 5)."""
+def backbone_weakenings():
+    """Yield the ``KernelPath`` on phase (g)'s KSP2 backbone
+    (``chip_smoke.backbone_dbs``: V = 16,384, E = 32,768, vantage core0,
+    eight plain loopbacks) after each ``warm_delta`` weakening by 5 of a
+    backbone link, the links drawn with seed 0, each weakening kept."""
     import chip_smoke as cs
     from openr_tpu_torch.decision.prefix_state import PrefixState
     from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.types import PrefixEntry
 
-    out = reset_inputs(dev)
     dbs, nodes = cs.backbone_dbs()
     areas = cs.backbone_copy(dbs)
     ps = PrefixState()
@@ -939,6 +926,17 @@ def warm_dist_inputs(dev) -> dict:
         cs.set_metric(areas, dbs, a, b, metric + 5)
         cs.set_metric(areas, dbs, b, a, metric + 5)
         be.build_route_db(areas, ps, **warm)
+        yield be
+
+
+def warm_dist_inputs(dev) -> dict:
+    """label -> the arguments of ``CudaBackend._warm_tables`` where the
+    main path runs kernel 4: the grid's undrain and restoring ticks
+    (:func:`reset_inputs`), and phase (g)'s warm weakening on the KSP2
+    backbone: the first of :func:`backbone_weakenings` that the planner
+    sends to kernels 4 and 5."""
+    out = reset_inputs(dev)
+    for be in backbone_weakenings():
         if "warm" in be.io:
             out["(g) weakening"] = be.io["warm"][0]
             break
@@ -968,7 +966,7 @@ def chunk_warm_kernels(dev) -> dict:
             out[f"{key} V,b,P,C,D,launches"] = [args[0].shape[0], b, P, C, args[-1], len(n)]
             out[f"{key} bound ms"] = bound_ms(cs.chunk_bytes(args, outs), cs.chunk_ops(args))
             out[key] = launch_ms(launch)
-            out[f"{key}, queued"] = queued_ms(launch)
+            out[f"{key}, queued"] = cs.queued_ms(launch)
             out[f"{key}, per call"] = launch_ms(lambda: sweep_select.select_chunk(*args, **kw))
     for label, args in warm_dist_inputs(dev).items():
         key = f"warm_spf_distances ({label})"
@@ -985,7 +983,7 @@ def chunk_warm_kernels(dev) -> dict:
         out[f"{key} bound ms"] = bound_ms(cs.warm_distances_bytes(src, ok, ovl, roots, d0, dist),
                                           2 * int(usable.sum()))
         out[key] = launch_ms(launch)
-        out[f"{key}, queued"] = queued_ms(launch)
+        out[f"{key}, queued"] = cs.queued_ms(launch)
         out[f"{key}, per call"] = launch_ms(lambda: spf.warm_spf_distances(*seg, d0))
         make = lambda: spf.warm_spf_distances_launcher(*seg, d0)  # noqa: E731
         out[f"{key}, bind (host)"] = bind_ms(make)
@@ -1144,7 +1142,7 @@ def selection_kernels(dev) -> dict:
     def timings(key, launch, call, t_bytes, ops):
         out[f"{key} bound ms"] = bound_ms(t_bytes, ops)
         out[key] = launch_ms(launch)
-        out[f"{key}, queued"] = queued_ms(launch)
+        out[f"{key}, queued"] = cs.queued_ms(launch)
         out[f"{key}, per call"] = launch_ms(call)
 
     out = {}
@@ -1231,6 +1229,118 @@ def selection_kernels(dev) -> dict:
     return out
 
 
+def repair_inputs(dev) -> dict:
+    """label -> the arguments of ``CudaBackend._subgraph_tables`` where the
+    main path runs kernel 6: the grid's weakening tick
+    (:func:`grid_warm_ticks`) and, where one exists among the first 16 of
+    :func:`backbone_weakenings`, the first that the planner sends to the
+    bounded repair."""
+    out = {}
+    for tick, be in grid_warm_ticks():
+        if tick == "grid weakening":
+            out[tick] = be.io["sub"][0]
+            break
+    for _, be in zip(range(16), backbone_weakenings()):
+        if "sub" in be.io:
+            out["(g) weakening"] = be.io["sub"][0]
+            break
+    return out
+
+
+def recorded_compacts(dev) -> dict:
+    """label -> [(args, kwargs, count)] of kernel 11's calls
+    (``compact_deltas``) in each what-if phase of ``chip_smoke.py``, run
+    through its own helpers as :func:`recorded_chunks` runs them."""
+    import chip_smoke as cs
+    from openr_tpu_torch.decision import whatif_api
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.ops import sweep_select
+    from openr_tpu_torch.ops import whatif as whatif_ops
+
+    calls = []
+    real = sweep_select.compact_deltas
+
+    def record(*args, **kwargs):
+        outs = real(*args, **kwargs)
+        calls.append((args, kwargs, outs))
+        return outs
+
+    def take(run):
+        calls.clear()
+        run()
+        torch.cuda.synchronize()
+        return [(args, kw, int(outs[0][0])) for args, kw, outs in calls]
+
+    sweep_select.compact_deltas = record
+    out = {}
+    try:
+        ls, ps, topo = cs.headline_world()
+        fails = cs.headline_failures(topo)
+        out["(a)"] = take(lambda: cs.headline_sweep(
+            topo, whatif_ops.LinkFailureSweep(topo, "node0", device=dev), fails, device=dev))
+        engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
+        out["(b)"] = take(lambda: cs.criticality(engine, ls, ps))
+        _dbs, areas, gps = cs.grid_world()
+        query, sim = cs.grid_queries(areas, np.random.default_rng(0))
+        grid_engine = whatif_api.WhatIfApiEngine(SpfSolver("node0"))
+        out["(c)"] = take(lambda: grid_engine.run(query, areas, gps, 1))
+        out["(c) set of 3"] = take(
+            lambda: grid_engine.run(sim, areas, gps, 1, simultaneous=True))
+    finally:
+        sweep_select.compact_deltas = real
+    return out
+
+
+def repair_compact_kernels(dev) -> dict:
+    """Kernels 6 and 11 at every shape ``chip_smoke.py`` gives them
+    (:func:`repair_inputs`, :func:`recorded_compacts`): per launch back to
+    back and queued, per call of the entry point (kernel 6 also per bind),
+    with each shape's bound (``chip_smoke``'s counts: kernel 6 its inputs
+    and tables once and one relaxation per usable sub-edge; kernel 11 the
+    changed words and row ids, the min(count, cap) rows it copies and its
+    outputs once)."""
+    import chip_smoke as cs
+    from openr_tpu_torch.ops import sweep_select
+
+    def timings(key, launch, call, t_bytes, ops):
+        out[f"{key} bound ms"] = bound_ms(t_bytes, ops)
+        out[key] = launch_ms(launch)
+        out[f"{key}, queued"] = cs.queued_ms(launch)
+        out[f"{key}, per call"] = launch_ms(call)
+
+    out = {}
+    shapes = repair_inputs(dev)
+    out["warm_subgraph_repair ((g) weakening) found"] = "(g) weakening" in shapes
+    for label, args in shapes.items():
+        key = f"warm_subgraph_repair ({label})"
+        src_sub, _dst, _w, ok_sub, rank_sub, prev_dist, _nh, reset, D = args
+        launch, outs = spf.warm_subgraph_repair_launcher(*args)
+        launch()
+        _d, _n, r_d, r_l = spf.warm_subgraph_repair_plain(*args, unroll=1)
+        out[f"{key} A,V,Es,D,reset"] = [*reset.shape, src_sub.shape[1], D, int(reset.sum())]
+        out[f"{key} rounds d,l (synchronous)"] = [int(r_d.max()), int(r_l.max())]
+        out[f"{key} kernel rounds d,l"] = [int(outs[2].max()), int(outs[3].max())]
+        usable = ok_sub.sum(dim=1)
+        lanes = (rank_sub >= 0).sum(dim=1).clamp(max=D)
+        timings(key, launch, lambda: spf.warm_subgraph_repair(*args),
+                cs.nbytes(*args[:-1], outs[0], outs[1]),
+                int((2 * usable + usable * lanes).sum()))
+        out[f"{key}, bind (host)"] = bind_ms(lambda: spf.warm_subgraph_repair_launcher(*args))
+    for label, calls in recorded_compacts(dev).items():
+        for i, (args, kw, count) in enumerate(calls):
+            changed, valid, _metric, lanes, row_id, cap = args
+            R, P = valid.shape
+            Dw = lanes.shape[2]
+            key = f"compact_deltas {label} call {i + 1}"
+            launch, outs = sweep_select.compact_deltas_launcher(*args)
+            launch()
+            out[f"{key} R,P,Dw,cap,count"] = [R, P, Dw, cap, count]
+            t_bytes = cs.nbytes(changed, row_id) + min(count, cap) * (1 + 4 + 4 * Dw) + cs.nbytes(*outs)
+            timings(key, launch, lambda: sweep_select.compact_deltas(*args, **kw), t_bytes,
+                    3 * changed.numel())
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_batch_kernels: no CUDA device available", file=sys.stderr)
@@ -1243,7 +1353,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree", "flagship",
                               "repair", "dense", "select", "sweep", "reset", "chunkwarm",
-                              "selection"]
+                              "selection", "repaircompact"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
@@ -1273,6 +1383,8 @@ def main() -> int:
         out.update(chunk_warm_kernels(dev))
     if "selection" in groups:
         out.update(selection_kernels(dev))
+    if "repaircompact" in groups:
+        out.update(repair_compact_kernels(dev))
     print(json.dumps(out), flush=True)
     return 0
 

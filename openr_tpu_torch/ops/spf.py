@@ -746,20 +746,50 @@ def spf_nexthop_lanes_reset_launcher(
     return launch, (nh, rounds)
 
 
+#: dynamic shared memory a solving block of kernel 6 takes at most beside
+#: its static bytes: ``kRepairSmemMax`` of ``spf_warm.cu`` (a test holds the
+#: two equal), which sizes the global scratch here
+SUB_REPAIR_SHARED_BYTES = 232448 - 6144
+
+
+def sub_repair_state_ints(n: int, Es: int, D: int) -> int:
+    """Kernel 6's state for a list of ``n`` reset vertices over ``Es``
+    sub-edges, in 4-byte words: per listed vertex its id, distance,
+    has-a-run flag, out-record count, frontier tag, two frontier lists,
+    ceil(D / 32) lane words and out-record run; three words per inner
+    record (``sub_repair_state_ints`` of ``spf_warm.cu``)."""
+    return (8 + (D + 31) // 32) * n + 1 + 3 * Es
+
+
+def sub_repair_scratch_ints(V: int, Es: int, D: int) -> int:
+    """The global scratch words an area of kernel 6 needs: 0 where a list
+    of all ``V`` vertices fits the shared memory its C entry grants (that
+    list and a map of vertex to list index, up to
+    ``SUB_REPAIR_SHARED_BYTES``), else a whole list's state."""
+    need = sub_repair_state_ints(V, Es, D)
+    return 0 if 4 * need <= SUB_REPAIR_SHARED_BYTES else need
+
+
 def warm_subgraph_repair_launcher(
     src_sub, dst_sub, w_sub, ok_sub, rank_sub, prev_dist, prev_nh, reset,
     max_degree: int,
 ):
     """``(launch, (dist, nh, rounds_d, rounds_l))`` for the bounded
-    repair, as :func:`warm_spf_distances_launcher`."""
+    repair, as :func:`warm_spf_distances_launcher`.  Each area's solving
+    block lists its reset vertices and packs their sub-edges on the card;
+    nothing is derived here (``prev_nh`` holds lanes -128, 0 or 1, as every
+    lane table does).  Its state lives in shared memory where the area's
+    list fits its C entry's grant, else in the global scratch
+    held here; the records its edge pass finds go through a [4, Es] list
+    an area, held here too."""
     dev = src_sub.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called on {dev}")
     A, V = prev_dist.shape
-    if V > MAX_KERNEL_NODES:
-        raise ValueError(f"{V} nodes exceed the kernel's shared-memory bound")
     Es = src_sub.shape[1]
     D = int(max_degree)
+    if D < 1:
+        raise ValueError(f"max_degree {D} must be >= 1")
     for name, t in (("src_sub", src_sub), ("dst_sub", dst_sub), ("rank_sub", rank_sub)):
         check_tensor(name, t, torch.int32, (A, Es), dev)
     check_tensor("w_sub", w_sub, torch.float32, (A, Es), dev)
@@ -767,9 +797,11 @@ def warm_subgraph_repair_launcher(
     check_tensor("prev_dist", prev_dist, torch.float32, (A, V), dev)
     check_tensor("prev_nh", prev_nh, torch.int8, (A, V, D), dev)
     check_tensor("reset", reset, torch.bool, (A, V), dev)
-    seg_off = segment_offsets(dst_sub, V)
-    seg_end = torch.empty((A, V), dtype=torch.int32, device=dev)
-    edge_class = torch.empty((A, Es), dtype=torch.uint8, device=dev)
+    area_words = sub_repair_scratch_ints(V, Es, D)
+    scratch = (torch.empty((A * area_words,), dtype=torch.int32, device=dev)
+               if area_words else None)
+    # the records in the order the kernel's edge pass finds them, [A, 4, Es]
+    temp = torch.empty((max(1, A * 4 * Es),), dtype=torch.int32, device=dev)
     dist = torch.empty((A, V), dtype=torch.float32, device=dev)
     nh = torch.empty((A, V, D), dtype=torch.int8, device=dev)
     rounds_d = torch.empty((A,), dtype=torch.int32, device=dev)
@@ -777,13 +809,13 @@ def warm_subgraph_repair_launcher(
     fn = function("spf_warm", "openr_warm_subgraph_repair", WARM_SUBGRAPH_REPAIR_ARGTYPES)
     args = (
         ptr(src_sub), ptr(dst_sub), ptr(w_sub), ptr(ok_sub), ptr(rank_sub),
-        ptr(prev_dist), ptr(prev_nh), ptr(reset), ptr(seg_off), ptr(seg_end),
-        ptr(edge_class), ptr(dist), ptr(nh), ptr(rounds_d), ptr(rounds_l), A,
-        V, Es, D, BIG, stream(dev),
+        ptr(prev_dist), ptr(prev_nh), ptr(reset),
+        None if scratch is None else ptr(scratch), ptr(temp), ptr(dist), ptr(nh),
+        ptr(rounds_d), ptr(rounds_l), A, V, Es, D, BIG, stream(dev),
     )
 
-    # the default argument keeps the derived layout and scratch alive
-    def launch(_held=(seg_off, seg_end, edge_class)) -> None:
+    # the default argument keeps the scratch alive
+    def launch(_held=(scratch, temp)) -> None:
         if A == 0:
             return
         check_launch("warm_subgraph_repair", fn(*args))
@@ -1080,7 +1112,7 @@ DENSE_SPF_DISTANCES_ARGTYPES = [_P] * 7 + [_I] * 6 + [_F, _P]
 DENSE_SPF_NEXTHOP_LANES_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _P]
 WARM_SPF_DISTANCES_ARGTYPES = [_P] * 11 + [_I] * 5 + [_F, _P]
 SPF_NEXTHOP_LANES_RESET_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _P]
-WARM_SUBGRAPH_REPAIR_ARGTYPES = [_P] * 15 + [_I] * 4 + [_F, _P]
+WARM_SUBGRAPH_REPAIR_ARGTYPES = [_P] * 14 + [_I] * 4 + [_F, _P]
 SWEEP_SPF_LINK_FAILURES_ARGTYPES = [_P] * 15 + [_I] * 8 + [_F, _P]
 FLEET_SPF_DENSE_ARGTYPES = [_P] * 9 + [_I] * 9 + [_F, _P]
 SPF_SEGMENT_BATCH_ARGTYPES = [_P] * 14 + [_I] * 11 + [_F, _P]

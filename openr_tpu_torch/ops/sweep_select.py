@@ -203,7 +203,7 @@ MAX_CHUNK_SNAPSHOTS = 65535
 #: c_void_p, then the ints and BIG
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SELECT_CHUNK_ARGTYPES = [_P] * 18 + [_I] * 6 + [_F, _P]
-COMPACT_DELTAS_ARGTYPES = [_P] * 12 + [_I] * 5 + [_P]
+COMPACT_DELTAS_ARGTYPES = [_P] * 13 + [_I] * 7 + [_P]
 
 
 def select_chunk_launcher(
@@ -315,16 +315,50 @@ def compact_deltas_plain(changed, valid, metric, lanes, row_id, cap: int):
     return count, comp_row, comp_pref, comp_valid, comp_metric, comp_lanes
 
 
-#: threads per block of the compaction kernels (one changed word each)
-COMPACT_THREADS = 1024
+#: changed words a tile (one block) of kernel 11 takes: ``kCompactTileWords``
+#: of ``sweep_select.cu`` (a test holds the two equal)
+COMPACT_TILE_WORDS = 1024
+
+#: slots of ``cap`` one filler block of kernel 11 takes, and the most
+#: filler blocks a call launches
+COMPACT_FILL_SLOTS = 8192
+COMPACT_MAX_FILLERS = 264
+
+
+def compact_fillers(cap: int) -> int:
+    """Kernel 11's filler blocks for a buffer of ``cap`` rows: they write
+    the -1 / 0 fills past the count once the scan has found it."""
+    return min(COMPACT_MAX_FILLERS, max(1, -(-cap // COMPACT_FILL_SLOTS)))
+
+
+#: kernel 11's scratch per (device, stream): int64 word 0 holds the call's
+#: epoch and the ticket count, then one status word per tile, then the
+#: count of finished blocks in the call that ends an epoch cycle.  Zeroed
+#: once, where it is allocated or grown; never reset between calls (each
+#: call tags its status words with its epoch, the block taking the last
+#: ticket moves word 0 to the next epoch at count 0, and the call whose
+#: epoch is the cycle's last clears the status words as it ends).
+_COMPACT_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def compact_scratch(dev, tiles: int) -> torch.Tensor:
+    """Kernel 11's scratch on ``dev``'s current stream, with room for
+    ``tiles`` status words (grown to at least twice its room when short)."""
+    key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    held = _COMPACT_SCRATCH.get(key)
+    if held is None or held.numel() - 2 < tiles:
+        room = max(tiles, 0 if held is None else 2 * (held.numel() - 2))
+        held = torch.zeros((2 + room,), dtype=torch.int64, device=dev)
+        _COMPACT_SCRATCH[key] = held
+    return held
 
 
 def compact_deltas_launcher(changed, valid, metric, lanes, row_id, cap: int):
-    """Check the inputs, allocate the outputs and scratch and bind kernel
-    11 once.  Returns ``(launch, (count [1] int64, row, prefix, valid,
-    metric, lanes))``; each ``launch()`` enqueues the three passes (count
-    per block, scan of the block counts, scatter) and counts one
-    launch."""
+    """Check the inputs, allocate the outputs and bind kernel 11 once.
+    Returns ``(launch, (count [1] int64, row, prefix, valid, metric,
+    lanes))``; each ``launch()`` enqueues the kernel once (a single-pass
+    scan whose last blocks write the fills: no memset, no second kernel)
+    and counts one launch."""
     dev = valid.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called on {dev}")
@@ -339,11 +373,10 @@ def compact_deltas_launcher(changed, valid, metric, lanes, row_id, cap: int):
     cap = int(cap)
     if cap < 1:
         raise ValueError(f"cap {cap} must be >= 1")
-    blocks = max(1, (R * Pw + COMPACT_THREADS - 1) // COMPACT_THREADS)
-    block_sums = torch.empty((blocks,), dtype=torch.int64, device=dev)
-    count = torch.empty((1,), dtype=torch.int64, device=dev)
+    tiles = max(1, -(-R * Pw // COMPACT_TILE_WORDS))
+    scratch = compact_scratch(dev, tiles)
     outs = (
-        count,
+        torch.empty((1,), dtype=torch.int64, device=dev),
         torch.empty((cap,), dtype=torch.int32, device=dev),
         torch.empty((cap,), dtype=torch.int32, device=dev),
         torch.empty((cap,), dtype=torch.bool, device=dev),
@@ -351,12 +384,13 @@ def compact_deltas_launcher(changed, valid, metric, lanes, row_id, cap: int):
         torch.empty((cap, Dw), dtype=torch.int32, device=dev),
     )
     fn = function("sweep_select", "openr_compact_deltas", COMPACT_DELTAS_ARGTYPES)
+    base = scratch.data_ptr()
     args = (ptr(changed), ptr(valid), ptr(metric), ptr(lanes), ptr(row_id),
-            ptr(block_sums), *(ptr(o) for o in outs), R, P, Dw, cap, blocks,
-            stream(dev))
+            ctypes.c_void_p(base + 8), ctypes.c_void_p(base), *(ptr(o) for o in outs),
+            R, P, Dw, cap, tiles, compact_fillers(cap), scratch.numel() - 2, stream(dev))
 
     # the default argument keeps the scratch alive
-    def launch(_held=block_sums) -> None:
+    def launch(_held=scratch) -> None:
         check_launch("compact_deltas", fn(*args))
         LAUNCHES["compact_deltas"] += 1
 
