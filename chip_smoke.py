@@ -24,7 +24,9 @@ Decision passes:
      lanes below the link move back from their seed)
   9. two unhinted drain ticks with ``changed_prefixes=set()``: the first
      keeps its selection outputs, the second diffs against them on the
-     card (the fused select + delta kernel and the changed-row gather)
+     card (the fused select + delta kernel and the changed-row gather);
+     then the 3-area world of step 4, each algorithm through two unhinted
+     drain ticks (c3, then b4), both on the delta path
 
 and then the single-area link-failure what-if path (kernels 8-11):
 
@@ -52,8 +54,9 @@ and then the fleet RIB and the multi-area what-if (kernels 12-14):
  14. the fleet on the 3-area world (both algorithms; most roots are absent
      from two areas) and on a hub with 1,025 leaves, whose in-degree
      declines the dense layout (kernels 14 and 13), ``CudaBackend`` on the
-     hub world (kernel 14 at one row), and kernel 14 at one row against
-     kernels 1/2 on the grid
+     hub world (kernel 14 at one row) and two unhinted drain ticks there
+     (leaf0, then leaf1: the delta path at D = 2,048), and kernel 14 at one
+     row against kernels 1/2 on the grid
  15. ``MultiAreaWhatIfEngine`` from the ABR m0_0 of the registered
      wan_multi_area class at 1,024 nodes, seed 7 (63 areas): every single
      link failure of area "0" and metro0 in one batch (203 rows and the
@@ -141,7 +144,9 @@ chain in plain Python); ``entry()`` on the card against its CPU forward.
 Any mismatch or exception exits non-zero.
 
 Prints the kernel and phase times with the card's name and power limit
-(kernel 3 at each shape the run gives it, with its launches there; kernel
+(kernels 3 and 7 at each shape the run gives them, with their launches
+there; the changed-row gather, kernel 18, at each call, each call also
+held against its plain version as it returns; kernel
 17 at the flagship step and at ``entry()``), a ``{"kernels": [...]}``
 line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -152,6 +157,7 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -214,6 +220,8 @@ F32_OPS_PER_S = 67e12  # outside the tensor cores; used for int ALU work too
 
 COLD = {"dense_spf_distances", "dense_spf_nexthop_lanes"}
 SELECT = "multi_area_select_from_tables"
+DELTA = "multi_area_select_delta_from_tables"
+GATHER = "gather_selection_rows"
 
 SOURCES = {
     "dense_spf_distances": (
@@ -283,6 +291,10 @@ SOURCES = {
     "batched_select_routes": (
         "openr_tpu_torch/kernels/csrc/sweep_select.cu",
         "openr_tpu/ops/route_select.py:112",
+    ),
+    "gather_selection_rows": (
+        "openr_tpu_torch/kernels/csrc/route_select.cu",
+        "openr_tpu/ops/route_select.py:439",
     ),
 }
 
@@ -677,6 +689,25 @@ def select_bytes(args, kw, outs, ok_only=False):
     return nbytes(overloaded, soft, cand_ok, *kw.values(), *outs) + columns + cells
 
 
+def delta_bytes(args, outs):
+    """Bytes kernel 7 must move on these inputs: kernel 3's count on them
+    (:func:`select_bytes` with ``ok_only``, on the [1, A, V] view), the
+    previous generation's four tables and ``changed`` [P] once, and each
+    ``node_changed`` cell an ok slot names (its own-area cell and every
+    cell it resolves to in an area: the touches read no other)."""
+    dist, nh = args[:2]
+    cand_area, cand_node, cand_ok, cnia = args[4], args[5], args[6], args[11]
+    A, V = dist.shape
+    sel = select_bytes((dist[None], nh[None], *args[2:12]), {},
+                       tuple(o[None] for o in outs[:4]), ok_only=True)
+    own = (cand_area.long() * V + cand_node.long())[cand_ok]
+    cell = torch.arange(A, device=dist.device) * V + cnia.clamp(min=0).long()  # [P, C, A]
+    seen = torch.zeros(A * V, dtype=torch.bool, device=dist.device)
+    seen[own] = True
+    seen[cell[(cnia >= 0) & cand_ok[:, :, None]]] = True
+    return sel + nbytes(*args[12:16]) + int(seen.sum()) + nbytes(outs[4])
+
+
 class KernelReport:
     def __init__(self):
         self.launches = {n: 0 for n in KERNEL_NAMES}
@@ -688,8 +719,11 @@ class KernelReport:
         self.zero_seed_ms = None
         #: the label of the build whose kernels are being held and timed
         self.tick = None
-        #: the delta tick's changed-row gather (ms, rows, bytes, bound_ms)
-        self.gather = None
+        #: (tick, arguments) of each call of kernel 18 the main path made,
+        #: in order (held as it returned; timed by :meth:`time_gathers`)
+        self.gather_calls = []
+        #: set while the plain path builds: its gathers run the plain version
+        self.plain_path = False
         #: (device ms, host-issue ms) per call of a kernel's entry point as
         #: the main path calls it (its checks, derived layout and
         #: allocations, and the launch), by label
@@ -697,6 +731,8 @@ class KernelReport:
         #: kernel 3's timing key by shape (P, C, A, V, D): each shape the run
         #: gives it is timed once, on the first build that runs it
         self.select_keys = {}
+        #: kernel 7's, the same way (the grid's drain delta first)
+        self.delta_keys = {}
 
     def held(self, name, pairs):
         """Record and require exact agreement of (kernel, plain) output
@@ -749,7 +785,7 @@ class KernelReport:
         if "select" in io:
             self._check_select(*io["select"], io["select_calls"])
         if "delta" in io:
-            self._check_delta(*io["delta"], timed)
+            self._check_delta(*io["delta"])
 
     def _check_cold(self, args, out, timed):
         dist_main, nh_main = out
@@ -919,31 +955,53 @@ class KernelReport:
                 self.timing[key]["launches"] = 0
             self.timing[self.select_keys[shape]]["launches"] += 1
 
-    def _check_delta(self, args, out, timed):
-        name = "multi_area_select_delta_from_tables"
-
+    def _check_delta(self, args, out):
+        """Hold kernel 7's call of the build against its plain version;
+        time it once at each shape (P, C, A, V, D) the run gives it (the
+        first, the grid's drain delta, under the kernel's name), back to
+        back and queued, and count the call under its shape's key."""
         def p_delta():
             return rs.multi_area_select_delta_from_tables_plain(*args)
 
         want = p_delta()
         launch, got = rs.multi_area_select_delta_from_tables_launcher(*args)
         launch()
-        self.held(name, list(zip(got, want)) + list(zip(out, want)))
-        if not timed:
-            return
-        P, C = args[4].shape
-        A, _V, D = args[1].shape
-        t_bytes = nbytes(*args) + nbytes(*out)
-        ops = select_ops(P, C, A, D) + P * (2 * C + A * (4 + D) + C * A)
-        self.time(name, launch, p_delta, t_bytes, ops, t_bytes, 1)
-        # the changed-row gather that follows on the delta path (a PyTorch
-        # row gather, no kernel of this repository): timed on these rows
-        idx = torch.nonzero(out[4]).squeeze(1)
-        rows = rs.gather_selection_rows(*out[:4], idx)
-        ms = per_launch_ms(lambda: rs.gather_selection_rows(*out[:4], idx))[0]
-        g_bytes = nbytes(idx) + 2 * nbytes(*rows)
-        self.gather = dict(ms=ms, rows=int(idx.numel()), bytes=g_bytes,
-                           bound_ms=g_bytes / HBM_BYTES_PER_S * 1e3)
+        self.held(DELTA, list(zip(got, want)) + list(zip(out, want)))
+        shape = select_shape(args)
+        if shape not in self.delta_keys:
+            P, C, A, V, D = shape
+            key = DELTA if not self.delta_keys else (
+                f"{DELTA} at {self.tick} [P {P}, C {C}, A {A}, V {V}, D {D}]")
+            self.delta_keys[shape] = key
+            t_bytes = delta_bytes(args, want)
+            ops = select_ops(P, C, A, D) + P * (2 * C + A * (4 + D) + C * A)
+            self.time(DELTA, launch, p_delta, t_bytes, ops, t_bytes, 1, key=key)
+            self.timing[key].update(queued_ms=queued_ms(launch), launches=0, shape=list(shape))
+            self.per_call[f"{key}, rs.multi_area_select_delta_from_tables"] = (
+                per_launch_ms(lambda: rs.multi_area_select_delta_from_tables(*args)))
+        self.timing[self.delta_keys[shape]]["launches"] += 1
+
+    def time_gathers(self):
+        """Time kernel 18 at each call the main path made (the first, the
+        grid's drain delta, under the kernel's name): per launch back to
+        back and queued, per call, and its plain version, four
+        ``torch.index_select`` calls, which is also the library's time (one
+        PyTorch call a table computes the same rows)."""
+        for i, (tick, args) in enumerate(self.gather_calls):
+            G = args[4].numel()
+            rows = [math.prod(t.shape[1:]) * t.element_size() for t in args[:4]]
+            key = GATHER if i == 0 else f"{GATHER} at {tick} (call {i + 1}: G {G}, row bytes {rows})"
+            launch, outs = rs.gather_selection_rows_launcher(*args)
+            launch()
+
+            def plain(args=args):
+                return rs.gather_selection_rows_plain(*args)
+
+            t_bytes = nbytes(args[4]) + 2 * nbytes(*outs)
+            self.time(GATHER, launch, plain, t_bytes, 0, t_bytes, 1, library_fn=plain, key=key)
+            self.timing[key].update(queued_ms=queued_ms(launch), launches=1, shape=[G, *rows])
+            self.per_call[f"{key}, rs.gather_selection_rows"] = (
+                per_launch_ms(lambda args=args: rs.gather_selection_rows(*args)))
 
     def json_line(self):
         rows = []
@@ -1004,6 +1062,7 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
     ``expect`` is the exact set of kernels the path must launch."""
     hints = hints or {}
     prev_db = kernel_be._last_db
+    report.tick = label
     reset_launch_counts()
     t0 = time.perf_counter()
     db = kernel_be.build_route_db(areas, ps, **hints)
@@ -1025,7 +1084,6 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
           f"launches={ {k: v for k, v in counts.items() if v} } routes={len(db.unicast_routes)} "
           f"changed={shown}", flush=True)
 
-    report.tick = label
     report.kernel_checks(kernel_be, timed)
     if "warm" in kernel_be.io or "sub" in kernel_be.io:
         warm_tables_equal_cold(kernel_be)
@@ -1034,7 +1092,11 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
               f"reset nodes={kernel_be.warm_last_reset_nodes} "
               f"est depth={kernel_be.warm_last_est_depth}{moved}: warm tables == cold tables",
               flush=True)
-    plain_db = plain_be.build_route_db(areas, ps, **hints)
+    report.plain_path = True
+    try:
+        plain_db = plain_be.build_route_db(areas, ps, **hints)
+    finally:
+        report.plain_path = False
     plain_be.take_last_changed_prefixes()
     want = route_db_summary(db)
     check(route_db_summary(plain_db) == want, f"{label}: RouteDb != plain-path RouteDb")
@@ -1044,7 +1106,8 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
         prefixes[i] for i in rng.choice(len(prefixes), sample, replace=False)
     ]
     if steady:
-        fresh = CudaBackend(SpfSolver(oracle.my_node_name))
+        fresh = CudaBackend(SpfSolver(
+            oracle.my_node_name, route_selection_algorithm=oracle.route_selection_algorithm))
         check(route_db_summary(fresh.build_route_db(areas, ps)) == want,
               f"{label}: RouteDb != a fresh backend's cold build")
         # a patched build names its changed set; an incremental one may
@@ -1057,7 +1120,7 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
             check(set(moved) <= claimed, f"{label}: moved routes outside the changed set")
             print(f"[{label}] {len(moved)} routes moved, all inside the changed set of "
                   f"{len(claimed)}; RouteDb == fresh cold build", flush=True)
-            if moved:  # a quarter of the oracle sample from the moved routes
+            if moved and sample is not None:  # a quarter of the oracle sample from the moved routes
                 k = min(sample // 4, len(moved))
                 picks = picks[: sample - k] + [moved[i] for i in rng.choice(len(moved), k, replace=False)]
     sample_oracle(db, oracle, areas, ps, picks, label)
@@ -1188,9 +1251,24 @@ def steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
     set_overload(areas, dbs, drained, True)
     before = kernel_be.num_delta_builds
     drive(report, kernel_be, plain_be, oracle, areas, ps, f"drain:{drained}",
-          expect=COLD | {"multi_area_select_delta_from_tables"}, hints=unhinted, timed=True,
-          **common)
+          expect=COLD | {DELTA, GATHER}, hints=unhinted, timed=True, **common)
     check(kernel_be.num_delta_builds == before + 1, "the drain tick did not take the delta path")
+
+
+def drain_ticks(report, kernel_be, plain_be, oracle, areas, ps, rng, label, drains, expect):
+    """Unhinted drain ticks (``changed_prefixes=set()``, ``force_full``) on a
+    world the backend has built: each (area, node) of ``drains`` hard-drained
+    in turn; every tick must take the delta path (kernel 7, then kernel 18
+    for its changed rows) beside ``expect``, the world's cold kernels."""
+    unhinted = dict(changed_prefixes=set(), force_full=True)
+    for area, node in drains:
+        db = areas[area].get_adjacency_databases()[node]
+        areas[area].update_adjacency_database(dataclasses.replace(db, is_overloaded=True))
+        before = kernel_be.num_delta_builds
+        drive(report, kernel_be, plain_be, oracle, areas, ps, f"{label}:drain:{node}",
+              rng=rng, sample=None, expect=expect | {DELTA, GATHER}, hints=unhinted, steady=True)
+        check(kernel_be.num_delta_builds == before + 1,
+              f"the drain tick of {node} did not take the delta path")
 
 
 # ---------------------------------------------------------------------------
@@ -1261,6 +1339,7 @@ def whatif_run(report, label, expect, fn, entries=None):
     launch counts zeroed just before and read just after; the run must
     launch exactly ``expect``; every recorded kernel call is then held
     against its plain version."""
+    report.tick = label
     with Recorder(entries=entries) as rec:
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -1816,7 +1895,7 @@ def fleet_phases(report, rng, grid_areas):
         areas, ps, _ = fleet_world(metric_bump=bump)
         before = (eng.num_delta_roots_fetched, eng.num_delta_roots_skipped)
         got, _rec, walls[f"d: delta generation, {label}"] = whatif_run(
-            report, f"fleet:wan-delta-{label}", DENSE_FLEET,
+            report, f"fleet:wan-delta-{label}", DENSE_FLEET | {GATHER},
             lambda: eng.fleet_summary(areas, ps, seq), entries=FLEET_ENTRIES,
         )
         check(eng.num_delta_solves == seq - 1, f"the {label} generation did not take the delta")
@@ -1855,9 +1934,11 @@ def fleet_phases(report, rng, grid_areas):
     )
     hold_every_root(hub_eng, hub_areas, hub_ps, 1, sorted(hs), hs, "fleet:hub")
     print(f"[fleet:hub] {len(hs)} roots == scalar oracle", flush=True)
-    drive(report, KernelPath(SpfSolver("hub")), PlainPath(SpfSolver("hub")), SpfSolver("hub"),
-          hub_areas, hub_ps, "backend:hub", rng=rng, sample=None,
-          expect={"spf_segment_batch", SELECT})
+    hub_be, hub_plain = KernelPath(SpfSolver("hub")), PlainPath(SpfSolver("hub"))
+    drive(report, hub_be, hub_plain, SpfSolver("hub"), hub_areas, hub_ps, "backend:hub",
+          rng=rng, sample=None, expect={"spf_segment_batch", SELECT})
+    drain_ticks(report, hub_be, hub_plain, SpfSolver("hub"), hub_areas, hub_ps, rng,
+                "backend:hub", (("0", "leaf0"), ("0", "leaf1")), {"spf_segment_batch"})
     # (e) kernel 14 at one row against kernels 1/2 on the grid
     enc = csr.encode_multi_area(grid_areas, "node0")
     D = csr.bucket_for(max(enc.max_out_degree(), 1), DEGREE_BUCKETS)
@@ -2545,21 +2626,22 @@ def flagship_phase(report, rng):
     return walls
 
 
-#: calls of ``gather_selection_rows`` (four ``torch.index_select`` each) by
-#: the port's callers, the backend's delta build and the fleet decode;
-#: the timing calls in ``KernelReport._check_delta`` are not counted
-GATHER_CALLS = [0]
+def hold_gathers(report):
+    """Hold every call of kernel 18 that the main path makes, through the
+    names its callers (the backend's delta build, the fleet's changed
+    roots) call it by, against its plain version on the same rows as it
+    returns; keep each call's arguments for :meth:`KernelReport.time_gathers`.
+    The plain path's builds gather by the plain version."""
+    def held(*args, _fn=rs.gather_selection_rows):
+        if report.plain_path:
+            return rs.gather_selection_rows_plain(*args)
+        outs = _fn(*args)
+        report.held(GATHER, list(zip(outs, rs.gather_selection_rows_plain(*args))))
+        report.gather_calls.append((report.tick, args))
+        return outs
 
-
-def count_gathers():
-    """Count every call of the changed-row gather through the names the
-    backend and the fleet engine call it by."""
-    def counted(*args, _fn=rs.gather_selection_rows):
-        GATHER_CALLS[0] += 1
-        return _fn(*args)
-
-    backend_mod.gather_selection_rows = counted
-    fleet_mod.gather_selection_rows = counted
+    backend_mod.gather_selection_rows = held
+    fleet_mod.gather_selection_rows = held
 
 
 def main():
@@ -2570,7 +2652,6 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     rng = np.random.default_rng(args.seed)
-    count_gathers()
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -2590,6 +2671,7 @@ def main():
           f"{len(ps.prefixes())} prefixes, built in {time.perf_counter() - t0:.1f}s", flush=True)
 
     report = KernelReport()
+    hold_gathers(report)
     kernel_be = KernelPath(SpfSolver("node0"))
     plain_be = PlainPath(SpfSolver("node0"))
     oracle = SpfSolver("node0")
@@ -2608,6 +2690,7 @@ def main():
     drive(report, kernel_be, plain_be, oracle, areas, ps, "overload:node1", **common)
 
     # 4. a 3-area world, once per selection algorithm
+    three_area = []
     for algo in (
         RouteComputationRules.SHORTEST_DISTANCE,
         RouteComputationRules.PER_AREA_SHORTEST_DISTANCE,
@@ -2618,9 +2701,14 @@ def main():
         oracle3 = SpfSolver(me, route_selection_algorithm=algo)
         drive(report, kb, pb, oracle3, a3, ps3, f"3-area:{algo.name}", rng=rng, sample=None,
               expect=full)
+        three_area.append((kb, pb, oracle3, a3, ps3, f"3-area:{algo.name}"))
 
     # 5-9. the steady-state ticks on the grid
     steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
+    # the 3-area world's drain ticks, after the grid's (whose delta shape
+    # and gather lead the kernels line)
+    for kb, pb, oracle3, a3, ps3, label in three_area:
+        drain_ticks(report, kb, pb, oracle3, a3, ps3, rng, label, (("3", "c3"), ("2", "b4")), COLD)
 
     # 10-12. the link-failure what-if path
     walls = whatif_phases(report, rng, areas, ps)
@@ -2635,15 +2723,17 @@ def main():
 
     # 18. the flagship step
     walls.update(flagship_phase(report, rng))
+    report.time_gathers()
 
     for name in KERNEL_NAMES:
         t = report.timing[name]
         bound_rounds_ms = t["per_round_bytes"] * t["rounds"] / HBM_BYTES_PER_S * 1e3
         queued = f", queued {t['queued_ms']:.4f}" if "queued_ms" in t else ""
+        library = f", library {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
         print(f"kernel {name}: {t['ms']:.4f} ms per launch over {TIMED_LAUNCHES} "
               f"back-to-back launches (host issue {t['host_issue_ms']:.4f} ms per launch"
               f"{queued}), "
-              f"plain {t['plain_ms']:.4f} ms, launches {report.launches[name]}, "
+              f"plain {t['plain_ms']:.4f} ms{library}, launches {report.launches[name]}, "
               f"rounds {t['rounds']}, bytes-per-round x rounds bound {bound_rounds_ms:.5f} ms "
               f"({smi})", flush=True)
     for key, t in report.timing.items():
@@ -2656,12 +2746,15 @@ def main():
               f"{queued}), plain {t['plain_ms']:.4f} ms{library}, bound {bound:.5f} ms "
               f"({bound_by}), rounds {t['rounds']}, launches there {t.get('launches', 'n/a')}, "
               f"shape {t.get('shape', 'n/a')} ({smi})", flush=True)
-    shapes = {key: report.timing[key]["launches"] for key in report.select_keys.values()}
-    check(sum(shapes.values()) == report.launches[SELECT],
-          "kernel 3's launches by shape do not sum to its launches")
-    print(f"kernel {SELECT} launches by shape: {SELECT} (the grid's cold build shape) "
-          f"{shapes[SELECT]}; " + "; ".join(f"{k} {n}" for k, n in shapes.items() if k != SELECT),
-          flush=True)
+    for name, keys, first in ((SELECT, report.select_keys, "the grid's cold build shape"),
+                              (DELTA, report.delta_keys, "the grid's drain delta shape")):
+        shapes = {key: report.timing[key]["launches"] for key in keys.values()}
+        check(sum(shapes.values()) == report.launches[name],
+              f"{name}'s launches by shape do not sum to its launches")
+        print(f"kernel {name} launches by shape: {name} ({first}) {shapes[name]}; "
+              + "; ".join(f"{k} {n}" for k, n in shapes.items() if k != name), flush=True)
+    check(len(report.gather_calls) == report.launches[GATHER],
+          "kernel 18's held calls differ from its launches")
     for key, (dev_ms, host_ms) in report.per_call.items():
         print(f"per call {key}: {dev_ms:.4f} ms (host issue {host_ms:.4f}) ({smi})", flush=True)
     print(f"kernel spf_nexthop_lanes_reset from an all-zero seed (undrain tick's input): "
@@ -2669,10 +2762,6 @@ def main():
     t = report.timing["compact_deltas"]
     print(f"library compact_deltas (torch.nonzero of the flat changed mask): "
           f"{t['library_ms']:.4f} ms ({smi})", flush=True)
-    g = report.gather
-    print(f"gather_selection_rows (torch.index_select, drain delta tick): {g['ms']:.4f} ms per "
-          f"call for {g['rows']} rows, byte bound {g['bound_ms']:.6f} ms; calls on the main path "
-          f"{GATHER_CALLS[0]} (four index_select launches each) ({smi})", flush=True)
     print("what-if and fleet walls: " + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
           + f" ({smi})", flush=True)
     print(report.json_line(), flush=True)

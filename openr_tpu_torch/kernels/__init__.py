@@ -25,6 +25,7 @@ KERNEL_NAMES = (
     "spf_distances_masked",
     "batched_spf",
     "batched_select_routes",
+    "gather_selection_rows",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

@@ -14,6 +14,9 @@ kernels compare against +inf and BIG exactly.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
+
+Every failure to build, load or launch a kernel raises :class:`KernelError`,
+so a caller that tolerates other errors can let this one through.
 """
 
 from __future__ import annotations
@@ -52,6 +55,10 @@ _fns: Dict[Tuple[str, str], Any] = {}
 _lock = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A CUDA kernel of ``csrc/`` could not be built, loaded or launched."""
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -59,7 +66,7 @@ def nvcc_path() -> str:
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and (Path(root) / "bin" / "nvcc").exists():
             return str(Path(root) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def library_path(name: str) -> Path:
@@ -100,7 +107,7 @@ def build_all() -> None:
             else:
                 os.replace(tmp, out)
         if failures:
-            raise RuntimeError("\n".join(failures))
+            raise KernelError("\n".join(failures))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -109,7 +116,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         build_all()
-        lib = ctypes.CDLL(str(library_path(name)))
+        try:
+            lib = ctypes.CDLL(str(library_path(name)))
+        except OSError as e:
+            raise KernelError(f"cannot load the library of {name}.cu: {e}") from e
         _libs[name] = lib
     return lib
 
@@ -170,4 +180,4 @@ def check_launch(name: str, rc: int) -> None:
     """Raise if a C entry point reported a CUDA error (a refused launch
     never runs, and a later synchronize would not report it)."""
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+        raise KernelError(f"CUDA kernel {name} failed to launch: cudaError {rc}")

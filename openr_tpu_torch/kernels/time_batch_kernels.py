@@ -143,11 +143,21 @@ call (parent, change, change, parent):
     to back (the host's issue rate where the launch is shorter), queued
     behind a busy kernel (the device's own time) and per call of the
     entry point, kernel 6 also per bind.
+  * ``delta``: kernel 7 (``multi_area_select_delta_from_tables``) at the
+    grid's drain delta, at the 3-area world's and the (e) hub's unhinted
+    drain ticks (two each, both algorithms on the 3-area world) and at
+    kernel 3's nine recorded shapes (kernel 3's outputs as the previous
+    generation, one drained node in ``node_changed``); kernel 18
+    (``gather_selection_rows``) at each call of those ticks and of the (d)
+    fleet's two delta generations, beside ``torch.index_select`` a table;
+    kernels 3 and 13 at their recorded shapes: per launch back to back and
+    queued, per call, with each shape's bound (kernel 7 also by the
+    parent's count, every argument whole).
 
 Run from the root of the checkout to time, naming the groups (default:
 all of them)::
 
-    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset] [chunkwarm] [selection] [repaircompact]
+    python3 -m openr_tpu_torch.kernels.time_batch_kernels [fleet] [hub] [rows] [cold] [masked] [fattree] [flagship] [repair] [dense] [select] [sweep] [reset] [chunkwarm] [selection] [repaircompact] [delta]
 
 Prints one JSON line: the card's name and power limit, and per kernel and
 path the ms per launch (CUDA events around 50 back-to-back launches of a
@@ -1229,6 +1239,168 @@ def selection_kernels(dev) -> dict:
     return out
 
 
+def drain(areas: dict, area: str, node: str) -> None:
+    """Hard-drain ``node`` in ``area`` (a new adjacency database)."""
+    import dataclasses
+
+    db = areas[area].get_adjacency_databases()[node]
+    areas[area].update_adjacency_database(dataclasses.replace(db, is_overloaded=True))
+
+
+def recorded_deltas():
+    """(kernel 3's shapes, kernel 7's calls, kernel 18's calls) where
+    ``chip_smoke.py``'s main path runs them, each a dict label -> arguments:
+    kernel 3's as :func:`recorded_route_selects` records them (with kernel
+    7 at the grid's drain delta and kernel 18's gather there); kernel 7 and
+    18 at the 3-area world's two unhinted drain ticks (c3, then b4) under
+    each selection algorithm and at the (e) hub's (leaf0, then leaf1),
+    recorded through ``chip_smoke.KernelPath``; and kernel 18 at the (d)
+    fleet's delta generations (one link raised by 7, then restored), the
+    changed roots of each chunk."""
+    import chip_smoke as cs
+    from openr_tpu_torch.decision import backend as backend_mod
+    from openr_tpu_torch.decision import fleet as fleet_mod
+    from openr_tpu_torch.decision.fleet import FleetRibEngine
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.types import RouteComputationRules
+
+    gathers, tick = {}, [""]
+
+    def recording(real):
+        def record(*args):
+            gathers[f"{tick[0]} call {sum(k.startswith(tick[0]) for k in gathers) + 1}"] = args
+            return real(*args)
+        return record
+
+    reals = backend_mod.gather_selection_rows, fleet_mod.gather_selection_rows
+    backend_mod.gather_selection_rows = recording(reals[0])
+    fleet_mod.gather_selection_rows = recording(reals[1])
+    deltas = {}
+    try:
+        tick[0] = "grid drain delta"
+        selects = recorded_route_selects()
+        deltas["grid drain delta"] = selects.pop("grid drain delta")[1]
+        unhinted = dict(changed_prefixes=set(), force_full=True)
+        worlds = []
+        for algo in (RouteComputationRules.SHORTEST_DISTANCE,
+                     RouteComputationRules.PER_AREA_SHORTEST_DISTANCE):
+            a3, ps3, me = cs.three_area_world()
+            worlds.append((f"3-area ({algo.name})", a3, ps3, me, algo, (("3", "c3"), ("2", "b4"))))
+        worlds.append(("(e) hub", *hub_world(cs.HUB_LEAVES), "hub",
+                       RouteComputationRules.SHORTEST_DISTANCE, (("0", "leaf0"), ("0", "leaf1"))))
+        for label, areas, ps, me, algo, drains in worlds:
+            be = cs.KernelPath(SpfSolver(me, route_selection_algorithm=algo))
+            be.build_route_db(areas, ps)
+            for area, node in drains:
+                drain(areas, area, node)
+                tick[0] = f"{label} drain:{node}"
+                be.build_route_db(areas, ps, **unhinted)
+                torch.cuda.synchronize()
+                deltas[tick[0]] = be.io["delta"][0]
+        areas, ps, _nodes = cs.fleet_world()
+        eng = FleetRibEngine(SpfSolver("node0"))
+        eng.fleet_summary(areas, ps, 1)
+        for seq, bump, label in ((2, 7, "raised"), (3, 0, "restored")):
+            tick[0] = f"(d) delta {label}"
+            eng.fleet_summary(*cs.fleet_world(metric_bump=bump)[:2], seq)
+            torch.cuda.synchronize()
+    finally:
+        backend_mod.gather_selection_rows, fleet_mod.gather_selection_rows = reals
+    return {k: v[1] for k, v in selects.items()}, deltas, gathers
+
+
+def drained_cell(args) -> torch.Tensor:
+    """``node_changed`` [A, V] with one drained node: the own-area cell of
+    the first ok candidate of the middle row that has one."""
+    cand_area, cand_node, cand_ok = args[4], args[5], args[6]
+    rows = torch.nonzero(cand_ok.any(dim=1)).squeeze(1)
+    p = int(rows[len(rows) // 2])
+    c = int(torch.nonzero(cand_ok[p])[0])
+    A, V = args[0].shape
+    out = torch.zeros((A, V), dtype=torch.bool, device=args[0].device)
+    out[int(cand_area[p, c]), int(cand_node[p, c])] = True
+    return out
+
+
+def delta_kernels(dev) -> dict:
+    """Kernels 7 and 18 at every shape ``chip_smoke.py``'s main path gives
+    them (:func:`recorded_deltas`), kernel 7 also at kernel 3's nine
+    recorded shapes (kernel 3's own outputs as the previous generation,
+    :func:`drained_cell` in ``node_changed``), and kernels 3 and 13 at
+    their recorded shapes beside them: per launch back to back and queued
+    behind a busy kernel, and per call of the entry point.  Bounds:
+    kernel 7 ``chip_smoke.delta_bytes`` (kernel 3's count, the ``prev_*``
+    tables, the ``node_changed`` cells its ok slots name, ``changed``;
+    null where the checkout's ``chip_smoke`` lacks it) beside the parent's
+    count (every argument and output whole); kernel 18 the indices and
+    each gathered row read and written once.  Kernel 18 also beside its
+    library call, a ``torch.index_select`` a table (where the checkout has
+    no kernel 18, its gather is that call and is timed per call only)."""
+    import chip_smoke as cs
+    from openr_tpu_torch.ops import route_select as rs
+
+    def timings(key, launch, call, t_bytes=None, ops=0):
+        if t_bytes is not None:
+            out[f"{key} bound ms"] = bound_ms(t_bytes, ops)
+        if launch is not None:
+            out[key] = launch_ms(launch)
+            out[f"{key}, queued"] = cs.queued_ms(launch)
+        out[f"{key}, per call"] = launch_ms(call)
+
+    def kernel7(label, args):
+        key = f"multi_area_select_delta_from_tables {label}"
+        launch, outs = rs.multi_area_select_delta_from_tables_launcher(*args)
+        launch()
+        P, C = args[4].shape
+        A, V, D = args[1].shape
+        out[f"{key} P,C,A,V,D"] = [P, C, A, V, D]
+        out[f"{key} rows flagged"] = int(outs[4].sum())
+        ops = cs.select_ops(P, C, A, D) + P * (2 * C + A * (4 + D) + C * A)
+        out[f"{key} parent's count: bound ms"] = bound_ms(cs.nbytes(*args, *outs), ops)
+        t_bytes = cs.delta_bytes(args, outs) if hasattr(cs, "delta_bytes") else None
+        timings(key, launch, lambda: rs.multi_area_select_delta_from_tables(*args), t_bytes, ops)
+
+    out = {}
+    selects, deltas, gathers = recorded_deltas()
+    for label, args in deltas.items():
+        kernel7(label, args)
+    for label, args in selects.items():
+        key = f"multi_area_select_from_tables {label}"
+        launch, outs = rs.multi_area_select_from_tables_launcher(*args)
+        launch()
+        P, C = args[4].shape
+        A, V, D = args[1].shape
+        view = (args[0][None], args[1][None], *args[2:12])
+        timings(key, launch, lambda: rs.multi_area_select_from_tables(*args),
+                cs.select_bytes(view, {}, tuple(o[None] for o in outs), ok_only=True),
+                cs.select_ops(P, C, A, D))
+        prev = tuple(o.clone() for o in outs)
+        kernel7(f"on kernel 3's {label}", (*args[:12], *prev, drained_cell(args), args[12]))
+    for label, args in gathers.items():
+        key = f"gather_selection_rows {label}"
+        G = args[4].numel()
+        out[f"{key} G,row bytes"] = [G, *(t[0].numel() * t.element_size() for t in args[:4])]
+        if hasattr(rs, "gather_selection_rows_launcher"):
+            launch, outs = rs.gather_selection_rows_launcher(*args)
+            launch()
+        else:
+            launch, outs = None, rs.gather_selection_rows(*args)
+        timings(key, launch, lambda: rs.gather_selection_rows(*args),
+                cs.nbytes(args[4]) + 2 * cs.nbytes(*outs))
+        out[f"{key}, library"] = launch_ms(
+            lambda: [torch.index_select(t, 0, args[4]) for t in args[:4]])
+    for label, (args, kw) in recorded_selects(dev).items():
+        key = f"fleet_select {label}"
+        B, A, _V = args[0].shape
+        P, C = args[4].shape
+        launch, outs = rs.fleet_select_launcher(*args, **kw)
+        launch()
+        timings(key, launch, lambda: rs.fleet_select(*args, **kw), cs.select_bytes(args, kw, outs),
+                B * cs.select_ops(P, C, A, args[1].shape[-1]))
+    return out
+
+
+
 def repair_inputs(dev) -> dict:
     """label -> the arguments of ``CudaBackend._subgraph_tables`` where the
     main path runs kernel 6: the grid's weakening tick
@@ -1353,7 +1525,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     groups = sys.argv[1:] or ["fleet", "hub", "rows", "cold", "masked", "fattree", "flagship",
                               "repair", "dense", "select", "sweep", "reset", "chunkwarm",
-                              "selection", "repaircompact"]
+                              "selection", "repaircompact", "delta"]
     out = {"card": card}
     if "fleet" in groups:
         out.update(fleet_kernels(dev))
@@ -1385,6 +1557,8 @@ def main() -> int:
         out.update(selection_kernels(dev))
     if "repaircompact" in groups:
         out.update(repair_compact_kernels(dev))
+    if "delta" in groups:
+        out.update(delta_kernels(dev))
     print(json.dumps(out), flush=True)
     return 0
 

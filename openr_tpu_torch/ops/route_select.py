@@ -29,16 +29,18 @@ me (dist [A, V], nexthop lanes [A, V, D]):
 The host does skip-if-self, the min-nexthop gate and the cross-area
 min-metric merge during decode.  The delta variant also diffs every row
 against the previous generation's outputs, so a full rebuild moves only
-the changed rows to the host.  Both selections dispatch on the device of
-their inputs: the hand-written kernel (``kernels/csrc/route_select.cu``:
-the selection is kernel 13's tile body at one batch row, the delta its
-own) for CUDA tensors, the plain version for CPU tensors, never a
-fallback.
+the changed rows to the host, gathered by ``gather_selection_rows``.  The
+selections and the gather dispatch on the device of their inputs: the
+hand-written kernel (``kernels/csrc/route_select.cu``: the selection and
+the delta are kernel 13's tile body at one batch row, the delta with a
+per-row diff; the gather its own) for CUDA tensors, the plain version for
+CPU tensors, never a fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, Tuple
 
 import torch
@@ -74,9 +76,10 @@ BATCHED_SELECT_SMEM = 232448
 #: c_void_p, then the ints and BIG
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MULTI_AREA_SELECT_ARGTYPES = [_P] * 16 + [_I] * 7 + [_F, _P]
-MULTI_AREA_SELECT_DELTA_ARGTYPES = [_P] * 22 + [_I] * 6 + [_F, _P]
+MULTI_AREA_SELECT_DELTA_ARGTYPES = [_P] * 22 + [_I] * 7 + [_F, _P]
 FLEET_SELECT_ARGTYPES = [_P] * 21 + [_I] * 8 + [_F, _P]
 BATCHED_SELECT_ROUTES_ARGTYPES = [_P] * 17 + [_I] * 6 + [_F, _P]
+GATHER_SELECTION_ROWS_ARGTYPES = [_P] * 9 + [_I] * 6 + [_P]
 
 
 def select_routes_one(
@@ -401,7 +404,8 @@ def multi_area_select_delta_from_tables_launcher(
 ) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
     """As :func:`multi_area_select_from_tables_launcher`, for the fused
     select + diff kernel: ``(launch, (use, shortest, lanes, valid,
-    changed))``."""
+    changed))``.  The kernel is kernel 3's tile body with a flag a row:
+    tiles of :func:`fleet_select_tile_rows` rows (at most 256)."""
     dims, ins, outs = _select_operands(
         dist, nh, overloaded, soft, cand_area, cand_node, cand_ok,
         drain_metric, path_pref, source_pref, distance, cand_node_in_area,
@@ -417,7 +421,8 @@ def multi_area_select_delta_from_tables_launcher(
     fn = function("route_select", "openr_multi_area_select_delta", MULTI_AREA_SELECT_DELTA_ARGTYPES)
     prev = (prev_use, prev_shortest, prev_lanes, prev_valid, node_changed)
     args = (*ins, *(ptr(o) for o in outs), *(ptr(t) for t in prev), ptr(changed),
-            *dims, int(bool(per_area_distance)), BIG, stream(dev))
+            *dims, int(bool(per_area_distance)),
+            fleet_select_tile_rows(1, P, A, sm_count(dev), most=256), BIG, stream(dev))
 
     def launch() -> None:
         if P == 0:
@@ -439,10 +444,62 @@ def multi_area_select_delta_from_tables(*args):
     return outs
 
 
-def gather_selection_rows(use, shortest, lanes, valid, idx):
-    """Compaction of the changed selection rows ``idx`` [G] (a plain row
-    gather, on whatever device the outputs are)."""
+def gather_selection_rows_plain(use, shortest, lanes, valid, idx):
+    """Rows ``idx`` [G] of the four selection tables, a
+    ``torch.index_select`` each."""
     return tuple(torch.index_select(a, 0, idx) for a in (use, shortest, lanes, valid))
+
+
+def gather_selection_rows_launcher(
+    use, shortest, lanes, valid, idx
+) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """Check the tables (contiguous, one leading row axis N, any row shape
+    and dtype) and ``idx`` (int64 [G] on the same card), allocate the
+    [G, ...] outputs and bind kernel 18 once: ``(launch, (use, shortest,
+    lanes, valid))``.  Each ``launch()`` enqueues one kernel for all four
+    tables (no synchronize; ``idx`` is never read back) and counts one
+    launch; G = 0 launches nothing.  An index outside [0, N) writes its
+    output row as zero bytes."""
+    tables = (use, shortest, lanes, valid)
+    dev = use.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called on {dev}")
+    N = use.shape[0]
+    # the checks a gather needs, lighter than check_tensor's: a call's host
+    # time is most of its cost at the delta build's few rows
+    if idx.dtype != torch.int64 or idx.dim() != 1 or idx.device != dev or not idx.is_contiguous():
+        raise ValueError(f"idx must be a contiguous int64 vector on {dev}")
+    for name, t in zip(("use", "shortest", "lanes", "valid"), tables):
+        if t.device != dev or t.dim() == 0 or t.shape[0] != N or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous table of {N} rows on {dev}")
+    G = idx.shape[0]
+    row_bytes = [math.prod(t.shape[1:]) * t.element_size() for t in tables]
+    if max(G, N, *row_bytes) > I32_MAX:
+        raise ValueError(f"G {G}, N {N} or a row of {max(row_bytes)} bytes exceeds the kernel's int32")
+    outs = tuple(torch.empty((G, *t.shape[1:]), dtype=t.dtype, device=dev) for t in tables)
+    fn = function("route_select", "openr_gather_selection_rows", GATHER_SELECTION_ROWS_ARGTYPES)
+    args = (*(ptr(t) for t in tables), *(ptr(o) for o in outs), ptr(idx), G, N, *row_bytes,
+            stream(dev))
+
+    def launch() -> None:
+        if G == 0:
+            return
+        check_launch("gather_selection_rows", fn(*args))
+        LAUNCHES["gather_selection_rows"] += 1
+
+    return launch, outs
+
+
+def gather_selection_rows(use, shortest, lanes, valid, idx):
+    """Compaction of the changed selection rows ``idx`` [G] (int64): the
+    rows of each table as :func:`gather_selection_rows_plain` gives them,
+    kernel 18 for CUDA tensors (one launch), the plain version for CPU
+    tensors."""
+    if use.device.type == "cpu":
+        return gather_selection_rows_plain(use, shortest, lanes, valid, idx)
+    launch, outs = gather_selection_rows_launcher(use, shortest, lanes, valid, idx)
+    launch()
+    return outs
 
 
 # ---------------------------------------------------------------------------

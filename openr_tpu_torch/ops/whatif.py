@@ -30,6 +30,7 @@ import torch
 
 from openr_tpu_torch.device import resolve_device, synchronize
 from openr_tpu_torch.interop import tables_from_numpy
+from openr_tpu_torch.kernels.build import KernelError
 from openr_tpu_torch.ops.bits import unpack_bits_last
 from openr_tpu_torch.ops.csr import EncodedTopology
 from openr_tpu_torch.ops.repair import (
@@ -137,11 +138,15 @@ class LinkFailureSweep:
         """Warm-start this engine's base solve from a previous generation's
         engine (same root, same node symbol table): only vertices affected
         by removed/weakened links re-solve.  True when the seed applies;
-        exact either way."""
+        exact either way.  An old generation whose plan fails leaves this
+        engine cold, unless a kernel failed to build, load or launch
+        (:class:`KernelError`): that propagates."""
         if old_engine is None or self._base is not None or old_engine.root_id != self.root_id:
             return False
         try:
             old_plan = old_engine.plan()
+        except KernelError:  # a kernel that fails to build or launch is no cold start
+            raise
         except Exception:  # the old generation is unusable: stay cold
             return False
         seed = warm_base_from_previous(self.topo, self.root_id, old_engine.topo, old_plan)

@@ -302,6 +302,7 @@ ARGTYPES = {
     "openr_spf_distances_masked": tspf.SPF_DISTANCES_MASKED_ARGTYPES,
     "openr_batched_spf": tspf.BATCHED_SPF_ARGTYPES,
     "openr_batched_select_routes": trs.BATCHED_SELECT_ROUTES_ARGTYPES,
+    "openr_gather_selection_rows": trs.GATHER_SELECTION_ROWS_ARGTYPES,
 }
 
 

@@ -316,7 +316,7 @@ def test_backend_steady_state_ticks_on_card(card):
          {"dense_spf_distances", "dense_spf_nexthop_lanes", "multi_area_select_from_tables"}),
         ("drain2", lambda: drain("node31"), dict(changed_prefixes=set(), force_full=True),
          {"dense_spf_distances", "dense_spf_nexthop_lanes",
-          "multi_area_select_delta_from_tables"}),
+          "multi_area_select_delta_from_tables", "gather_selection_rows"}),
     ]
     for name, change, hints, kernels in ticks:
         change()
