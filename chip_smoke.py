@@ -94,6 +94,34 @@ and then the flagship what-if step (kernels 16 and 17):
      and ``graft_entry.entry()`` at the reference's own shape (grid 4,
      B = 4)
 
+and last the backend's admission path, under a health governor on a
+``SimClock`` (1 build in 8 shadow-verified, the first always; the breaker
+open after 2 counted failures; no jitter):
+
+ 19. on a new copy of the grid, (a) a cold build (kernels 1-3), verified
+     clean, equal to step 1's; on the 3-area world (on the grid they
+     would add three full scalar builds of it: PERF.md §5), after its own
+     verified cold build, (b) injected silent corruption and a forced build: the kernels
+     launch, the shadow check finds the mismatch, the backend is
+     quarantined and serves the scalar RouteDb, (c) one quarantined build
+     (no launch, a counted injected fallback), (d) healed, the clock past
+     the hold, a forced build: the probe runs the cold kernels, is verified
+     and restores the device; on the grid again, (e) kernel 3's launcher
+     raises ``build.KernelError`` once: it propagates out of
+     ``build_route_db`` with every counter, the breaker and the latch as
+     they were, and the next build launches kernel 3.  On the 3-area
+     world: disabled best-route selection, an empty area map and
+     ``min_device_prefixes`` above the prefix count, and a 65-candidate
+     prefix on a 66-node line, each a counted scalar build with no launch;
+     a ``RuntimeError`` twice from the device build opens the breaker.
+     The auto cutover's measured dispatch round trip and its choice for
+     the grid, the 3-area world and a 6-node ring.
+
+Every backend of steps 1-18 runs without a governor
+(``ResilienceConfig(enabled=False)``: any error raises), and each phase
+ends by checking that its backends counted no scalar build, no dispatch
+error and no injected fallback.
+
 The CUDA kernels are built from ``openr_tpu_torch/kernels/csrc`` at first
 use.  Every build checks, with exact equality:
   * each kernel against its plain PyTorch version on the card, on the
@@ -167,6 +195,8 @@ import numpy as np
 import torch
 
 from openr_tpu_torch import graft_entry
+from openr_tpu_torch.common.runtime import SimClock
+from openr_tpu_torch.config import ResilienceConfig
 from openr_tpu_torch.decision import backend as backend_mod
 from openr_tpu_torch.decision import fleet as fleet_mod
 from openr_tpu_torch.decision import ksp2 as ksp2_mod
@@ -193,6 +223,7 @@ from openr_tpu_torch.ops import route_select as rs
 from openr_tpu_torch.ops import whatif as whatif_ops
 from openr_tpu_torch.ops.bits import unpack_bits_last
 from openr_tpu_torch.ops.consts import BIG
+from openr_tpu_torch.resilience import STATE_OPEN
 from openr_tpu_torch.types import (
     PrefixEntry,
     PrefixForwardingAlgorithm,
@@ -363,10 +394,49 @@ def check(cond, what):
         raise CheckFailed(what)
 
 
+#: the backends of the phase in progress, each held at the phase's end to
+#: no scalar build, no dispatch error and no injected fallback
+WATCHED = []
+
+#: a backend whose every error raises and whose every build runs the device
+#: path: no health governor (no shadow check adds a scalar build to a wall)
+NO_GOVERNOR = ResilienceConfig(enabled=False)
+
+
+def watch(backend):
+    WATCHED.append(backend)
+    return backend
+
+
+def counters(be):
+    return {name: getattr(be, name) for name in (
+        "num_device_builds", "num_scalar_builds", "num_small_scalar_builds",
+        "num_fallback_cand_overflow", "num_fallback_injected", "num_dispatch_errors")}
+
+
+def check_no_fallback(label, backends=None):
+    """Every backend of the phase answered on the device: a caught failure
+    or a scalar build anywhere fails the run."""
+    for be in WATCHED if backends is None else backends:
+        counts = counters(be)
+        del counts["num_device_builds"]
+        check(not any(counts.values()), f"{label}: a backend fell back to scalar: {counts}")
+    n = len(WATCHED if backends is None else backends)
+    print(f"[{label}] {n} backends: 0 scalar builds, 0 dispatch errors, 0 injected "
+          f"fallbacks", flush=True)
+    if backends is None:
+        WATCHED.clear()
+
+
 class KernelPath(CudaBackend):
     """The port's backend, recording the inputs and outputs its kernels
     saw in the last build so they can be held against the plain versions
-    afterwards."""
+    afterwards.  Without a ``resilience`` argument it has no governor."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("resilience", NO_GOVERNOR)
+        super().__init__(*args, **kwargs)
+        watch(self)
 
     def build_route_db(self, *args, **kwargs):
         self.io = {}
@@ -419,7 +489,12 @@ def warm_plain(*args):
 
 
 class PlainPath(CudaBackend):
-    """The same builds with the kernels' plain PyTorch versions, on the card."""
+    """The same builds with the kernels' plain PyTorch versions, on the card
+    (no governor)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, resilience=NO_GOVERNOR, **kwargs)
+        watch(self)
 
     def _spf_tables(self, in_src, in_w, in_ok, in_rank, in_has, ovl, roots, D):
         dist = spf.dense_spf_distances_plain(in_src, in_w, in_ok, ovl, roots)
@@ -1107,9 +1182,11 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
     ]
     if steady:
         fresh = CudaBackend(SpfSolver(
-            oracle.my_node_name, route_selection_algorithm=oracle.route_selection_algorithm))
+            oracle.my_node_name, route_selection_algorithm=oracle.route_selection_algorithm),
+            resilience=NO_GOVERNOR)
         check(route_db_summary(fresh.build_route_db(areas, ps)) == want,
               f"{label}: RouteDb != a fresh backend's cold build")
+        check_no_fallback(label, [fresh])
         # a patched build names its changed set; an incremental one may
         # change only the churned prefixes; a full build claims nothing
         claimed = changed
@@ -2250,6 +2327,8 @@ def ksp2_phase(report, rng):
     links = [on_paths[i] for i in rng.choice(
         len(on_paths), min(KSP2_WHATIF_LINKS, len(on_paths)), replace=False)]
     eng = whatif_api.DeviceBuildWhatIfEngine(SpfSolver("core0"))
+    eng._backend = CudaBackend(eng.solver, resilience=NO_GOVERNOR)
+    watch(eng._backend)
     got, rec, walls["g: device-build what-if"] = whatif_run(
         report, "ksp2:whatif", KSP2_COLD, lambda: eng.run(links, areas["kernel"], wps, 1),
         entries=KSP2_ENTRIES + SELECT_ENTRIES)
@@ -2644,6 +2723,262 @@ def hold_gathers(report):
     fleet_mod.gather_selection_rows = held
 
 
+# ---------------------------------------------------------------------------
+# the admission path: health governor, breaker, counted scalar builds
+# ---------------------------------------------------------------------------
+
+#: the admission phase's governor: 1 device build in 8 shadow-verified (the
+#: first always), the breaker open after 2 counted failures, no jitter
+ADMISSION = dict(shadow_sample_every=8, failure_threshold=2, jitter_pct=0.0)
+
+
+def admission_step(report, label, expect, build):
+    """One request through ``build``: launch counts reset just before and
+    read just after, the launched set held to ``expect`` (drive's rule).
+    Returns (result, wall ms)."""
+    report.tick = label
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = build()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(LAUNCHES)
+    launched = {name for name, n in counts.items() if n}
+    check(launched == set(expect), f"{label}: launched {sorted(launched)}, expected {sorted(expect)}")
+    for name in KERNEL_NAMES:
+        report.launches[name] += counts[name]
+    print(f"[{label}] wall={wall:.1f}ms launches={ {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    return out, wall
+
+
+def timed_shadow_checks(gov):
+    """Record the wall (ms) of each shadow check's scalar build."""
+    walls = []
+    scalar_db = gov._scalar_db
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = scalar_db(*args)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    gov._scalar_db = timed
+    return walls
+
+
+def governed(me, clock, **solver_kw):
+    be = KernelPath(SpfSolver(me, **solver_kw), clock=clock,
+                    resilience=ResilienceConfig(**ADMISSION))
+    return be, timed_shadow_checks(be.governor)
+
+
+def admission_corruption_steps(report, be, clock, areas, ps, want, label):
+    """(b) injected corruption: the kernels launch, the shadow check finds
+    the mismatch, the backend is quarantined and serves the scalar RouteDb;
+    (c) one quarantined build: no launch, a counted injected fallback; (d)
+    healed, past the hold, a probe: the cold kernels, verified, restored."""
+    gov = be.governor
+    full = COLD | {SELECT}
+    be.inject_silent_corruption(True)
+    db, _ = admission_step(report, f"{label}:b corruption", full,
+                           lambda: be.build_route_db(areas, ps, force_full=True))
+    report.kernel_checks(be, False)
+    check(gov.num_shadow_mismatches == 1 and be.device_failed and gov.num_quarantines == 1,
+          f"{label} (b): the corruption was not found and quarantined: {gov.status()}")
+    check(route_db_summary(db) == want, f"{label} (b): the served RouteDb != (a)'s")
+    before = counters(be)
+    db, c_wall = admission_step(report, f"{label}:c quarantined", set(),
+                                lambda: be.build_route_db(areas, ps))
+    check(be.num_fallback_injected == before["num_fallback_injected"] + 1
+          and be.num_scalar_builds == before["num_scalar_builds"] + 1,
+          f"{label} (c): the quarantined build was not a counted scalar build")
+    check(route_db_summary(db) == want, f"{label} (c): RouteDb != (a)'s")
+    be.inject_silent_corruption(False)
+    clock._now += gov.breaker.current_hold_s() + 0.5
+    db, _ = admission_step(report, f"{label}:d probe", full,
+                           lambda: be.build_route_db(areas, ps, force_full=True))
+    report.kernel_checks(be, False)
+    check(not be.device_failed and gov.num_restores == 1 and gov.last_probe.get("passed"),
+          f"{label} (d): the probe did not restore the device: {gov.status()}")
+    check(route_db_summary(db) == want, f"{label} (d): RouteDb != (a)'s")
+    return c_wall
+
+
+def raising_launcher(*args, **kwargs):
+    raise build.KernelError("multi_area_select_from_tables: injected launch failure")
+
+
+def admission_phase(report, smi, cold_db):
+    """19. The admission path, under a governor on a SimClock: on the grid
+    (a) a shadow-verified cold build and (e) a kernel error that propagates
+    uncounted; on the 3-area world, where a full scalar build costs far
+    less than the grid's, (b) injected corruption found and quarantined,
+    (c) a quarantined build, (d) a probe that restores; on the 3-area
+    world also the counted scalar builds (disabled
+    selection, an empty area map, the small-build cutover, a 65-candidate
+    prefix) and the breaker opened by dispatch failures; the auto
+    cutover's measured round trip and choice.  Returns the walls (ms),
+    each shadow check's scalar build among them."""
+    walls = {}
+    t_phase = time.perf_counter()
+    full = COLD | {SELECT}
+    _dbs, areas, ps = grid_world()
+    clock = SimClock()
+    be, checks = governed("node0", clock)
+    gov = be.governor
+    db, _ = admission_step(report, "admission:a cold", full, lambda: be.build_route_db(areas, ps))
+    report.kernel_checks(be, False)
+    want = route_db_summary(db)
+    check(want == route_db_summary(cold_db), "admission (a): RouteDb != phase 1's cold build")
+    check(gov.num_shadow_checks == 1 and gov.num_shadow_mismatches == 0,
+          f"admission (a): the cold build was not verified clean: {gov.status()}")
+    check(not any(v for k, v in counters(be).items() if k != "num_device_builds"),
+          f"admission (a): scalar builds counted: {counters(be)}")
+    print(f"[admission:a cold] shadow-verified (check's scalar build {checks[-1]:.1f} ms); "
+          f"RouteDb == phase 1's cold build", flush=True)
+
+    a3, ps3, me3 = three_area_world()
+    oracle3 = SpfSolver(me3).build_route_db(a3, ps3)
+    clock3 = SimClock()
+    be3, checks3 = governed(me3, clock3)
+    db3, _ = admission_step(report, "admission:3-area a", full,
+                            lambda: be3.build_route_db(a3, ps3))
+    report.kernel_checks(be3, False)
+    c_wall = admission_corruption_steps(report, be3, clock3, a3, ps3,
+                                        route_db_summary(db3), "admission:3-area")
+    checks += checks3
+    print(f"[admission] steps b-d on the 3-area world: "
+          f"corruption found and quarantined, the quarantined build scalar "
+          f"({c_wall:.1f} ms), the probe restored; RouteDbs == (a)'s", flush=True)
+
+    # (e) a kernel error, and the launcher's own refusal of a dtype,
+    # propagate uncounted
+    launcher = rs.multi_area_select_from_tables_launcher
+
+    def wrong_dtype(*args):  # soft as int64: check_tensor refuses it
+        return launcher(*args[:3], args[3].long(), *args[4:])
+
+    raised = []
+    for injected, error in ((raising_launcher, build.KernelError), (wrong_dtype, TypeError)):
+        before = counters(be)
+        breaker = gov.breaker.status()
+        rs.multi_area_select_from_tables_launcher = injected
+        reset_launch_counts()
+        try:
+            be.build_route_db(areas, ps, force_full=True)
+        except error as e:
+            raised.append(type(e).__name__)
+        finally:
+            rs.multi_area_select_from_tables_launcher = launcher
+        check(len(raised) and raised[-1] == error.__name__,
+              f"admission (e): the {error.__name__} did not propagate")
+        check(not any(LAUNCHES.values()), f"admission (e): launched {dict(LAUNCHES)}")
+        check(counters(be) == before and gov.breaker.status() == breaker
+              and not be.device_failed,
+              f"admission (e): the {error.__name__} was counted: {counters(be)} {gov.status()}")
+    db, _ = admission_step(report, "admission:e next build", {SELECT},
+                           lambda: be.build_route_db(areas, ps, force_full=True))
+    report.kernel_checks(be, False)
+    check(route_db_summary(db) == want, "admission (e): the next build != (a)'s")
+    print(f"[admission:e] {' and '.join(raised)} propagated; counters, breaker and latch "
+          f"unchanged; the next build == (a)'s", flush=True)
+    steps_ms = (time.perf_counter() - t_phase) * 1e3
+
+    # the counted scalar builds, with no launch
+    r3 = route_db_summary(oracle3)
+    disabled, _ = governed(me3, SimClock(), enable_best_route_selection=False)
+    oracle_off = SpfSolver(me3, enable_best_route_selection=False).build_route_db(a3, ps3)
+    line = [(f"node{i}", f"node{i + 1}", 1) for i in range(65)]
+    line_ls = LinkState("1", "node0")
+    for adj_db in build_adj_dbs(line, area="1").values():
+        line_ls.update_adjacency_database(adj_db)
+    line_ps = PrefixState()
+    for i in range(1, 66):
+        line_ps.update_prefix(f"node{i}", "1", PrefixEntry("10.0.0.0/24"))
+    line_be, _ = governed("node0", SimClock())
+    small_be = KernelPath(SpfSolver(me3), clock=SimClock(),
+                          min_device_prefixes=len(ps3.prefixes()) + 1,
+                          resilience=ResilienceConfig(**ADMISSION))
+    empty_be, _ = governed(me3, SimClock())
+    cases = (
+        ("disabled selection", disabled, a3, ps3, oracle_off, "num_scalar_builds"),
+        ("empty area map", empty_be, {}, ps3, SpfSolver(me3).build_route_db({}, ps3),
+         "num_scalar_builds"),
+        ("min_device_prefixes above the count", small_be, a3, ps3, oracle3,
+         "num_small_scalar_builds"),
+        ("65 candidates", line_be, {"1": line_ls}, line_ps,
+         SpfSolver("node0").build_route_db({"1": line_ls}, line_ps), "num_fallback_cand_overflow"),
+    )
+    for label, case_be, case_areas, case_ps, oracle_db, counter in cases:
+        db, _ = admission_step(report, f"admission:{label}", set(),
+                               lambda: case_be.build_route_db(case_areas, case_ps))
+        got = counters(case_be)
+        check(got[counter] == 1 and got["num_device_builds"] == 0
+              and got["num_scalar_builds"] + got["num_small_scalar_builds"] == 1,
+              f"admission ({label}): not one counted scalar build: {got}")
+        same = (db is None and oracle_db is None) or (
+            db is not None and oracle_db is not None
+            and route_db_summary(db) == route_db_summary(oracle_db))
+        check(same, f"admission ({label}): RouteDb != the scalar solver's")
+        routes = "None" if db is None else len(db.unicast_routes)
+        print(f"[admission:{label}] counted {counter} 1, no launch; routes {routes} == scalar "
+              f"solver", flush=True)
+
+    # a RuntimeError twice from the device build opens the breaker
+    failing, _ = governed(me3, SimClock())
+
+    def fell_over(*args, **kwargs):
+        raise RuntimeError("device build fell over")
+
+    failing._build_device = fell_over
+    for i in (1, 2):
+        db, _ = admission_step(report, f"admission:dispatch failure {i}", set(),
+                               lambda: failing.build_route_db(a3, ps3))
+        check(route_db_summary(db) == r3, "admission (dispatch failure): RouteDb != oracle")
+    fgov = failing.governor
+    check(failing.num_dispatch_errors == 2 and failing.device_failed
+          and fgov.breaker.state == STATE_OPEN and fgov.num_quarantines == 1,
+          f"admission (dispatch failures): the breaker did not open: {fgov.status()}")
+    print(f"[admission:dispatch failures] 2 counted, breaker open "
+          f"({fgov.quarantine_reason}); RouteDbs == scalar solver", flush=True)
+
+    # the auto cutover: measured round trip and choice
+    ring = LinkState("0", "node0")
+    for adj_db in build_adj_dbs([(f"node{i}", f"node{(i + 1) % 6}", 1) for i in range(6)]).values():
+        ring.update_adjacency_database(adj_db)
+    ring_ps = PrefixState()
+    for i in range(6):
+        ring_ps.update_prefix(f"node{i}", "0", PrefixEntry(f"10.7.{i}.0/24"))
+    for label, w_areas, w_ps, me in (("grid", areas, ps, "node0"), ("3-area", a3, ps3, me3),
+                                     ("6-node ring", {"0": ring}, ring_ps, "node0")):
+        auto = KernelPath(SpfSolver(me), min_device_prefixes=None)
+        device = auto._device_worth_it(w_areas, w_ps)
+        work = backend_mod.estimate_scalar_work_items(w_areas, w_ps)
+        print(f"[admission:cutover] {label}: dispatch round trip {auto.auto_dispatch_rt_ms:.4f} ms, "
+              f"{work} work items: scalar estimate {work * auto.SCALAR_US_PER_ITEM / 1e3:.3f} ms "
+              f"vs device {auto.DEVICE_OVERHEAD_TRIPS * auto.auto_dispatch_rt_ms:.4f} ms -> "
+              f"{'device' if device else 'scalar'} ({smi})", flush=True)
+        if label == "grid":
+            continue
+        db, _ = admission_step(report, f"admission:cutover {label}", full if device else set(),
+                               lambda: auto.build_route_db(w_areas, w_ps))
+        report.kernel_checks(auto, False)
+        check(auto.num_small_scalar_builds == (0 if device else 1),
+              f"admission (cutover {label}): the build did not follow the choice")
+        check(route_db_summary(db) == route_db_summary(SpfSolver(me).build_route_db(w_areas, w_ps)),
+              f"admission (cutover {label}): RouteDb != scalar solver")
+    WATCHED.clear()  # this phase's scalar builds are its checks
+    walls["admission: steps a-e"] = steps_ms
+    walls["admission: quarantined build (c)"] = c_wall
+    for i, ms in enumerate(checks):
+        walls[f"admission: shadow check {i + 1}'s scalar build"] = ms
+    walls["admission"] = (time.perf_counter() - t_phase) * 1e3
+    print(f"[admission] phase wall {walls['admission']:.1f} ms (steps a-e {steps_ms:.1f} ms); "
+          f"shadow checks' scalar builds {', '.join(f'{w:.1f}' for w in checks)} ms ({smi})",
+          flush=True)
+    return walls
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2677,7 +3012,7 @@ def main():
     oracle = SpfSolver("node0")
     full = COLD | {SELECT}
     common = dict(rng=rng, sample=200, expect=full)
-    drive(report, kernel_be, plain_be, oracle, areas, ps, "cold", timed=True, **common)
+    cold_db = drive(report, kernel_be, plain_be, oracle, areas, ps, "cold", timed=True, **common)
 
     # 2. a link metric change in the middle of the grid
     mid = f"node{n // 2 + GRID_SIDE // 2}"
@@ -2702,6 +3037,7 @@ def main():
         drive(report, kb, pb, oracle3, a3, ps3, f"3-area:{algo.name}", rng=rng, sample=None,
               expect=full)
         three_area.append((kb, pb, oracle3, a3, ps3, f"3-area:{algo.name}"))
+    check_no_fallback("route builds", list(WATCHED))
 
     # 5-9. the steady-state ticks on the grid
     steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
@@ -2709,20 +3045,29 @@ def main():
     # and gather lead the kernels line)
     for kb, pb, oracle3, a3, ps3, label in three_area:
         drain_ticks(report, kb, pb, oracle3, a3, ps3, rng, label, (("3", "c3"), ("2", "b4")), COLD)
+    check_no_fallback("route builds and steady-state ticks")
 
     # 10-12. the link-failure what-if path
     walls = whatif_phases(report, rng, areas, ps)
+    check_no_fallback("what-if")
 
     # 13-15. the fleet RIB and the multi-area what-if
     walls.update(fleet_phases(report, rng, areas))
+    check_no_fallback("fleet and multi-area")
 
     # 16-17. KSP2 on the backbone; the shapes past the shared-memory bound
     ksp2_walls, backbone_enc = ksp2_phase(report, rng)
     walls.update(ksp2_walls)
+    check_no_fallback("ksp2")
     walls.update(c4_phase(report, rng, backbone_enc))
+    check_no_fallback("shapes past the shared-memory bound")
 
     # 18. the flagship step
     walls.update(flagship_phase(report, rng))
+    check_no_fallback("flagship")
+
+    # 19. the admission path: governor, breaker, counted scalar builds
+    walls.update(admission_phase(report, smi, cold_db))
     report.time_gathers()
 
     for name in KERNEL_NAMES:

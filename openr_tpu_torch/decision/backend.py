@@ -31,11 +31,50 @@ device (one shard).  A build runs:
      (every route outside the changed set is the previous object), or a
      full RouteDb with the static-route overlay and the MPLS label routes
 
-On a CUDA device every build runs the hand kernels, with no fallback; on
-the CPU (``device="cpu"``) the same path runs their plain PyTorch
-versions.  Every path must produce the RouteDb the scalar ``SpfSolver``
-produces and that ``TpuBackend(warm_rebuild=True)`` produces, with the
-same path counters and changed sets.
+On a CUDA device every device build runs the hand kernels; on the CPU
+(``device="cpu"``) the same path runs their plain PyTorch versions.  Every
+path must produce the RouteDb the scalar ``SpfSolver`` produces and that
+``TpuBackend(warm_rebuild=True)`` produces, with the same path counters and
+changed sets.
+
+Admission (the reference's ``TpuBackend.build_route_db``): a
+``BackendHealthGovernor`` (``resilience/governor.py``) admits each build to
+the device, as a half-open probe, or not at all, and shadow-verifies the
+first device build, 1 in ``shadow_sample_every`` after it and every probe
+against the scalar ``SpfSolver``; a mismatch quarantines the device and
+serves the scalar RouteDb (shadow checks count in the governor's
+``resilience.backend.*`` gauges).  ``resilience=None`` builds a governor
+with ``ResilienceConfig``'s defaults; ``ResilienceConfig(enabled=False)``
+keeps the one-way ``device_failed`` latch with no verification.  Every
+other scalar build is counted, never silent:
+
+  * ``num_scalar_builds``: disabled best-route selection or another
+    selection algorithm, an empty ``area_link_states``, a build while
+    quarantined (also ``num_fallback_injected``), and a ``CapacityError``:
+    a world the device layout cannot hold, found on the host before any
+    launch (a prefix with more candidates than the largest candidate
+    bucket, also ``num_fallback_cand_overflow``; a count past an encode
+    bucket; a non-positive metric)
+  * ``num_small_scalar_builds``: the small-build cutover
+    (``min_device_prefixes``: N prefixes, or None to weigh the estimated
+    scalar cost against the measured dispatch round trip)
+  * ``num_dispatch_errors``: any other exception of the device build,
+    scored by the governor's breaker (re-raised with no governor)
+
+Raised, and never caught or counted (``KERNEL_ERRORS``):
+``build.KernelError`` (a kernel failed to build, load, bind its C symbol or
+launch), ``torch.AcceleratorError`` (the CUDA runtime),
+``torch.OutOfMemoryError`` (an allocation on the card: the device layout
+is sized on the host, so running out is a fault of that sizing, not of the
+card's health), and a launcher's refusal of its arguments: every other
+``ValueError`` (a shape or a device), a ``TypeError`` (a dtype,
+``build.check_tensor``) and a ``ctypes.ArgumentError`` (an argument the C
+entry point cannot take).  A scalar answer there would hide a broken kernel
+behind a correct RouteDb, so they leave the breaker, ``device_failed`` and
+the counters as they were (an admitted probe is released unscored).  Whatever leaves the
+backend as an exception first drops the previous RouteDb, the candidate
+table's sync and the resident selection outputs, so no half-built state
+serves as the next build's base.
 
 KSP2_ED_ECMP prefixes (classified by the forwarding algorithm of the MIN
 selection winner) are collected during the decode with their per-area
@@ -47,22 +86,22 @@ routes from the seeded memo.  Their routes read the whole topology, so
 while any KSP2 prefix is live the delta and warm-selective branches
 decline; a full decode re-derives that.
 
-Not in this backend, each raising ``NotImplementedError`` instead of
-taking a silent scalar path: prefixes with more candidates than the
-largest candidate bucket, and disabled best-route selection.  Membership
-churn (a node or link joining or leaving) re-encodes cold and solves
-cold: the reference's slot-stable encode, its health governor, device
-pool and multi-chip dispatch are later slices.
+Not in this backend yet: membership churn (a node or link joining or
+leaving) re-encodes cold and solves cold, where the reference patches its
+encoding slot by slot; and the reference's device pool, with its per-card
+health governance and multi-card dispatch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import time
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
+from openr_tpu_torch.config import ResilienceConfig
 from openr_tpu_torch.decision.cand_table import CandidateTable
 from openr_tpu_torch.decision.ksp2 import Ksp2DeviceEngine
 from openr_tpu_torch.decision.link_state import INF, LinkState
@@ -71,12 +110,14 @@ from openr_tpu_torch.decision.rib import DecisionRouteDb, RibUnicastEntry
 from openr_tpu_torch.decision.spf_solver import SpfSolver, drained_entry
 from openr_tpu_torch.device import DeviceLike, resolve_device, synchronize
 from openr_tpu_torch.interop import tables_from_numpy
+from openr_tpu_torch.kernels.build import KernelError
 from openr_tpu_torch.ops.csr import (
+    CapacityError,
     bucket_for,
     encode_multi_area,
     patch_encoded_multi_area,
 )
-from openr_tpu_torch.ops.repair import plan_generation_delta
+from openr_tpu_torch.ops.repair import PLAN_CACHE, plan_generation_delta
 from openr_tpu_torch.ops.route_select import (
     gather_selection_rows,
     multi_area_select_delta_from_tables,
@@ -85,6 +126,11 @@ from openr_tpu_torch.ops.route_select import (
     multi_area_spf_tables_dense,
 )
 from openr_tpu_torch.ops.spf import warm_spf_one, warm_subgraph_repair
+from openr_tpu_torch.resilience.governor import (
+    ADMIT_PROBE,
+    ADMIT_QUARANTINED,
+    BackendHealthGovernor,
+)
 from openr_tpu_torch.types import (
     NextHop,
     PrefixForwardingAlgorithm,
@@ -112,6 +158,50 @@ DELTA_FETCH_MAX_FRACTION = 0.5
 #: "decode": the seed (kernel 15 and its fetch), the path trace and the
 #: scalar KSP2 route chain
 PHASES = ("encode", "spf", "select", "decode")
+
+#: the selection algorithms the device build implements (with best-route
+#: selection enabled); every other build is a counted scalar build
+DEVICE_ALGORITHMS = (
+    RouteComputationRules.SHORTEST_DISTANCE,
+    RouteComputationRules.PER_AREA_SHORTEST_DISTANCE,
+)
+
+#: errors of the kernels themselves: they leave ``build_route_db`` as they
+#: are, uncounted, so no scalar answer hides them.  ``ValueError``,
+#: ``TypeError`` and ``ctypes.ArgumentError`` cover the launchers' refusals
+#: (``CapacityError`` is caught before them).
+KERNEL_ERRORS = (
+    ValueError,
+    TypeError,
+    ctypes.ArgumentError,
+    KernelError,
+    torch.AcceleratorError,
+    torch.OutOfMemoryError,
+)
+
+
+def measure_dispatch_rt_ms(device: torch.device) -> float:
+    """Median device dispatch round trip (ms): one tiny op on ``device``,
+    then a synchronize — the number the auto device-vs-host cutover
+    calibrates against."""
+    torch.zeros(4, device=device) + 1
+    synchronize(device)  # warm-up
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        torch.zeros(4, device=device) + 1
+        synchronize(device)
+        samples.append(time.perf_counter() - t0)
+    samples.sort()
+    return samples[1] * 1000.0
+
+
+def estimate_scalar_work_items(area_link_states, prefix_state) -> int:
+    """Work items (prefix rows + directed edges) for the auto cutover's
+    scalar-cost estimate."""
+    return len(prefix_state.prefixes()) + 2 * sum(
+        ls.num_links() for ls in area_link_states.values()
+    )
 
 
 def _patch_route_db(
@@ -197,15 +287,34 @@ class CudaBackend(DecisionBackend):
 
     #: warm-context host mirrors beyond this size are not kept
     WARM_MAX_TABLE_BYTES = 64 << 20
+    #: the auto cutover's assumed scalar build cost per work item (prefix
+    #: row or directed edge), and the device build's cost in dispatch round
+    #: trips (encode + SPF + select + one bulk fetch); the reference's values
+    SCALAR_US_PER_ITEM = 10.0
+    DEVICE_OVERHEAD_TRIPS = 2.5
 
     def __init__(
-        self, solver: SpfSolver, device: DeviceLike = None, warm_rebuild: bool = True
+        self,
+        solver: SpfSolver,
+        device: DeviceLike = None,
+        warm_rebuild: bool = True,
+        min_device_prefixes: Optional[int] = 0,
+        clock=None,
+        counters=None,
+        tracer=None,
+        resilience: Optional[ResilienceConfig] = None,
     ) -> None:
-        self.solver = solver  # static/MPLS routes, drain lookups
+        self.solver = solver  # scalar fallback, static/MPLS routes, drains
         self.device = resolve_device(device)
+        #: device-vs-scalar cutover: 0 = always device; N = a scalar build
+        #: below N prefixes; None = auto, a scalar build when the estimated
+        #: scalar cost cannot amortize the dispatch round trip (measured
+        #: once, at the first build that asks)
+        self.min_device_prefixes = min_device_prefixes
+        self.auto_dispatch_rt_ms: Optional[float] = None
         self._cand_table = CandidateTable()
         #: the table holds every prefix delta so far (a build that raised
-        #: mid-way leaves it stale: the next build re-reads PrefixState)
+        #: or went scalar leaves it stale: the next build re-reads PrefixState)
         self._table_synced = False
         #: (area/topology_seq key, pinned LinkStates, encoding, device
         #: arrays): prefix-only rebuilds reuse the encoding
@@ -214,6 +323,9 @@ class CudaBackend(DecisionBackend):
         self._last_enc = None
         self._last_db: Optional[DecisionRouteDb] = None
         self._last_changed_prefixes: Optional[Set[str]] = None
+        #: one-shot: a shadow check replaced the device result, so the
+        #: caller diffs this build against its WHOLE previous RouteDb
+        self._full_replace = False
         #: device SPF tables (dist, nh, overloaded, soft), valid while
         #: (_tables_enc is the live encoding, _tables_degree == D)
         self._tables = None
@@ -237,6 +349,13 @@ class CudaBackend(DecisionBackend):
         self._ksp2_present = False
         self._ksp2_ms = 0.0
         self.num_device_builds = 0
+        self.num_scalar_builds = 0
+        self.num_small_scalar_builds = 0
+        #: scalar builds caused by a prefix with more candidates than the
+        #: largest candidate bucket (a cause of its own among scalar builds)
+        self.num_fallback_cand_overflow = 0
+        self.num_fallback_injected = 0
+        self.num_dispatch_errors = 0
         self.num_encode_hits = 0
         self.num_encode_patches = 0
         self.num_incremental_builds = 0
@@ -245,14 +364,56 @@ class CudaBackend(DecisionBackend):
         self.num_warm_selective_builds = 0
         self.num_warm_cold_fallbacks = 0
         self.num_warm_purges = 0
+        self._warm_purge_reasons: Dict[str, int] = {}
+        self._warm_fallback_reasons: Dict[str, int] = {}
+        #: warm telemetry by delta class (perturbation / structural)
+        self._warm_class_builds = {"perturbation": 0, "structural": 0}
+        self._warm_class_fallbacks = {"perturbation": 0, "structural": 0}
+        self._warm_class_fallback_reasons: Dict[str, Dict[str, int]] = {
+            "perturbation": {},
+            "structural": {},
+        }
         self.num_delta_builds = 0
+        self.num_delta_rows_fetched = 0
+        self.num_delta_rows_skipped = 0
         self.warm_last_est_depth = 0
         self.warm_last_reset_nodes = 0
         self.warm_last_rounds = (0, 0)
         #: rows each selection of the last build ran over, by branch
         self.last_rows: Dict[str, int] = {}
-        #: host wall time of the last build's phases, in ms
+        #: host wall time of the last build's phases, in ms (empty after a
+        #: build that ran no device build)
         self.last_phase_ms: Dict[str, float] = {}
+        #: device-outage latch: while set, every build is a scalar build.
+        #: With a governor its only writers are the governor and the
+        #: injection hooks below.
+        self.device_failed = False
+        #: injected silent corruption: fetched metrics are perturbed
+        #: without raising (what shadow verification exists to catch)
+        self._sdc_inject = False
+        self.governor: Optional[BackendHealthGovernor] = None
+        if resilience is None or resilience.enabled:
+            gov_kwargs = (
+                {}
+                if resilience is None
+                else dict(
+                    shadow_sample_every=resilience.shadow_sample_every,
+                    failure_threshold=resilience.failure_threshold,
+                    probe_backoff_initial_s=resilience.probe_backoff_initial_s,
+                    probe_backoff_max_s=resilience.probe_backoff_max_s,
+                    jitter_pct=resilience.jitter_pct,
+                    seed=resilience.seed,
+                    per_device=resilience.per_device,
+                )
+            )
+            self.governor = BackendHealthGovernor(
+                self, clock=clock, counters=counters, tracer=tracer, **gov_kwargs
+            )
+            # a quarantine makes device residency suspect: the next
+            # generation solves cold and is verified
+            self.governor.add_quarantine_listener(
+                lambda info: self._purge_warm(f"quarantine:{info.get('reason', '')}")
+            )
 
     # -- build -------------------------------------------------------------
 
@@ -266,27 +427,13 @@ class CudaBackend(DecisionBackend):
         warm_delta=False,
         structural_delta=False,
     ):
-        solver = self.solver
-        if not solver.enable_best_route_selection or (
-            solver.route_selection_algorithm
-            not in (
-                RouteComputationRules.SHORTEST_DISTANCE,
-                RouteComputationRules.PER_AREA_SHORTEST_DISTANCE,
-            )
-        ):
-            raise NotImplementedError(
-                "the device route build implements enabled best-route "
-                "selection with SHORTEST_DISTANCE or "
-                "PER_AREA_SHORTEST_DISTANCE only"
-            )
         self._last_changed_prefixes = None
-        delta_class = (
-            "structural" if structural_delta else ("perturbation" if warm_delta else None)
-        )
-        self._ksp2_ms = 0.0
+        self.last_rows = {}
+        self.last_phase_ms = {}
         try:
-            db = self._build(
-                area_link_states, prefix_state, changed_prefixes, force_full, delta_class
+            return self._admitted_build(
+                area_link_states, prefix_state, changed_prefixes, force_full,
+                cache_result, warm_delta, structural_delta,
             )
         except BaseException:
             # nothing of a build that raised may serve as the next base
@@ -294,15 +441,227 @@ class CudaBackend(DecisionBackend):
             self._table_synced = False
             self._prev_sel = None
             raise
-        if db is not None:
-            self._last_db = db if cache_result else None
+
+    def _admitted_build(
+        self, area_link_states, prefix_state, changed_prefixes, force_full,
+        cache_result, warm_delta, structural_delta,
+    ):
+        """The reference's admission path: governor, eligibility, cutover,
+        the device build and its shadow check."""
+        gov = self.governor
+        probe = False
+        if gov is not None:
+            mode = gov.admit()
+            if mode == ADMIT_QUARANTINED:
+                # the daemon keeps producing routes: the scalar oracle
+                self.num_fallback_injected += 1
+                return self._scalar_fallback(area_link_states, prefix_state)
+            probe = mode == ADMIT_PROBE
+        elif self.device_failed:
+            self.num_fallback_injected += 1
+            return self._scalar_fallback(area_link_states, prefix_state)
+        solver = self.solver
+        if (
+            not area_link_states
+            or not solver.enable_best_route_selection
+            or solver.route_selection_algorithm not in DEVICE_ALGORITHMS
+        ):
+            if probe:
+                gov.abort_probe()
+            return self._scalar_fallback(area_link_states, prefix_state)
+        delta_class = (
+            "structural" if structural_delta else ("perturbation" if warm_delta else None)
+        )
+        try:
+            if self.min_device_prefixes is None:
+                small = not self._device_worth_it(area_link_states, prefix_state)
+            else:
+                small = bool(self.min_device_prefixes) and (
+                    len(prefix_state.prefixes()) < self.min_device_prefixes
+                )
+            if small:
+                if probe:
+                    gov.abort_probe()
+                return self._scalar_fallback(
+                    area_link_states, prefix_state, counter="small"
+                )
+            db = self._build_device(
+                area_link_states, prefix_state, changed_prefixes, force_full, delta_class
+            )
+        except CapacityError:
+            # a data-scale limit found before any launch, not a device
+            # health signal: scalar, without scoring the breaker
+            if gov is not None:
+                gov.abort_probe()
+            return self._scalar_fallback(area_link_states, prefix_state)
+        except KERNEL_ERRORS:
+            # a kernel's own failure or refusal: never answered around
+            if probe:
+                gov.abort_probe()
+            raise
+        except Exception as e:  # noqa: BLE001 - organic dispatch failure
+            if gov is None:
+                raise
+            # past the breaker's threshold the device is quarantined
+            # instead of being re-paid on every rebuild
+            self.num_dispatch_errors += 1
+            gov.record_dispatch_failure(e)
+            return self._scalar_fallback(area_link_states, prefix_state)
+        if db is None:
+            # my node is in no area: nothing computed, nothing to verify
+            if gov is not None:
+                gov.abort_probe()
+            return None
+        if gov is not None:
+            db, from_device = gov.after_device_build(
+                db, area_link_states, prefix_state, probe=probe
+            )
+            if not from_device:
+                # a shadow check replaced a corrupt device result: no base
+                # derived from device output is trustworthy, and the caller
+                # diffs this build against its WHOLE previous RouteDb
+                self._last_db = None
+                self._table_synced = False
+                self._full_replace = True
+                self._last_changed_prefixes = None
+                self._purge_warm("full_replace")
+                return db
+        self._last_db = db if cache_result else None
+        return db
+
+    def _build_device(
+        self, area_link_states, prefix_state, changed_prefixes, force_full, delta_class
+    ):
+        """One device build; None when my node is in no area."""
+        self._ksp2_ms = 0.0
+        db = self._build(
+            area_link_states, prefix_state, changed_prefixes, force_full, delta_class
+        )
         if self._ksp2_ms:
             self.last_phase_ms["decode"] -= self._ksp2_ms
             self.last_phase_ms["ksp2"] = self._ksp2_ms
         return db
 
+    def _scalar_fallback(self, area_link_states, prefix_state, counter: str = "scalar"):
+        """One build by the scalar solver, counted; every incremental base
+        is dropped (the candidate table misses this tick's churn)."""
+        if counter == "small":
+            self.num_small_scalar_builds += 1
+        else:
+            self.num_scalar_builds += 1
+        self._last_db = None
+        self._table_synced = False
+        self._prev_sel = None  # resident outputs no longer match _last_db
+        return self.solver.build_route_db(area_link_states, prefix_state)
+
+    def _device_worth_it(self, area_link_states, prefix_state) -> bool:
+        """Auto cutover: device iff the estimated scalar build cost reaches
+        the measured dispatch overhead (both only need order-of-magnitude
+        accuracy)."""
+        if self.auto_dispatch_rt_ms is None:
+            self.auto_dispatch_rt_ms = measure_dispatch_rt_ms(self.device)
+        work = estimate_scalar_work_items(area_link_states, prefix_state)
+        scalar_us = work * self.SCALAR_US_PER_ITEM
+        device_us = self.DEVICE_OVERHEAD_TRIPS * self.auto_dispatch_rt_ms * 1000.0
+        return scalar_us >= device_us
+
+    def take_full_replace(self) -> bool:
+        fr, self._full_replace = self._full_replace, False
+        return fr
+
     def take_last_changed_prefixes(self) -> Optional[Set[str]]:
         out, self._last_changed_prefixes = self._last_changed_prefixes, None
+        return out
+
+    # -- injected faults and counters ---------------------------------------
+
+    def inject_device_failure(self, failed: bool) -> None:
+        """Force (or clear) the device-outage path: while set, every build
+        is a scalar build.  With a governor, setting it hard-quarantines the
+        device and clearing it force-restores it (a probed heal goes
+        through ``governor.request_probe`` instead)."""
+        if self.governor is not None:
+            if failed:
+                self.governor.force_quarantine(reason="injected")
+            else:
+                self.governor.force_restore(reason="injected_clear")
+            return
+        self.device_failed = failed
+
+    def inject_silent_corruption(self, corrupt: bool) -> None:
+        """Perturb the fetched selection metrics WITHOUT raising: wrong but
+        plausible route metrics reach the decode, the silent-corruption
+        model.  Detecting it is the governor's job (shadow verification),
+        never this flag's."""
+        self._sdc_inject = corrupt
+        if corrupt:
+            # nothing device-resident may seed a warm rebuild: the next
+            # generation solves cold, and its shadow check is due
+            self._purge_warm("tpu_corrupt")
+
+    def _fetched_metrics(self, shortest: np.ndarray) -> np.ndarray:
+        """The per-area metrics as fetched to the host.  While corruption is
+        injected, every finite one is shifted by a constant: routes stay
+        loop-free and reachable, yet provably wrong — the corruption class
+        only a RIB diff against the scalar oracle catches.  Deterministic,
+        so a seeded run replays exactly."""
+        if not self._sdc_inject:
+            return shortest
+        out = np.array(shortest, copy=True)
+        out[np.isfinite(out)] += 7.0
+        return out
+
+    def counter_snapshot(self) -> Dict[str, float]:
+        """The reference backend's ``decision.backend.*`` gauges (less those
+        of the device pool and its stream, and of the slot-stable encode of
+        membership churn, none of them ported yet) plus the governor's
+        ``resilience.backend.*``."""
+        warm_b, warm_f = self._warm_class_builds, self._warm_class_fallbacks
+        out = {
+            "decision.backend.device": 1.0,
+            "decision.backend.device_failed": 1.0 if self.device_failed else 0.0,
+            "decision.backend.num_device_builds": float(self.num_device_builds),
+            "decision.backend.num_scalar_builds": float(self.num_scalar_builds),
+            "decision.backend.num_small_scalar_builds": float(self.num_small_scalar_builds),
+            "decision.backend.num_incremental_builds": float(self.num_incremental_builds),
+            "decision.backend.num_fallback_cand_overflow": float(
+                self.num_fallback_cand_overflow
+            ),
+            "decision.backend.num_fallback_injected": float(self.num_fallback_injected),
+            "decision.backend.num_dispatch_errors": float(self.num_dispatch_errors),
+            "decision.backend.sdc_injected": 1.0 if self._sdc_inject else 0.0,
+            "decision.backend.warm_enabled": 1.0 if self._warm_enabled else 0.0,
+            "decision.backend.warm_context_ready": 1.0 if self._warm_ctx is not None else 0.0,
+            "decision.backend.warm_builds": float(self.num_warm_builds),
+            "decision.backend.warm_subgraph_builds": float(self.num_warm_subgraph_builds),
+            "decision.backend.warm_selective_builds": float(self.num_warm_selective_builds),
+            "decision.backend.warm_cold_fallbacks": float(self.num_warm_cold_fallbacks),
+            "decision.backend.warm_purges": float(self.num_warm_purges),
+            "decision.backend.warm_encode_patches": float(self.num_encode_patches),
+            "decision.backend.warm_hit_ratio": self.num_warm_builds
+            / max(1, self.num_warm_builds + self.num_warm_cold_fallbacks),
+            "decision.backend.warm_last_est_depth": float(self.warm_last_est_depth),
+            "decision.backend.warm_last_reset_nodes": float(self.warm_last_reset_nodes),
+            "decision.backend.delta_builds": float(self.num_delta_builds),
+            "decision.backend.delta_rows_fetched": float(self.num_delta_rows_fetched),
+            "decision.backend.delta_rows_skipped": float(self.num_delta_rows_skipped),
+        }
+        for cls in ("perturbation", "structural"):
+            out[f"decision.backend.warm_builds.{cls}"] = float(warm_b[cls])
+            out[f"decision.backend.warm_cold_fallbacks.{cls}"] = float(warm_f[cls])
+            out[f"decision.backend.warm_hit_ratio.{cls}"] = warm_b[cls] / max(
+                1, warm_b[cls] + warm_f[cls]
+            )
+        for cls, reasons in sorted(self._warm_class_fallback_reasons.items()):
+            for reason, n in sorted(reasons.items()):
+                out[f"decision.backend.warm_fallback.{cls}.{reason}"] = float(n)
+        for reason, n in sorted(self._warm_purge_reasons.items()):
+            out[f"decision.backend.warm_purge.{reason}"] = float(n)
+        # the process-wide RepairPlan cache the what-if planners share
+        for k, v in PLAN_CACHE.gauges().items():
+            out[f"decision.backend.{k}"] = v
+        if self.governor is not None:
+            out.update(self.governor.counter_snapshot())
         return out
 
     def _build(self, area_link_states, prefix_state, changed_prefixes, force_full, delta_class):
@@ -314,7 +673,6 @@ class CudaBackend(DecisionBackend):
             self._table_synced = False
             return None
         clock = _PhaseClock(self.device)
-        self.last_rows = {}
         prev_enc = self._last_enc
         enc, arrays = self._encoded(area_link_states, me)
         self._last_enc = enc
@@ -328,11 +686,11 @@ class CudaBackend(DecisionBackend):
                 table.apply_dirty(prefix_state, changed_prefixes)
             else:
                 table.full_sync(prefix_state)
-        except ValueError as e:
-            raise NotImplementedError(
-                f"{e}; wider candidate rows are not supported by the "
-                "device selection kernel"
-            ) from e
+        except CapacityError:
+            # a prefix wider than the largest candidate bucket: the
+            # caller answers through the scalar solver
+            self.num_fallback_cand_overflow += 1
+            raise
         self._table_synced = True
         dv = table.derived(enc)
         clock.lap("encode")
@@ -432,6 +790,7 @@ class CudaBackend(DecisionBackend):
         clock.lap("select")
         self._retain_prev_sel(outs, D, enc, dv)
         use, shortest, lanes, valid = (o.cpu().numpy() for o in outs)
+        shortest = self._fetched_metrics(shortest)
         # a full decode re-derives KSP2 presence from scratch
         # (_decode_rows raises the flag on discovery)
         self._ksp2_present = False
@@ -550,11 +909,14 @@ class CudaBackend(DecisionBackend):
         self._warm_rounds = None
         dist = nh = None
         if self._warm_enabled and delta_class is not None and self._warm_ctx is not None:
-            dist, nh = self._warm_spf(enc, arrays, D)
-        elif self._warm_enabled and (delta_class is not None or self._warm_ctx is not None):
-            # a warm-classified tick without a context, or a topology tick
-            # the hint classified cold
-            self.num_warm_cold_fallbacks += 1
+            dist, nh = self._warm_spf(enc, arrays, D, delta_class)
+        elif self._warm_enabled and delta_class is not None:
+            # a warm-classified tick whose context was purged (corruption,
+            # quarantine, full replace) or never built
+            self._warm_fallback("no_context", delta_class)
+        elif self._warm_enabled and self._warm_ctx is not None:
+            # a topology tick the hint classified cold
+            self._warm_fallback("unclassified")
         if dist is None and enc.has_dense:
             a = arrays
             dist, nh = self._spf_tables(
@@ -573,14 +935,17 @@ class CudaBackend(DecisionBackend):
             self._refresh_warm_ctx(enc, D)
         return self._tables
 
-    def _warm_spf(self, enc, arrays, D: int):
+    def _warm_spf(self, enc, arrays, D: int, delta_class):
         """The generation-delta warm solve: (dist, nh) device tables, or
         (None, None) after counting a cold fallback (another degree bucket
         or edge bucket, or a structural delta)."""
         ctx = self._warm_ctx
         old_enc = ctx["enc"]
-        if ctx["degree"] != D or old_enc.areas != enc.areas:
-            self.num_warm_cold_fallbacks += 1
+        if ctx["degree"] != D:
+            self._warm_fallback("degree_bucket", delta_class)
+            return None, None
+        if old_enc.areas != enc.areas:
+            self._warm_fallback("structural", delta_class)
             return None, None
         if ctx["dist"] is None:
             # cold builds keep device references only; the host mirrors
@@ -589,13 +954,14 @@ class CudaBackend(DecisionBackend):
             ctx["nh"] = ctx["tables"][1].cpu().numpy()
         plans = []
         for ai, (old_topo, new_topo) in enumerate(zip(old_enc.topos, enc.topos)):
-            delta = None
-            if new_topo.padded_edges == old_topo.padded_edges:
-                delta = plan_generation_delta(
-                    old_topo, int(enc.roots[ai]), ctx["dist"][ai], new_topo
-                )
+            if new_topo.padded_edges != old_topo.padded_edges:
+                self._warm_fallback("edge_bucket", delta_class)
+                return None, None
+            delta = plan_generation_delta(
+                old_topo, int(enc.roots[ai]), ctx["dist"][ai], new_topo
+            )
             if delta is None:
-                self.num_warm_cold_fallbacks += 1
+                self._warm_fallback("structural", delta_class)
                 return None, None
             plans.append(delta)
         reset = np.stack([p.reset for p in plans])
@@ -624,7 +990,17 @@ class CudaBackend(DecisionBackend):
         self._warm_base_enc = old_enc
         self._warm_rounds = (rounds_d, rounds_l)
         self.num_warm_builds += 1
+        if delta_class in self._warm_class_builds:
+            self._warm_class_builds[delta_class] += 1
         return dist, nh
+
+    def _warm_fallback(self, reason: str, delta_class: Optional[str] = None) -> None:
+        self.num_warm_cold_fallbacks += 1
+        self._warm_fallback_reasons[reason] = self._warm_fallback_reasons.get(reason, 0) + 1
+        if delta_class in self._warm_class_fallbacks:
+            self._warm_class_fallbacks[delta_class] += 1
+            by = self._warm_class_fallback_reasons[delta_class]
+            by[reason] = by.get(reason, 0) + 1
 
     def _pack_sub_edges(self, enc, plans):
         """[A, Es] sub-edge arrays (src, dst, w, ok, lane rank) for the
@@ -666,7 +1042,7 @@ class CudaBackend(DecisionBackend):
         needs the changed-node diff before it can pick its rows."""
         dist_d, nh_d = self._tables[0], self._tables[1]
         if dist_d.numel() * 4 + nh_d.numel() > self.WARM_MAX_TABLE_BYTES:
-            self._purge_warm()
+            self._purge_warm("table_too_large", suspect=False)
             return
         dist_h = nh_h = None
         prev = self._warm_ctx
@@ -695,15 +1071,29 @@ class CudaBackend(DecisionBackend):
             "tables": (dist_d, nh_d),
         }
 
-    def _purge_warm(self) -> None:
-        """Drop the warm context (tables too large to mirror); the tables
-        themselves stay cached and trusted."""
+    def _purge_warm(self, reason: str, suspect: bool = True) -> None:
+        """Drop the warm context (the previous generation's tables and host
+        mirrors) and make the next device build's shadow check due.
+        Triggers: injected corruption, a quarantine and the full-replace
+        swap, all ``suspect``: those also drop the cached SPF tables and
+        the resident selection outputs, so the next device build solves
+        cold; and tables too large to mirror (not suspect: the tables stay
+        cached and trusted).  Only an actual drop counts as a purge."""
+        key = reason.split(":", 1)[0]
+        self._warm_purge_reasons[key] = self._warm_purge_reasons.get(key, 0) + 1
+        if suspect:
+            self._tables = None
+            self._tables_enc = None
+            self._tables_degree = None
+            self._prev_sel = None
         if self._warm_ctx is None and self._warm_changed_nodes is None:
             return
         self._warm_ctx = None
         self._warm_changed_nodes = None
         self._warm_base_enc = None
         self.num_warm_purges += 1
+        if self.governor is not None:
+            self.governor.request_shadow_check(reason)
 
     def _warm_affected_rows(self, dv):
         """Candidate-table rows whose selection inputs can have moved in
@@ -730,6 +1120,7 @@ class CudaBackend(DecisionBackend):
         gathered = tables_from_numpy([a[ridx] for a in dv.selection_inputs()], self.device)
         outs = self._select(*tables, *gathered, per_area)
         use, shortest, lanes, valid = (o.cpu().numpy() for o in outs)
+        shortest = self._fetched_metrics(shortest)
         self.last_rows["select"] = len(rows)
         clock.lap("select")
         table = self._cand_table
@@ -812,6 +1203,8 @@ class CudaBackend(DecisionBackend):
             rows = np.union1d(rows, force)
         self.last_rows["select"] = n
         self.last_rows["fetched"] = len(rows)
+        self.num_delta_rows_fetched += len(rows)
+        self.num_delta_rows_skipped += n - len(rows)
         deleted = [p for p in (changed_prefixes or ()) if p not in table.pid]
         results: Dict[str, Optional[RibUnicastEntry]] = {p: None for p in deleted}
         if len(rows) > DELTA_FETCH_MAX_FRACTION * n:
@@ -820,6 +1213,8 @@ class CudaBackend(DecisionBackend):
             (idx_dev,) = tables_from_numpy((rows,), self.device)
             gathered = gather_selection_rows(*outs[:4], idx_dev)
             use, shortest, lanes, valid = (g.cpu().numpy() for g in gathered)
+        if len(rows):
+            shortest = self._fetched_metrics(shortest)
         clock.lap("select")
         if len(rows):
             row_items = [

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set
 
 import numpy as np
 
-from openr_tpu_torch.ops.csr import EncodedMultiArea, bucket_for
+from openr_tpu_torch.ops.csr import CapacityError, EncodedMultiArea, bucket_for
 
 ROW_BUCKETS = (
     64,
@@ -172,7 +172,7 @@ class CandidateTable:
         items = sorted(entries.items())
         if len(items) > self.C:
             if len(items) > self.cand_buckets[-1]:
-                raise ValueError(
+                raise CapacityError(
                     f"prefix with {len(items)} candidates exceeds the "
                     f"largest candidate bucket {self.cand_buckets[-1]}"
                 )
@@ -233,7 +233,7 @@ class CandidateTable:
                 v_minnh.append(entry.min_nexthop or 0)
         if widest > self.C:
             if widest > self.cand_buckets[-1]:
-                raise ValueError(
+                raise CapacityError(
                     f"prefix with {widest} candidates exceeds the largest "
                     f"candidate bucket {self.cand_buckets[-1]}"
                 )

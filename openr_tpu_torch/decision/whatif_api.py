@@ -699,9 +699,10 @@ class DeviceBuildWhatIfEngine(GenericSolverWhatIfEngine):
     builds.  The dedicated backend keeps what-if builds on modified
     topologies out of the daemon backend's caches.
 
-    A build the backend does not implement (disabled best-route selection,
+    A build the device does not implement (disabled best-route selection,
     another selection algorithm, a candidate row wider than the largest
-    bucket) raises ``NotImplementedError``; it does not run scalar."""
+    bucket) is the backend's counted scalar build, so answers never differ
+    from ``GenericSolverWhatIfEngine``'s."""
 
     engine_label = "device-build"
 

@@ -131,7 +131,10 @@ def function(lib_name: str, symbol: str, argtypes):
     process."""
     fn = _fns.get((lib_name, symbol))
     if fn is None:
-        fn = getattr(load(lib_name), symbol)
+        try:
+            fn = getattr(load(lib_name), symbol)
+        except AttributeError as e:
+            raise KernelError(f"{lib_name}.cu has no entry point {symbol}: {e}") from e
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _fns[(lib_name, symbol)] = fn

@@ -44,11 +44,19 @@ INF = np.float32(np.inf)
 IN_DEGREE_BUCKETS = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 
+class CapacityError(ValueError):
+    """A world the device layout cannot hold (a count past its largest
+    bucket, a metric the device SPF cannot take), found on the host before
+    any kernel launch.  ``CudaBackend`` answers such a build through its
+    counted scalar fallback; every other ``ValueError`` (a kernel's launcher
+    refusing a shape or a device) propagates."""
+
+
 def bucket_for(value: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if value <= b:
             return b
-    raise ValueError(f"{value} exceeds largest bucket {buckets[-1]}")
+    raise CapacityError(f"{value} exceeds largest bucket {buckets[-1]}")
 
 
 @dataclasses.dataclass
@@ -160,7 +168,7 @@ def _in_edge_layout(
     max_in = int(np.bincount(dst[valid], minlength=padded_v).max()) if n else 0
     try:
         K = in_degree_bucket or bucket_for(max(max_in, 1), IN_DEGREE_BUCKETS)
-    except ValueError:
+    except CapacityError:
         return None
     if K < max_in:
         return None
@@ -227,14 +235,14 @@ def encode_link_state(
         max(E, 1), [b * edge_multiplier for b in node_buckets]
     )
     if padded_v < V:
-        raise ValueError(f"node bucket {padded_v} < {V} nodes")
+        raise CapacityError(f"node bucket {padded_v} < {V} nodes")
     if padded_e < E:
-        raise ValueError(f"edge bucket {padded_e} < {E} directed edges")
+        raise CapacityError(f"edge bucket {padded_e} < {E} directed edges")
     # the DAG-equality nexthop propagation assumes strictly positive
     # metrics (a 0-cost edge would union lanes across equidistant nodes
     # where heap Dijkstra keeps them distinct)
     if np.any(col_ok & (col_m <= 0)):
-        raise ValueError(
+        raise CapacityError(
             "non-positive metric on an up link; device SPF requires "
             "metrics >= 1"
         )
@@ -339,7 +347,7 @@ def encode_prefix_candidates(
 
     The candidate axis is padded to the smallest bucket in `cand_buckets`
     that fits the widest prefix; `max_candidates` pins the width
-    instead.  Raises ValueError past the largest bucket."""
+    instead.  Raises CapacityError past the largest bucket."""
     table = prefix_state.prefixes()
     prefixes = sorted(table.keys())
     P = max(len(prefixes), 1)
@@ -368,7 +376,7 @@ def encode_prefix_candidates(
             if parea != area or node not in topo.node_ids:
                 continue
             if c >= C:
-                raise ValueError(
+                raise CapacityError(
                     f"prefix {prefix}: more than {C} candidates; raise "
                     "max_candidates"
                 )
@@ -524,7 +532,7 @@ def patch_encoded_topology(
     col_m = np.fromiter((l.get_max_metric() for l in links), np.float32, L)
     col_ok = np.fromiter((l.is_up() for l in links), bool, L)
     if np.any(col_ok & (col_m <= 0)):
-        raise ValueError(
+        raise CapacityError(
             "non-positive metric on an up link; device SPF requires "
             "metrics >= 1"
         )

@@ -324,14 +324,26 @@ def test_ksp2_world_raises_not_implemented():
 
 def test_candidate_overflow_raises_not_implemented():
     """65 advertisers of one prefix: one more than the largest candidate
-    bucket the selection kernel takes."""
+    bucket the selection kernel takes.  The port once refused this world;
+    now, as the reference does, it counts a candidate overflow and answers
+    through the scalar solver, with no device build."""
 
     def mk():
         return {"1": make_ls(line_edges(66), "1", me="node0")}
 
     ps = prefixes(*((f"node{i}", "1", PrefixEntry("10.0.0.0/24")) for i in range(1, 66)))
-    with pytest.raises(NotImplementedError, match="candidate"):
-        port_build(mk(), ps, "node0")
+    scalar = ScalarBackend(SpfSolver("node0")).build_route_db(mk(), ps)
+    tpu_be = TpuBackend(SpfSolver("node0"))
+    tpu = tpu_be.build_route_db(mk(), ps)
+    backend, port = port_build(mk(), ps, "node0")
+    want = ref_summary(scalar)
+    assert ref_summary(tpu) == want
+    assert port_summary(port) == want
+    assert "10.0.0.0/24" in port.unicast_routes
+    for be in (tpu_be, backend):
+        assert be.num_fallback_cand_overflow == 1
+        assert be.num_scalar_builds == 1
+        assert be.num_device_builds == 0
 
 
 def test_hints_answer_with_the_cold_build():

@@ -1521,3 +1521,80 @@ def test_fleet_select_tile_kernel_refuses_a_tile_past_shared_memory(card, monkey
     monkeypatch.setattr(rs, "SELECT_TILE_ROWS", 512)
     with pytest.raises(RuntimeError):
         rs.fleet_select(*args, False)
+
+
+# -- the admission path on the card ---------------------------------------
+
+
+def _admission_world():
+    areas, me = _areas("multiarea_isolated")
+    ps = PrefixState()
+    for i in range(30):
+        ps.update_prefix(f"a{i}", "1", PrefixEntry(f"10.1.{i}.0/24"))
+    for i in range(20):
+        ps.update_prefix(f"b{i}", "2", PrefixEntry(f"10.2.{i}.0/24"))
+    return areas, ps, me
+
+
+def _launched(build):
+    reset_launch_counts()
+    out = build()
+    torch.cuda.synchronize()
+    return out, {name for name, n in LAUNCHES.items() if n}
+
+
+def test_admission_steps_on_card(card, monkeypatch):
+    """Under a governor on a SimClock: (a) a cold build on kernels 1-3,
+    shadow-verified clean; (b) injected corruption on the same kernels,
+    found and quarantined, the scalar RouteDb served; (c) a quarantined
+    build, no launch; (d) healed, past the hold, a probe on the cold
+    kernels restores; (e) a ``KernelError`` from kernel 3's launcher, and
+    the launcher's own ``TypeError`` refusing a tensor of the wrong dtype,
+    each propagate with every counter and the breaker as they were, and
+    the next build launches kernel 3 again.  Every RouteDb equals the
+    scalar solver's."""
+    from openr_tpu_torch.common.runtime import SimClock
+    from openr_tpu_torch.config import ResilienceConfig
+    from openr_tpu_torch.kernels.build import KernelError
+
+    areas, ps, me = _admission_world()
+    want = route_db_summary(SpfSolver(me).build_route_db(areas, ps))
+    cold = {"dense_spf_distances", "dense_spf_nexthop_lanes", "multi_area_select_from_tables"}
+    clock = SimClock()
+    backend = CudaBackend(SpfSolver(me), device=card, clock=clock, resilience=ResilienceConfig(
+        shadow_sample_every=8, failure_threshold=2, jitter_pct=0.0))
+    gov = backend.governor
+    db, launched = _launched(lambda: backend.build_route_db(areas, ps))  # (a)
+    assert launched == cold and route_db_summary(db) == want
+    assert gov.num_shadow_checks == 1 and gov.num_shadow_mismatches == 0
+    backend.inject_silent_corruption(True)  # (b)
+    db, launched = _launched(lambda: backend.build_route_db(areas, ps, force_full=True))
+    assert launched == cold and route_db_summary(db) == want
+    assert gov.num_shadow_mismatches == 1 and backend.device_failed
+    db, launched = _launched(lambda: backend.build_route_db(areas, ps))  # (c)
+    assert launched == set() and route_db_summary(db) == want
+    assert backend.num_fallback_injected == 1 and backend.num_scalar_builds == 1
+    backend.inject_silent_corruption(False)  # (d)
+    clock._now += gov.breaker.current_hold_s() + 0.5
+    db, launched = _launched(lambda: backend.build_route_db(areas, ps, force_full=True))
+    assert launched == cold and route_db_summary(db) == want
+    assert not backend.device_failed and gov.num_restores == 1
+
+    real = rs.multi_area_select_from_tables_launcher
+
+    def refuse(*args):  # (e)
+        raise KernelError("multi_area_select_from_tables: injected launch failure")
+
+    def wrong_dtype(*args):  # soft as int64: check_tensor refuses it
+        return real(*args[:3], args[3].long(), *args[4:])
+
+    for launcher, error in ((refuse, KernelError), (wrong_dtype, TypeError)):
+        before = (backend.counter_snapshot(), gov.breaker.status())
+        with monkeypatch.context() as m:
+            m.setattr(rs, "multi_area_select_from_tables_launcher", launcher)
+            with pytest.raises(error):
+                backend.build_route_db(areas, ps, force_full=True)
+        assert (backend.counter_snapshot(), gov.breaker.status()) == before
+        assert not backend.device_failed
+    db, launched = _launched(lambda: backend.build_route_db(areas, ps, force_full=True))
+    assert launched == {"multi_area_select_from_tables"} and route_db_summary(db) == want
