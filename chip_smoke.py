@@ -28,6 +28,30 @@ Decision passes:
      then the 3-area world of step 4, each algorithm through two unhinted
      drain ticks (c3, then b4), both on the delta path
 
+and, between them, membership churn on the grid's backends (a node or link
+joining or leaving: the slot-stable encode), each tick with its hints:
+
+  m-a. node3640, far from node0, leaves (``structural_delta``): its slot
+       and rows tombstoned, the bounded warm repair, a warm-selective
+       selection
+  m-b. it rejoins: the full-edge warm kernels, warm-selective
+  m-c. node1, a root neighbour, leaves: the root's lanes change, so the
+       full-edge warm kernels and a full selection
+  m-d. unhinted: node4096 takes node1's slot, links and prefixes: a cold
+       solve, the fused select + delta with the renamed slot in its
+       changed-node mask, the changed-row gather
+  m-e. node568 leaves and node4097 joins on its links in one tick: no slot
+       is free yet (``slot_exhaustion``), a cold encode and solve
+  m-f. a new link node4048-node4050 (``new_link``): a cold encode on the
+       same symbol table, the full-edge warm kernels, warm-selective
+
+each checking its slot-patch and decline counters and printing its encode
+phase (on m-a and m-d beside a fresh cold build's, whose RouteDb it must
+equal; the others are held by the plain path and the oracle sample) and
+the wall of all six (the grid is then put back without a build); and after
+the 3-area drain ticks, c5 leaving area 3 per algorithm (the slot patch
+there, the perturbation patch in areas 1 and 2)
+
 and then the single-area link-failure what-if path (kernels 8-11):
 
  10. the headline world of the reference's benchmark (1024-node WAN, 2048
@@ -132,7 +156,8 @@ use.  Every build checks, with exact equality:
     propagation runs whatever the tick's seed was
   * the RouteDb (``route_db_summary``) against a backend that runs the
     plain versions on the card through the same builds, and on the
-    steady-state ticks against a fresh backend's cold build
+    steady-state ticks (of the membership ticks, m-a and m-d) against a
+    fresh backend's cold build
   * on the steady-state ticks, that the changed set the backend reports
     covers every route that moved
   * ~200 sampled prefixes (all of them on the small world) against the
@@ -212,6 +237,7 @@ from openr_tpu_torch.emulation.topology import (
     _build_wan,
     build_adj_dbs,
     grid_edges,
+    make_adjacency,
     random_connected_edges,
     wan_area_of,
     wan_multi_area_dbs,
@@ -808,6 +834,10 @@ class KernelReport:
         self.select_keys = {}
         #: kernel 7's, the same way (the grid's drain delta first)
         self.delta_keys = {}
+        #: the phases of the last steady tick's fresh cold build
+        self.fresh_phase_ms = {}
+        #: the card's name and power limit, printed beside the walls
+        self.smi = ""
 
     def held(self, name, pairs):
         """Record and require exact agreement of (kernel, plain) output
@@ -1112,6 +1142,16 @@ def warm_tables_equal_cold(backend):
     check(torch.equal(dist, cold_d) and torch.equal(nh, cold_n), "warm tables != cold tables")
 
 
+def same_route_db(a, b):
+    """``route_db_summary(a) == route_db_summary(b)``.  Routes that are
+    equal as entries (every field, nexthops as sets) have equal summaries,
+    so that cheaper test comes first (a quarter of the summaries' time on
+    the grid's 409,501 routes); the summaries decide otherwise."""
+    if a.unicast_routes == b.unicast_routes and a.mpls_routes == b.mpls_routes:
+        return True
+    return route_db_summary(a) == route_db_summary(b)
+
+
 def moved_routes(prev, new):
     """Prefixes whose route differs between two RouteDbs (identical
     objects are the same route)."""
@@ -1132,9 +1172,11 @@ def sample_oracle(db, oracle, areas, ps, picks, label):
 
 
 def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
-          expect, hints=None, timed=False, steady=False):
+          expect, hints=None, timed=False, steady=False, fresh=True):
     """One request through the port's main path plus its checks.
-    ``expect`` is the exact set of kernels the path must launch."""
+    ``expect`` is the exact set of kernels the path must launch.  A
+    ``steady`` tick also holds its changed set against the moved routes
+    and, with ``fresh``, its RouteDb against a fresh backend's cold build."""
     hints = hints or {}
     prev_db = kernel_be._last_db
     report.tick = label
@@ -1159,6 +1201,8 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
           f"launches={ {k: v for k, v in counts.items() if v} } routes={len(db.unicast_routes)} "
           f"changed={shown}", flush=True)
 
+    spent = {}  # ms of each check after the build
+    t0 = time.perf_counter()
     report.kernel_checks(kernel_be, timed)
     if "warm" in kernel_be.io or "sub" in kernel_be.io:
         warm_tables_equal_cold(kernel_be)
@@ -1167,26 +1211,31 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
               f"reset nodes={kernel_be.warm_last_reset_nodes} "
               f"est depth={kernel_be.warm_last_est_depth}{moved}: warm tables == cold tables",
               flush=True)
+    t0 = lap(spent, "kernels", t0)
     report.plain_path = True
     try:
         plain_db = plain_be.build_route_db(areas, ps, **hints)
     finally:
         report.plain_path = False
     plain_be.take_last_changed_prefixes()
-    want = route_db_summary(db)
-    check(route_db_summary(plain_db) == want, f"{label}: RouteDb != plain-path RouteDb")
+    check(same_route_db(plain_db, db), f"{label}: RouteDb != plain-path RouteDb")
+    t0 = lap(spent, "plain", t0)
 
     prefixes = sorted(ps.prefixes())
     picks = prefixes if sample is None else [
         prefixes[i] for i in rng.choice(len(prefixes), sample, replace=False)
     ]
+    t0 = lap(spent, "sample", t0)
     if steady:
-        fresh = CudaBackend(SpfSolver(
-            oracle.my_node_name, route_selection_algorithm=oracle.route_selection_algorithm),
-            resilience=NO_GOVERNOR)
-        check(route_db_summary(fresh.build_route_db(areas, ps)) == want,
-              f"{label}: RouteDb != a fresh backend's cold build")
-        check_no_fallback(label, [fresh])
+        if fresh:
+            cold_be = CudaBackend(SpfSolver(
+                oracle.my_node_name, route_selection_algorithm=oracle.route_selection_algorithm),
+                resilience=NO_GOVERNOR)
+            check(same_route_db(cold_be.build_route_db(areas, ps), db),
+                  f"{label}: RouteDb != a fresh backend's cold build")
+            report.fresh_phase_ms = cold_be.last_phase_ms
+            check_no_fallback(label, [cold_be])
+            t0 = lap(spent, "fresh", t0)
         # a patched build names its changed set; an incremental one may
         # change only the churned prefixes; a full build claims nothing
         claimed = changed
@@ -1196,14 +1245,25 @@ def drive(report, kernel_be, plain_be, oracle, areas, ps, label, rng, sample,
             moved = sorted(moved_routes(prev_db, db))
             check(set(moved) <= claimed, f"{label}: moved routes outside the changed set")
             print(f"[{label}] {len(moved)} routes moved, all inside the changed set of "
-                  f"{len(claimed)}; RouteDb == fresh cold build", flush=True)
+                  f"{len(claimed)}" + ("; RouteDb == fresh cold build" if fresh else ""),
+                  flush=True)
             if moved and sample is not None:  # a quarter of the oracle sample from the moved routes
                 k = min(sample // 4, len(moved))
                 picks = picks[: sample - k] + [moved[i] for i in rng.choice(len(moved), k, replace=False)]
+            t0 = lap(spent, "moved", t0)
     sample_oracle(db, oracle, areas, ps, picks, label)
+    lap(spent, "oracle", t0)
     print(f"[{label}] kernels == plain, RouteDb == plain path, "
-          f"{len(picks)} prefixes == scalar oracle", flush=True)
+          f"{len(picks)} prefixes == scalar oracle; checks took "
+          + " ".join(f"{k}={v:.1f}ms" for k, v in spent.items()), flush=True)
     return db
+
+
+def lap(spent, name, t0):
+    """Books the wall since ``t0`` under ``name``; returns the new start."""
+    t = time.perf_counter()
+    spent[name] = (t - t0) * 1e3
+    return t
 
 
 def grid_world():
@@ -1330,6 +1390,201 @@ def steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
     drive(report, kernel_be, plain_be, oracle, areas, ps, f"drain:{drained}",
           expect=COLD | {DELTA, GATHER}, hints=unhinted, timed=True, **common)
     check(kernel_be.num_delta_builds == before + 1, "the drain tick did not take the delta path")
+
+
+def replace_node(areas, dbs, old, new):
+    """``new`` takes ``old``'s place in the grid's LSDB on the same
+    neighbours and metrics: ``old`` withdraws (if it has not yet), each
+    neighbour re-advertises with its adjacency to ``new`` in place of the one
+    to ``old``, and ``new`` advertises."""
+    ls = areas["0"]
+    gone = dbs.pop(old)
+    ls.delete_adjacency_database(old)
+    for a in gone.adjacencies:
+        nbr = dbs[a.other_node_name]
+        adjs = [x for x in nbr.adjacencies if x.other_node_name != old]
+        adjs.append(make_adjacency(nbr.this_node_name, new, a.metric))
+        dbs[nbr.this_node_name] = dataclasses.replace(nbr, adjacencies=adjs)
+        ls.update_adjacency_database(dbs[nbr.this_node_name])
+    dbs[new] = dataclasses.replace(gone, this_node_name=new, adjacencies=[
+        make_adjacency(new, a.other_node_name, a.metric) for a in gone.adjacencies])
+    ls.update_adjacency_database(dbs[new])
+
+
+def move_prefixes(ps, old, new, area="0"):
+    """``old``'s prefixes withdrawn and advertised by ``new``: the changed set."""
+    changed = set()
+    for p, entries in list(ps.prefixes().items()):
+        entry = entries.get((old, area))
+        if entry is not None:
+            changed |= ps.delete_prefix(old, area, p)
+            changed |= ps.update_prefix(new, area, entry)
+    return changed
+
+
+def add_link(areas, dbs, a, b, metric):
+    for x, y in ((a, b), (b, a)):
+        dbs[x] = dataclasses.replace(dbs[x], adjacencies=dbs[x].adjacencies + [
+            make_adjacency(x, y, metric)])
+        areas["0"].update_adjacency_database(dbs[x])
+
+
+def membership_tick(report, kernel_be, plain_be, oracle, areas, ps, rng, label, expect, hints,
+                    decline=None, me="node0", sample=200, fresh=True):
+    """One membership-churn tick through ``drive`` (its exact ``expect``
+    set, its RouteDb against the plain path and the oracle sample, with
+    ``fresh`` a fresh cold build too, its changed set against the moved
+    routes), then: one slot patch and nothing else counted, or with
+    ``decline`` one ``slot_decline.<decline>`` and nothing else; the tick's
+    encode phase (beside the fresh cold build's), and the topology encode
+    alone: the patch against a cold encode of the same LSDB."""
+    t_tick = time.perf_counter()
+    be = kernel_be
+    slots, patches = be.num_encode_slot_patches, be.num_encode_patches
+    declines = dict(be._slot_decline_reasons)
+    prev_enc = be._enc_cache[2]
+    drive(report, be, plain_be, oracle, areas, ps, f"member:{label}", rng=rng, sample=sample,
+          expect=expect, hints=hints, steady=True, fresh=fresh)
+    if decline is None:
+        slots += 1
+    else:
+        declines[decline] = declines.get(decline, 0) + 1
+    check((be.num_encode_slot_patches, be.num_encode_patches, be._slot_decline_reasons)
+          == (slots, patches, declines),
+          f"{label}: slot patches / patches / declines moved to {be.num_encode_slot_patches}, "
+          f"{be.num_encode_patches}, {be._slot_decline_reasons}")
+    t0 = time.perf_counter()
+    _enc, kind, reason = csr.patch_encoded_multi_area_slots(prev_enc, areas, me)
+    patch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    csr.encode_multi_area(areas, me)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    check((kind, reason) == (("cold", decline) if decline else ("slot", None)),
+          f"{label}: the patch re-run gave {kind} / {reason}")
+    cold_build = (f", the fresh cold build's {report.fresh_phase_ms['encode']:.1f} ms (wall "
+                  f"{report.fresh_phase_ms['total']:.1f} ms)" if fresh else "")
+    print(f"[member:{label}] encode phase {be.last_phase_ms['encode']:.1f} ms{cold_build}; "
+          f"topology alone: {kind} patch {patch_ms:.1f} ms, cold encode {cold_ms:.1f} ms; "
+          f"the tick with its checks {(time.perf_counter() - t_tick) * 1e3:.1f} ms "
+          f"({report.smi})", flush=True)
+
+
+def membership_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng):
+    """Membership churn on the grid after step 9, on the same backends (no
+    world is rebuilt), each tick with its exact kernel set; the grid and its
+    prefixes are put back afterwards (without a build) for the later
+    phases."""
+    side = GRID_SIDE
+    n = side * side
+    be = kernel_be
+    saved_dbs = dict(dbs)
+    routes = ps.get_received_routes_count()
+    structural = dict(changed_prefixes=set(), force_full=True, structural_delta=True)
+    unhinted = dict(changed_prefixes=set(), force_full=True)
+    warm_kernels = {"warm_spf_distances", "spf_nexthop_lanes_reset"}
+    tick = dict(report=report, kernel_be=be, plain_be=plain_be, oracle=oracle, areas=areas,
+                ps=ps, rng=rng)
+    struct_fb = be._warm_class_fallbacks["structural"]
+    start = {name: getattr(be, f"num_{name}") for name in (
+        "scalar_builds", "warm_subgraph_builds", "warm_builds", "warm_selective_builds",
+        "delta_builds")}
+
+    def moved(name):
+        return getattr(be, f"num_{name}") - start[name]
+
+    # a. an interior node far from node0 leaves: its slot and its four
+    # links' rows tombstoned; a removal with the root's lanes unchanged,
+    # so the bounded repair, then the warm-selective selection
+    far = f"node{(side * 7 // 8) * side + side * 7 // 8}"
+    areas["0"].delete_adjacency_database(far)
+    membership_tick(label=f"leave:{far}", expect={"warm_subgraph_repair", SELECT},
+                    hints=structural, **tick)
+    # b. it rejoins: its rows revived (an improvement: the full-edge warm kernels)
+    areas["0"].update_adjacency_database(dbs[far])
+    membership_tick(label=f"rejoin:{far}", expect=warm_kernels | {SELECT}, hints=structural,
+                    fresh=False, **tick)
+    check(moved("warm_subgraph_builds") == 1 and moved("warm_selective_builds") == 2,
+          "the leave and rejoin did not take the bounded repair and the warm-selective path")
+    # c. a root neighbour leaves: the root's lane basis changes (no bounded
+    # repair), and too many rows move for a gathered selection
+    areas["0"].delete_adjacency_database("node1")
+    membership_tick(label="leave:node1", expect=warm_kernels | {SELECT}, hints=structural,
+                    fresh=False, **tick)
+    check(moved("warm_builds") == 3 and moved("warm_selective_builds") == 2,
+          "the root neighbour's leave did not take the full-edge warm kernels and a full selection")
+    # d. unhinted: a new name takes node1's slot on node1's links and
+    # prefixes; the delta selection diffs against c's outputs with the
+    # renamed slot folded into its changed-node mask (most prefixes move,
+    # but fewer than half the table's rows: the changed rows are gathered)
+    slot1 = be._enc_cache[2].topos[0].node_id("node1")
+    repl = f"node{n}"
+    replace_node(areas, dbs, "node1", repl)
+    hints = dict(unhinted, changed_prefixes=move_prefixes(ps, "node1", repl))
+    membership_tick(label=f"replace:node1->{repl}", expect=COLD | {DELTA, GATHER}, hints=hints,
+                    **tick)
+    node_changed = be.io["delta"][0][-2]
+    check(moved("delta_builds") == 1 and bool(node_changed[0, slot1])
+          and be._enc_cache[2].topos[0].node_id(repl) == slot1,
+          "the replacement did not take the delta path with its slot as a changed node")
+    check(be._warm_class_fallbacks["structural"] == struct_fb and moved("scalar_builds") == 0,
+          "a membership tick fell back to a cold solve or a scalar build")
+    # e. in one tick a node leaves and a new name joins on its links: no
+    # slot is free yet (slot_exhaustion), so a cold encode, whose symbol
+    # table differs, so a cold solve
+    gone = f"node{(side // 8) * side + side * 7 // 8}"
+    repl2 = f"node{n + 1}"
+    replace_node(areas, dbs, gone, repl2)
+    hints = dict(structural, changed_prefixes=move_prefixes(ps, gone, repl2))
+    membership_tick(label=f"replace-at-once:{gone}->{repl2}", expect=COLD | {SELECT}, hints=hints,
+                    decline="slot_exhaustion", fresh=False, **tick)
+    check(be._warm_class_fallbacks["structural"] == struct_fb + 1,
+          "the slot_exhaustion tick was not a counted structural fallback")
+    # f. a new link between two live border nodes (degree 3 to 4, so the
+    # degree bucket holds), a shortcut for the bottom row past it: no
+    # tombstoned row to reclaim (new_link), a cold encode on the same
+    # symbol table, so the planner warm-starts (an improvement)
+    a, b = f"node{(side - 1) * side + side // 4}", f"node{(side - 1) * side + side // 4 + 2}"
+    add_link(areas, dbs, a, b, 1)
+    membership_tick(label=f"new-link:{a}-{b}", expect=warm_kernels | {SELECT}, hints=structural,
+                    decline="new_link", fresh=False, **tick)
+    check(be._warm_class_fallbacks["structural"] == struct_fb + 1,
+          "the new_link tick fell back to a cold solve")
+
+    # the grid and its prefixes as they were, for the later phases
+    ls = areas["0"]
+    for name in (repl, repl2):
+        ls.delete_adjacency_database(name)
+        del dbs[name]
+    for node, db in saved_dbs.items():
+        if dbs.get(node) is not db:
+            dbs[node] = db
+            ls.update_adjacency_database(db)
+    # the only prefix moves were d's and e's
+    for p, entries in list(ps.prefixes().items()):
+        for new, old in ((repl, "node1"), (repl2, gone)):
+            entry = entries.get((new, "0"))
+            if entry is not None:
+                ps.delete_prefix(new, "0", p)
+                ps.update_prefix(old, "0", entry)
+    check(sorted(ls.get_adjacency_databases()) == sorted(saved_dbs)
+          and len(ls.all_links()) == 2 * side * (side - 1)
+          and ps.get_received_routes_count() == routes, "the grid was not put back")
+
+
+def three_area_leaves(report, three_area, rng):
+    """On the 3-area world after its drain ticks, per algorithm: c5 leaves
+    area 3 (the slot patch there, the perturbation patch in areas 1 and
+    2)."""
+    structural = dict(changed_prefixes=set(), force_full=True, structural_delta=True)
+    leave = {"warm_subgraph_repair", SELECT}
+    for kb, pb, oracle3, a3, ps3, label in three_area:
+        a3["3"].delete_adjacency_database("c5")
+        membership_tick(report, kb, pb, oracle3, a3, ps3, rng, f"{label}:leave:c5", leave,
+                        structural, me="me", sample=None)
+        by_area = dict(zip(kb._last_enc.areas, kb._last_enc.topos))
+        check(by_area["3"].tombstoned_nodes == {"c5"} and by_area["1"].slot_changed is None
+              and by_area["2"].slot_changed is None,
+              f"{label}: not a slot patch in area 3 and perturbation patches elsewhere")
 
 
 def drain_ticks(report, kernel_be, plain_be, oracle, areas, ps, rng, label, drains, expect):
@@ -3006,6 +3261,7 @@ def main():
           f"{len(ps.prefixes())} prefixes, built in {time.perf_counter() - t0:.1f}s", flush=True)
 
     report = KernelReport()
+    report.smi = smi
     hold_gathers(report)
     kernel_be = KernelPath(SpfSolver("node0"))
     plain_be = PlainPath(SpfSolver("node0"))
@@ -3039,13 +3295,21 @@ def main():
         three_area.append((kb, pb, oracle3, a3, ps3, f"3-area:{algo.name}"))
     check_no_fallback("route builds", list(WATCHED))
 
-    # 5-9. the steady-state ticks on the grid
+    # 5-9. the steady-state ticks on the grid, then its membership churn
     steady_state_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
+    t0 = time.perf_counter()
+    membership_ticks(report, kernel_be, plain_be, oracle, dbs, areas, ps, rng)
+    print(f"[member] membership_ticks wall {time.perf_counter() - t0:.1f} s ({report.smi})",
+          flush=True)
     # the 3-area world's drain ticks, after the grid's (whose delta shape
-    # and gather lead the kernels line)
+    # and gather lead the kernels line), then its membership churn
     for kb, pb, oracle3, a3, ps3, label in three_area:
         drain_ticks(report, kb, pb, oracle3, a3, ps3, rng, label, (("3", "c3"), ("2", "b4")), COLD)
-    check_no_fallback("route builds and steady-state ticks")
+    t0 = time.perf_counter()
+    three_area_leaves(report, three_area, rng)
+    print(f"[member] three_area_leaves wall {time.perf_counter() - t0:.1f} s ({report.smi})",
+          flush=True)
+    check_no_fallback("route builds, steady-state and membership ticks")
 
     # 10-12. the link-failure what-if path
     walls = whatif_phases(report, rng, areas, ps)

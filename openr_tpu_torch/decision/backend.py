@@ -7,7 +7,10 @@ the counterpart of ``openr_tpu.decision.backend.TpuBackend`` on a single
 device (one shard).  A build runs:
 
   1. encode: LinkStates → topology arrays (``ops/csr.py``; a perturbation
-     tick patches the previous encoding's weights and drains in O(links))
+     tick patches the previous encoding's weights and drains in O(links),
+     and membership churn, a node or link joining or leaving, patches it
+     slot by slot: tombstoned, revived or renamed in place, the layout
+     unchanged)
      and PrefixState → [cap, C] candidate table (``decision/cand_table.py``;
      an exact prefix delta re-encodes only its rows)
   2. per-area SPF from me, kept device-resident per encoding:
@@ -15,8 +18,9 @@ device (one shard).  A build runs:
          encoding that declines the dense layout (an in-degree above the
          largest bucket) ``multi_area_spf_tables`` over the segment form
          (kernel 14 at one batch row)
-       * warm topology tick (``warm_delta``): the previous generation's
-         tables seed ``ops/spf.py`` ``warm_spf_one`` (two kernels) or, for a
+       * warm topology tick (``warm_delta``, or ``structural_delta`` on a
+         slot-patched encoding): the previous generation's tables seed
+         ``ops/spf.py`` ``warm_spf_one`` (two kernels) or, for a
          pure-weakening delta, the bounded ``warm_subgraph_repair`` (one
          kernel), from the host plan of ``ops/repair.py``
   3. selection (one CUDA kernel), over one of
@@ -86,9 +90,7 @@ routes from the seeded memo.  Their routes read the whole topology, so
 while any KSP2 prefix is live the delta and warm-selective branches
 decline; a full decode re-derives that.
 
-Not in this backend yet: membership churn (a node or link joining or
-leaving) re-encodes cold and solves cold, where the reference patches its
-encoding slot by slot; and the reference's device pool, with its per-card
+Not in this backend yet: the reference's device pool, with its per-card
 health governance and multi-card dispatch.
 """
 
@@ -115,7 +117,7 @@ from openr_tpu_torch.ops.csr import (
     CapacityError,
     bucket_for,
     encode_multi_area,
-    patch_encoded_multi_area,
+    patch_encoded_multi_area_slots,
 )
 from openr_tpu_torch.ops.repair import PLAN_CACHE, plan_generation_delta
 from openr_tpu_torch.ops.route_select import (
@@ -202,6 +204,15 @@ def estimate_scalar_work_items(area_link_states, prefix_state) -> int:
     return len(prefix_state.prefixes()) + 2 * sum(
         ls.num_links() for ls in area_link_states.values()
     )
+
+
+def _with_slot_changes(mask: np.ndarray, enc) -> np.ndarray:
+    """``mask`` [A, V] with each area's membership-changed slots
+    (``slot_changed`` of a slot-patched encoding) set, in place."""
+    for ai, t in enumerate(enc.topos):
+        if t.slot_changed is not None:
+            mask[ai] |= t.slot_changed
+    return mask
 
 
 def _patch_route_db(
@@ -358,6 +369,10 @@ class CudaBackend(DecisionBackend):
         self.num_dispatch_errors = 0
         self.num_encode_hits = 0
         self.num_encode_patches = 0
+        self.num_encode_slot_patches = 0
+        #: cold re-encodes of membership churn the slot patch declined, by
+        #: reason (area_change, slot_exhaustion, new_link)
+        self._slot_decline_reasons: Dict[str, int] = {}
         self.num_incremental_builds = 0
         self.num_warm_builds = 0
         self.num_warm_subgraph_builds = 0
@@ -613,9 +628,8 @@ class CudaBackend(DecisionBackend):
 
     def counter_snapshot(self) -> Dict[str, float]:
         """The reference backend's ``decision.backend.*`` gauges (less those
-        of the device pool and its stream, and of the slot-stable encode of
-        membership churn, none of them ported yet) plus the governor's
-        ``resilience.backend.*``."""
+        of the device pool and its stream, not ported yet) plus the
+        governor's ``resilience.backend.*``."""
         warm_b, warm_f = self._warm_class_builds, self._warm_class_fallbacks
         out = {
             "decision.backend.device": 1.0,
@@ -638,6 +652,7 @@ class CudaBackend(DecisionBackend):
             "decision.backend.warm_cold_fallbacks": float(self.num_warm_cold_fallbacks),
             "decision.backend.warm_purges": float(self.num_warm_purges),
             "decision.backend.warm_encode_patches": float(self.num_encode_patches),
+            "decision.backend.warm_encode_slot_patches": float(self.num_encode_slot_patches),
             "decision.backend.warm_hit_ratio": self.num_warm_builds
             / max(1, self.num_warm_builds + self.num_warm_cold_fallbacks),
             "decision.backend.warm_last_est_depth": float(self.warm_last_est_depth),
@@ -652,6 +667,8 @@ class CudaBackend(DecisionBackend):
             out[f"decision.backend.warm_hit_ratio.{cls}"] = warm_b[cls] / max(
                 1, warm_b[cls] + warm_f[cls]
             )
+        for reason, n in sorted(self._slot_decline_reasons.items()):
+            out[f"decision.backend.slot_decline.{reason}"] = float(n)
         for cls, reasons in sorted(self._warm_class_fallback_reasons.items()):
             for reason, n in sorted(reasons.items()):
                 out[f"decision.backend.warm_fallback.{cls}.{reason}"] = float(n)
@@ -863,11 +880,19 @@ class CudaBackend(DecisionBackend):
         enc = None
         if self._warm_enabled and cached is not None:
             # a perturbation tick refreshes only the weight/validity/drain
-            # columns and shares every layout array with the previous
-            # encoding; membership churn declines and re-encodes cold
-            enc = patch_encoded_multi_area(cached[2], area_link_states, me)
-            if enc is not None:
+            # columns; membership churn takes the slot-stable patch.  Both
+            # share every layout array with the previous encoding.
+            enc, kind, reason = patch_encoded_multi_area_slots(
+                cached[2], area_link_states, me
+            )
+            if kind == "slot":
+                self.num_encode_slot_patches += 1
+            elif kind == "patch":
                 self.num_encode_patches += 1
+            else:
+                self._slot_decline_reasons[reason] = (
+                    self._slot_decline_reasons.get(reason, 0) + 1
+                )
         if enc is None:
             enc = encode_multi_area(area_link_states, me)
         self._ksp2_engines = {}
@@ -957,8 +982,14 @@ class CudaBackend(DecisionBackend):
             if new_topo.padded_edges != old_topo.padded_edges:
                 self._warm_fallback("edge_bucket", delta_class)
                 return None, None
+            # a slot-patched chain shares its layout arrays, which proves
+            # the two layouts one: renames are then tolerated and the
+            # membership-churned slots are forced into the reset set
+            trust = new_topo.src is old_topo.src and new_topo.link_index is old_topo.link_index
             delta = plan_generation_delta(
-                old_topo, int(enc.roots[ai]), ctx["dist"][ai], new_topo
+                old_topo, int(enc.roots[ai]), ctx["dist"][ai], new_topo,
+                force_reset=new_topo.slot_changed if trust else None,
+                trust_layout=trust,
             )
             if delta is None:
                 self._warm_fallback("structural", delta_class)
@@ -1060,7 +1091,10 @@ class CudaBackend(DecisionBackend):
                 changed = (prev["dist"] != dist_h) | (prev["nh"] != nh_h).any(axis=2)
                 changed |= prev["enc"].overloaded != enc.overloaded
                 changed |= prev["enc"].soft != enc.soft
-                self._warm_changed_nodes = changed
+                # a renamed slot (a replacement node on the same links) can
+                # keep its distances and lanes while the name its routes
+                # carry changed
+                self._warm_changed_nodes = _with_slot_changes(changed, enc)
             rounds_d, rounds_l = self._warm_rounds
             self.warm_last_rounds = (int(rounds_d.max()), int(rounds_l.max()))
         self._warm_ctx = {
@@ -1162,8 +1196,12 @@ class CudaBackend(DecisionBackend):
         # drain-state deltas: decode wraps the winning entry from
         # LinkState's drain lookups, so rows touching a node whose drain
         # state moved re-decode even with identical selection outputs
-        node_changed = (prev_enc.overloaded != enc.overloaded) | (
-            prev_enc.soft != enc.soft
+        # membership churn since the delta base: a slot patch keeps the
+        # layout check above passing, and a renamed slot can keep
+        # byte-identical selection outputs while the names and links its
+        # rows decode to moved, so its rows re-decode
+        node_changed = _with_slot_changes(
+            (prev_enc.overloaded != enc.overloaded) | (prev_enc.soft != enc.soft), enc
         )
         force = None
         if changed_prefixes:

@@ -10,10 +10,12 @@ in_w`` and a min over K — no scatter.
 
 This is the numpy encoder of ``openr_tpu.ops.csr`` (``encode_link_state``
 / ``encode_multi_area``) and produces the same arrays bit for bit, plus
-its O(links) perturbation patch (``patch_encoded_topology`` /
-``patch_encoded_multi_area``).  The reference's slot-stable membership
-patch and its native fill are not part of this package: membership churn
-re-encodes cold.
+its O(links) perturbation patch (``patch_encoded_topology``) and its
+slot-stable membership patch (``patch_encoded_topology_slots``), which
+``patch_encoded_multi_area_slots`` tries in that order per area: a node or
+link that joins or leaves keeps the layout, its slot and rows tombstoned or
+revived in place.  The reference's native fill is not part
+of this package.
 
 Layout (single topology; the multi-area encoding stacks a leading area
 axis):
@@ -96,6 +98,21 @@ class EncodedTopology:
     in_rank: Optional[np.ndarray] = None  # [V, K] int32 (-1 = no lane)
     in_edge_pos: Optional[np.ndarray] = None  # [E] int64 flat slot (-1)
     in_has: Optional[np.ndarray] = None  # [V] bool
+
+    # slot-stable membership state (:func:`patch_encoded_topology_slots`):
+    # a node that leaves keeps its slot and its links keep their rows,
+    # tombstoned (``edge_ok=False, w=INF``: a down link), so the layout
+    # never moves; a cold encode carries none of it
+    #: names in the symbol table but absent from the current LSDB
+    tombstoned_nodes: frozenset = frozenset()
+    #: undirected link ids whose rows hold no current link
+    tombstoned_links: frozenset = frozenset()
+    #: [V] bool: slots whose membership changed in the patch that made
+    #: this encoding (tombstoned, revived or renamed); None on cold encodes
+    #: and perturbation patches.  The warm planner forces them into its
+    #: reset set, and the selective and delta selections treat them as
+    #: changed nodes.
+    slot_changed: Optional[np.ndarray] = None
 
     @property
     def has_dense(self) -> bool:
@@ -531,6 +548,17 @@ def patch_encoded_topology(
 
     col_m = np.fromiter((l.get_max_metric() for l in links), np.float32, L)
     col_ok = np.fromiter((l.is_up() for l in links), bool, L)
+    return dataclasses.replace(
+        old, links=links, tombstoned_nodes=frozenset(), tombstoned_links=frozenset(),
+        slot_changed=None, **_refreshed_planes(old, col_m, col_ok, old.node_ids, link_state),
+    )
+
+
+def _refreshed_planes(old: EncodedTopology, col_m, col_ok, node_ids, link_state) -> dict:
+    """The weight, validity and drain planes of a patch on ``old``'s layout:
+    link row li's metric ``col_m[li]`` and up bit ``col_ok[li]`` scattered
+    to its two directed edges, each named node's drain bits, and the dense
+    ``in_w`` / ``in_ok`` re-scattered through ``in_edge_pos``."""
     if np.any(col_ok & (col_m <= 0)):
         raise CapacityError(
             "non-positive metric on an up link; device SPF requires "
@@ -538,7 +566,7 @@ def patch_encoded_topology(
         )
     w = np.full(old.padded_edges, INF, np.float32)
     edge_ok = np.zeros(old.padded_edges, bool)
-    if L:
+    if len(col_m):
         m_dir = np.where(col_ok, col_m, INF)
         for side in (0, 1):
             w[old.link_edge_pos[:, side]] = m_dir
@@ -546,11 +574,11 @@ def patch_encoded_topology(
 
     overloaded = np.zeros(old.padded_nodes, bool)
     soft = np.zeros(old.padded_nodes, np.int32)
-    for n, i in old.node_ids.items():
+    for n, i in node_ids.items():
+        # a tombstoned name reads LinkState's defaults (False / 0)
         overloaded[i] = link_state.is_node_overloaded(n)
         soft[i] = link_state.get_node_metric_increment(n)
 
-    # only the weight/validity planes re-scatter from the patched columns
     in_w = in_ok = None
     if old.has_dense:
         pos = old.in_edge_pos
@@ -559,32 +587,15 @@ def patch_encoded_topology(
         in_ok = np.zeros_like(old.in_ok)
         in_w.flat[pos[m]] = w[m]
         in_ok.flat[pos[m]] = edge_ok[m]
-
-    return dataclasses.replace(
-        old, w=w, edge_ok=edge_ok, overloaded=overloaded, soft=soft,
-        links=links, in_w=in_w, in_ok=in_ok,
-    )
+    return dict(w=w, edge_ok=edge_ok, overloaded=overloaded, soft=soft, in_w=in_w, in_ok=in_ok)
 
 
-def patch_encoded_multi_area(
-    prev: EncodedMultiArea, area_link_states, me: str
-) -> Optional[EncodedMultiArea]:
-    """Multi-area wrapper over :func:`patch_encoded_topology`: every area
-    must patch (same area set, per-area node/link identity unchanged) or
-    the whole attempt declines (None).  The stacked [A, ...] weight and
-    drain views are restacked; the layout arrays (src, dst, in_src,
+def _restacked(prev: EncodedMultiArea, areas, topos) -> EncodedMultiArea:
+    """The stacked [A, ...] view of patched per-area encodings: the weight
+    and drain planes are restacked; the layout arrays (src, dst, in_src,
     in_rank, in_has, roots) stay the previous encoding's objects, which is
     how the warm planner and the delta selection recognise one layout
     chain."""
-    areas = sorted(area_link_states.keys())
-    if areas != prev.areas:
-        return None
-    topos = []
-    for a, old_topo in zip(areas, prev.topos):
-        patched = patch_encoded_topology(old_topo, area_link_states[a], me)
-        if patched is None:
-            return None
-        topos.append(patched)
     dense = {}
     if prev.has_dense:
         K = prev.in_src.shape[2]
@@ -616,6 +627,147 @@ def patch_encoded_multi_area(
         roots=prev.roots,
         **dense,
     )
+
+
+# ---------------------------------------------------------------------------
+# slot-stable membership patch: the structural tick's O(links) re-encode
+# ---------------------------------------------------------------------------
+
+
+def patch_encoded_topology_slots(
+    old: EncodedTopology, link_state: LinkState, me: Optional[str] = None
+) -> Tuple[Optional[EncodedTopology], Optional[str]]:
+    """O(links) re-encode of membership churn (a node or link joining or
+    leaving: a rolling restart, autoscaling, key expiry) with every layout
+    array the previous encoding's own object.
+
+      * a node that LEAVES keeps its slot, tombstoned, and each of its
+        links' rows is invalidated in place (``edge_ok=False, w=INF``,
+        byte for byte a down link, so lane ranks, the dst-sort order and
+        the dense in-edge layout never move);
+      * a node that REJOINS revives its slot, and its links reclaim their
+        rows by link identity key;
+      * a NEW name takes the lowest free slot of a tombstoned name that is
+        not rejoining (that name is forgotten: a cold encode is the
+        garbage collector), and its links reclaim tombstoned rows joining
+        the same slot endpoints (a replacement node: new name, same
+        neighbours).
+
+    Returns ``(encoding, None)``, or ``(None, reason)`` for a cold
+    re-encode: ``slot_exhaustion`` (a new name and no free slot) or
+    ``new_link`` (a current link with neither its key's row nor a
+    tombstoned row between the same slots)."""
+    names = set(link_state.get_adjacency_databases().keys())
+    if me is not None:
+        names.add(me)
+    joins = sorted(names - set(old.node_ids.keys()))
+    node_ids = old.node_ids
+    id_to_node = old.id_to_node
+    renamed_slots: List[int] = []
+    if joins:
+        # lowest slot first, so a replay assigns the same slots
+        free = sorted(old.node_ids[n] for n in old.tombstoned_nodes if n not in names)
+        if len(free) < len(joins):
+            return None, "slot_exhaustion"
+        node_ids = dict(old.node_ids)
+        id_to_node = list(old.id_to_node)
+        for name, slot in zip(joins, free):
+            del node_ids[id_to_node[slot]]
+            node_ids[name] = slot
+            id_to_node[slot] = name
+            renamed_slots.append(slot)
+
+    # link rows: the identity key's row first, then a tombstoned row
+    # between the same slots for a new key
+    n_rows = len(old.links)
+    assigned: Dict[int, Link] = {}
+    key_to_li = {lk._key: li for li, lk in enumerate(old.links)}
+    unmatched: List[Link] = []
+    for lk in link_state.all_links():
+        li = key_to_li.get(lk._key)
+        if li is not None and li not in assigned:
+            assigned[li] = lk
+        else:
+            unmatched.append(lk)
+    if unmatched:
+        avail: Dict[Tuple[int, int], List[int]] = {}
+        for li in range(n_rows):
+            if li in assigned:
+                continue
+            e0 = old.link_edge_pos[li, 0]
+            a, b = int(old.src[e0]), int(old.dst[e0])
+            avail.setdefault((min(a, b), max(a, b)), []).append(li)
+        for lk in unmatched:
+            a = node_ids.get(lk.n1)
+            b = node_ids.get(lk.n2)
+            if a is None or b is None:
+                return None, "new_link"
+            cand = avail.get((min(a, b), max(a, b)))
+            if not cand:
+                return None, "new_link"
+            assigned[cand.pop(0)] = lk
+
+    # a tombstoned row reads as a down link
+    col_m = np.full(n_rows, INF, np.float32)
+    col_ok = np.zeros(n_rows, bool)
+    links = list(old.links)
+    for li, lk in assigned.items():
+        links[li] = lk
+        col_m[li] = lk.get_max_metric()
+        col_ok[li] = lk.is_up()
+    planes = _refreshed_planes(old, col_m, col_ok, node_ids, link_state)
+
+    tombstoned_nodes = frozenset(set(node_ids) - names)
+    tombstoned_links = frozenset(li for li in range(n_rows) if li not in assigned)
+    slot_changed = np.zeros(old.padded_nodes, bool)
+    for name in old.tombstoned_nodes ^ tombstoned_nodes:
+        nid = node_ids.get(name)
+        if nid is not None:
+            slot_changed[nid] = True
+    slot_changed[renamed_slots] = True
+    # a link whose tombstone flipped marks both endpoint slots (the
+    # distance and lane diffs catch them too)
+    for li in old.tombstoned_links ^ tombstoned_links:
+        e0 = old.link_edge_pos[li, 0]
+        slot_changed[int(old.src[e0])] = True
+        slot_changed[int(old.dst[e0])] = True
+
+    return (
+        dataclasses.replace(
+            old, node_ids=node_ids, id_to_node=id_to_node, links=links,
+            tombstoned_nodes=tombstoned_nodes, tombstoned_links=tombstoned_links,
+            slot_changed=slot_changed, **planes,
+        ),
+        None,
+    )
+
+
+def patch_encoded_multi_area_slots(
+    prev: EncodedMultiArea, area_link_states, me: str
+) -> Tuple[Optional[EncodedMultiArea], str, Optional[str]]:
+    """Per area, the perturbation patch first (on an area without
+    tombstones), then the slot-stable patch.  Returns ``(enc, kind,
+    reason)``: kind ``"patch"`` (every area took the perturbation patch),
+    ``"slot"`` (at least one area took the slot patch) or ``"cold"`` (enc
+    None; reason ``area_change``, ``slot_exhaustion`` or ``new_link``)."""
+    areas = sorted(area_link_states.keys())
+    if areas != prev.areas:
+        return None, "cold", "area_change"
+    topos = []
+    any_slot = False
+    for a, old_topo in zip(areas, prev.topos):
+        patched = None
+        if not old_topo.tombstoned_nodes and not old_topo.tombstoned_links:
+            patched = patch_encoded_topology(old_topo, area_link_states[a], me)
+        if patched is None:
+            patched, reason = patch_encoded_topology_slots(
+                old_topo, area_link_states[a], me
+            )
+            if patched is None:
+                return None, "cold", reason
+            any_slot = True
+        topos.append(patched)
+    return _restacked(prev, areas, topos), "slot" if any_slot else "patch", None
 
 
 def link_failure_batch(

@@ -97,7 +97,12 @@ def _min_weight_edge_keys(topo, ok: np.ndarray, V: int):
 
 
 def plan_generation_delta(
-    old_topo, root_id: int, old_dist: np.ndarray, new_topo
+    old_topo,
+    root_id: int,
+    old_dist: np.ndarray,
+    new_topo,
+    force_reset: Optional[np.ndarray] = None,
+    trust_layout: bool = False,
 ) -> Optional[GenerationDelta]:
     """Classify one area's LSDB delta and plan the warm rebuild.
 
@@ -105,8 +110,16 @@ def plan_generation_delta(
     tables or padded node shape): the caller solves cold.  Link weight
     changes, link up/down, overload flips and parallel adjacencies are
     warm-eligible.  The descendant sweep is a frontier BFS over the old
-    shortest-path DAG."""
-    if new_topo.id_to_node != old_topo.id_to_node:
+    shortest-path DAG.
+
+    ``trust_layout``: the caller has proven that both encodings share one
+    layout (the new one was slot-patched from the old: the same src and
+    link_index array objects), so the symbol tables are not compared and
+    membership churn is warm-eligible.  ``force_reset`` ([V] bool) names
+    the slots whose membership changed: they seed the reset BFS (a
+    renamed slot's old distance says nothing of its new node), the root
+    excepted."""
+    if not trust_layout and new_topo.id_to_node != old_topo.id_to_node:
         return None
     V = old_topo.padded_nodes
     if new_topo.padded_nodes != V or old_dist.shape[0] != V:
@@ -153,8 +166,11 @@ def plan_generation_delta(
     dag_dst = old_topo.dst[on_edge]
 
     # reset seeds: heads of perturbed directed edges that were ON the old
-    # DAG (an off-DAG removal changes nothing)
+    # DAG (an off-DAG removal changes nothing), and the forced slots
     seed = np.zeros(V, bool)
+    if force_reset is not None:
+        seed |= force_reset.astype(bool)
+        seed[root_id] = False
     if perturbed.any():
         pk = old_keys[perturbed]
         dag_keys = dag_src.astype(np.int64) * V + dag_dst.astype(np.int64)

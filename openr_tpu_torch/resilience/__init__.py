@@ -71,6 +71,8 @@ def node_resilience_status(node) -> Dict[str, object]:
                 for cls in sorted(builds)
             },
             "encode_patches": backend.num_encode_patches,
+            "encode_slot_patches": backend.num_encode_slot_patches,
+            "slot_declines": dict(sorted(backend._slot_decline_reasons.items())),
             "purges": backend.num_warm_purges,
             "purge_reasons": dict(
                 sorted(backend._warm_purge_reasons.items())

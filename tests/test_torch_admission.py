@@ -175,11 +175,10 @@ def test_measured_round_trip_on_the_cpu():
 
 
 #: the reference backend's gauges with no counterpart in the port: the
-#: device pool's selection stream and the slot-stable membership encode
+#: device pool's selection stream
 REF_ONLY_BACKEND = (
     "decision.backend.stream_builds",
     "decision.backend.stream_repacks",
-    "decision.backend.warm_encode_slot_patches",
 )
 
 

@@ -212,8 +212,8 @@ def test_warm_kernels_equal_plain_and_cold(card, world, delta):
         _set_overload(dbs, areas, area, "node1", False)
     else:
         _set_metric(dbs, areas, area, node, 6 if delta == "weaken" else 1)
-    new = csr.patch_encoded_multi_area(old, areas, me)
-    assert new is not None
+    new, kind, _ = csr.patch_encoded_multi_area_slots(old, areas, me)
+    assert kind == "patch"
     plans = [
         plan_generation_delta(ot, int(new.roots[i]), prev_dist[i].cpu().numpy(), nt)
         for i, (ot, nt) in enumerate(zip(old.topos, new.topos))

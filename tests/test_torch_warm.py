@@ -1,7 +1,9 @@
 """The port's warm topology tick against the JAX package, exactly.
 
-* ``ops/csr.py`` ``patch_encoded_multi_area``: array for array against the
-  reference's patch, layout arrays shared with the previous encoding.
+* ``ops/csr.py`` ``patch_encoded_multi_area_slots`` on a perturbation:
+  kind ``patch``, array for array against the reference's
+  ``patch_encoded_multi_area``, layout arrays shared with the previous
+  encoding; on membership churn and an area change, the reference's kinds.
 * ``ops/repair.py`` ``plan_generation_delta``: the same reset set, lane
   compatibility, improvement flag and sub-edge list, and None where the
   reference declines.
@@ -176,18 +178,26 @@ def test_patch_encoded_multi_area_matches_reference(world):
         wd.set_metric(area, node, k, 4)
     wd.flip_overload(area, sorted(wd.adj[area])[2])
     ref = jcsr.patch_encoded_multi_area(ref0, wd.ref, wd.me)
-    port = tcsr.patch_encoded_multi_area(port0, wd.port, wd.me)
-    assert ref is not None and port is not None
+    port, kind, reason = tcsr.patch_encoded_multi_area_slots(port0, wd.port, wd.me)
+    assert ref is not None and (kind, reason) == ("patch", None)
     assert_encodings_equal(ref, port)
     # the layout arrays are the previous encoding's own objects
     assert port.src is port0.src and port.in_src is port0.in_src
     assert port.topos[0].link_index is port0.topos[0].link_index
     # and the patch equals a cold encode of the new LSDB
     assert_encodings_equal(jcsr.encode_multi_area(wd.ref, wd.me), port)
-    # membership churn declines in both
+    # membership churn declines the perturbation patch in both, and both
+    # take the slot patch; an area change goes cold in both
     wd.delete_node(area, sorted(wd.adj[area])[-1])
     assert jcsr.patch_encoded_multi_area(ref, wd.ref, wd.me) is None
-    assert tcsr.patch_encoded_multi_area(port, wd.port, wd.me) is None
+    want = jcsr.patch_encoded_multi_area_slots(ref, wd.ref, wd.me)
+    got = tcsr.patch_encoded_multi_area_slots(port, wd.port, wd.me)
+    assert want[1:] == got[1:] == ("slot", None)
+    assert_encodings_equal(want[0], got[0])
+    fewer = dict(list(wd.port.items())[1:])
+    assert tcsr.patch_encoded_multi_area_slots(port, fewer, wd.me) == (None, "cold", "area_change")
+    fewer_ref = dict(list(wd.ref.items())[1:])
+    assert jcsr.patch_encoded_multi_area_slots(ref, fewer_ref, wd.me)[1:] == ("cold", "area_change")
 
 
 # -- the generation-delta planner ----------------------------------------
@@ -576,9 +586,10 @@ def test_backend_churn_sweep_without_warm_rebuild():
 
 @pytest.mark.parametrize("hint", ["structural_delta", "warm_delta"])
 def test_membership_churn_solves_cold_with_the_same_route_db(hint):
-    """A node leaving and rejoining: the reference slot-patches its
-    encoding and may warm-start; the port re-encodes cold and its planner
-    declines the delta as structural.  The RouteDbs stay equal."""
+    """A node leaving and rejoining: both packages slot-patch their encoding
+    and warm-start from the surviving region (the test keeps its name from
+    when the port re-encoded cold).  The RouteDbs, changed sets and path
+    counters are the reference's."""
     wd = grid_world(4)
     ps, _adverts = grid_prefixes()
     me = wd.me
@@ -597,6 +608,11 @@ def test_membership_churn_solves_cold_with_the_same_route_db(hint):
         db_p = port.build_route_db(wd.port, ps.port, **hints)
         want = ref_summary(SpfSolver(me).build_route_db(wd.ref, ps.ref))
         assert ref_summary(db_t) == want and port_summary(db_p) == want, tick
-        assert port.take_last_changed_prefixes() is None  # a full build
-    assert port.num_warm_builds == 0 and port.num_encode_patches == 0
-    assert port.num_warm_cold_fallbacks == 2
+        assert port.take_last_changed_prefixes() == tpu.take_last_changed_prefixes(), tick
+        for name in COUNTERS + ("num_encode_slot_patches", "num_warm_cold_fallbacks"):
+            assert getattr(port, name) == getattr(tpu, name), (tick, name)
+    cls = "structural" if hint == "structural_delta" else "perturbation"
+    assert port._warm_class_builds == tpu._warm_class_builds
+    assert port._warm_class_builds[cls] == 2
+    assert port.num_encode_slot_patches == 2 and port.num_encode_patches == 0
+    assert port.num_warm_cold_fallbacks == 0
